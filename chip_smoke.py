@@ -10,13 +10,16 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build   — every CUDA kernel from ``src/repro_torch/kernels/csrc``, one
              nvcc per source, in parallel.
 3. kernels — each kernel against its plain PyTorch version at the serving
-             path's shapes (H=24, K=2, hd=128): paged attention over bf16
-             and f32 pools, bs 8/16, S=1 and S=32/128, tail positions and
+             paths' shapes: paged attention over bf16 and f32 pools (H=24,
+             K=2, hd=128), bs 8/16, S=1 and S=32/128, tail positions and
              trash-block rows; flash attention at ragged prefill lengths;
-             int8 quantize/dequantize bit-exact.  Then each kernel's time
-             (CUDA events around device work, L2 flushed) beside its plain
-             version's, a library call's where one computes the same
-             function, and its bound at this run's shapes.
+             int8 quantize/dequantize bit-exact; the selective scan (D=8192,
+             N=16) at prefill lengths 1-512 with and without h0, f32 and
+             bf16 x/dt, and at decode (B=8, S=1 and S=5 from h0).  Then
+             each kernel's time (CUDA events around device work, L2
+             flushed) beside its plain version's, a library call's where
+             one computes the same function, and its bound at this run's
+             shapes.
 4. parity  — full-width starcoder2-3b decode step: paged kernel against
              the plain dense gather path on one f32 pool, one layer deep
              and all 30 layers (against a measured rounding-noise floor).
@@ -30,12 +33,23 @@ Phases, in order; any failure exits non-zero before the result line:
              and the served tokens agree with a full-sequence prefill.
 6. profile — one decode step of the serve arm under torch.profiler: the
              card's busy share and the kernels that take the time.
+7. ssm     — the dense model is freed; full-width falcon-mamba-7b (64
+             mamba1 layers, d_inner 8192, N 16): token-by-token decode
+             from the stored state against one prefill of the sequence
+             (one layer deep, and all 64 against a measured rounding-noise
+             floor); a serve of the mixed_lengths trace (8 slots, bf16
+             conv state) in which the scan kernel must launch in prefill
+             and in decode, every request completes, no slot stays live
+             and the served tokens agree with a full-sequence prefill; the
+             profile of one decode step at 8 slots.
 
 Prints one JSON ``kernels`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -47,14 +61,30 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # dense bf16 tensor cores
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
+DENSE_KERNELS = ("paged_attention", "flash_attention", "quantize",
+                 "dequantize")
+SFU_PER_SM_CLOCK = 16              # exponentials per SM per clock (MUFU)
+N_SMS = 132
 H, K, HD = 24, 2, 128              # starcoder2-3b attention geometry
 BF16_TOL = 2e-2                    # one bf16 step at |x| < 4, plus slack
 F32_TOL = 2e-5                     # summation order only
+SCAN_TOL = 1e-4                    # f32 rounding of expf, the state update
+                                   # and the <h, C> sum over <= 512 steps
 
 
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def sm_clock_ghz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) / 1e3
 
 
 def card_line() -> str:
@@ -255,6 +285,91 @@ def check_kernels(torch):
     return rows
 
 
+def check_scan(torch):
+    """The selective scan against its plain version at falcon-mamba-7b's
+    width (D = 8192, N = 16), then timed at the serve's shapes: a prefill
+    of a 256-token bucket (B = 1, no h0) and a decode tick (B = 8, S = 1,
+    h0 updated in place).  Inputs as the model makes them: x bf16 (the
+    conv's output), dt f32 from a softplus, A = -(1..16)."""
+    from repro_torch.kernels.mamba_scan import (selective_scan,
+                                                selective_scan_ref)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    D, N = 8192, 16
+    A = -torch.arange(1, N + 1, dtype=f32, device=dev).expand(D, N) \
+        .contiguous()
+
+    def case(B, S, xdt, dtdt, h0):
+        x = torch.randn((B, S, D), generator=g, device=dev).to(xdt)
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, D), generator=g, device=dev)).to(dtdt)
+        Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev)
+                  for _ in range(2))
+        h = (torch.randn((B, D, N), generator=g, device=dev) if h0
+             else None)
+        return x, dt, Bm, Cm, A, h
+
+    err = 0.0
+    cases = [(1, S, xdt, xdt, h0) for S in (1, 16, 37, 256, 512)
+             for h0 in (False, True) for xdt in (f32, bf16)]
+    cases += [(1, 256, bf16, f32, False), (8, 1, bf16, f32, True),
+              (8, 1, f32, f32, True), (8, 5, bf16, f32, True)]
+    for B, S, xdt, dtdt, h0 in cases:
+        x, dt, Bm, Cm, A_, h = case(B, S, xdt, dtdt, h0)
+        ry, rh = selective_scan_ref(x, dt, Bm, Cm, A_, h)
+        hs = None if h is None else h.clone()
+        y, hl = selective_scan(x, dt, Bm, Cm, A_, hs, h_out=hs)
+        torch.cuda.synchronize()
+        what = (f"selective_scan B={B} S={S} x={xdt} dt={dtdt} "
+                f"h0={'yes' if h0 else 'no'}")
+        if hs is not None and hl.data_ptr() != hs.data_ptr():
+            fail(f"{what}: h_out was not written in place")
+        err = max(err, check_close(torch, what + " y", y, ry, SCAN_TOL),
+                  check_close(torch, what + " h", hl, rh, SCAN_TOL))
+
+    clock = sm_clock_ghz()
+
+    def scan_bound(B, S, xb, h0):
+        n = B * S * D
+        nbytes = (n * (xb + 4)           # x, dt read
+                  + n * 4                # y written
+                  + 2 * B * S * N * 4    # Bm, Cm
+                  + D * N * 4            # A
+                  + B * D * N * 4 * (2 if h0 else 1))   # h0, h_last
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_exp = n * N / (SFU_PER_SM_CLOCK * N_SMS * clock * 1e9) * 1e3
+        t_fma = (6 * n * N + n) / F32_FLOPS * 1e3
+        t_ops = max(t_exp, t_fma)
+        return ((t_bytes, "bytes") if t_bytes >= t_ops
+                else (t_ops, "operations")), t_bytes, t_exp, t_fma
+
+    timed = {}
+    for label, B, S, h0 in (("decode", 8, 1, True), ("prefill", 1, 256,
+                                                     False)):
+        x, dt, Bm, Cm, A_, h = case(B, S, bf16, f32, h0)
+        ms = timed_ms(torch, lambda: selective_scan(x, dt, Bm, Cm, A_, h,
+                                                    h_out=h))
+        plain = timed_ms(torch, lambda: selective_scan_ref(x, dt, Bm, Cm,
+                                                           A_, h))
+        b, tb, te, tf = scan_bound(B, S, 2, h0)
+        timed[label] = (ms, plain, b)
+        print(f"kernel selective_scan[{label} B={B} S={S}]: "
+              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms="
+              f"{b[0]:.4f} ({b[1]}; bytes {tb:.4f}, exponentials {te:.4f} "
+              f"at {clock:.3f} GHz x {N_SMS} SMs x {SFU_PER_SM_CLOCK}/clock,"
+              f" f32 FMAs {tf:.4f})", flush=True)
+    ms, plain, b = timed["decode"]
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan/kernel.py:58",
+        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, bound=b,
+        shape=f"decode B=8 S=1 D={D} N={N}, x bf16, dt f32, h0 in place; "
+              f"prefill B=1 S=256: {timed['prefill'][0]:.4f} ms (plain "
+              f"{timed['prefill'][1]:.4f}, bound {timed['prefill'][2][0]:.4f}"
+              f" {timed['prefill'][2][1]})")
+
+
 # ------------------------------------------------------------ phase 4
 def decode_parity(torch, cfg, params):
     """Paged decode (kernel) against the plain gather path on one f32 pool
@@ -325,11 +440,31 @@ def _slice(tree, depth):
 
 
 # ------------------------------------------------------------ phase 5
-def serve_arm(torch, cfg, params, setting, trace, label):
+class LaunchSpans:
+    """A tracer for the engine that counts the kernel launches made inside
+    each span name (``serve.prefill``, ``serve.decode``, ...)."""
+
+    def __init__(self, launches: dict):
+        self.launches = launches
+        self.by_span: dict = {}
+
+    @contextlib.contextmanager
+    def span(self, name, **_):
+        before = dict(self.launches)
+        try:
+            yield
+        finally:
+            d = self.by_span.setdefault(name, dict.fromkeys(before, 0))
+            for k, n in self.launches.items():
+                d[k] += n - before[k]
+
+
+def serve_arm(torch, cfg, params, setting, trace, label, tracer=None):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import Request, ServingEngine, serve_loop
     dev = torch.device("cuda")
-    eng = ServingEngine(params, cfg, setting, max_seq=1024, device=dev)
+    eng = ServingEngine(params, cfg, setting, max_seq=1024, device=dev,
+                        tracer=tracer)
     eng.warm_start(max_prompt=max(len(r.prompt) for r in trace))
     # one unrelated request first: cuBLAS and allocator warm-up stays out
     # of the measured run (its blocks stay cached and never match)
@@ -337,6 +472,9 @@ def serve_arm(torch, cfg, params, setting, trace, label):
         0, cfg.vocab_size, (40,), generator=torch.Generator().manual_seed(9)
     ).numpy().astype("int32"), max_new=2)
     serve_loop(eng, [warm])
+    if tracer is not None:
+        tracer.by_span.clear()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     stats = serve_loop(eng, trace)
     launches = dict(LAUNCHES)
@@ -346,28 +484,33 @@ def serve_arm(torch, cfg, params, setting, trace, label):
     short = [r.rid for r in done if len(r.tokens_out) != r.max_new]
     if short:
         fail(f"{label}: requests {short} stopped before max_new tokens")
-    eng.pool.check_invariants()
     snap = eng.pool.snapshot()
-    if eng.pool.n_active or snap["blocks_held"] != snap["prefix_cached_blocks"]:
-        fail(f"{label}: blocks leaked after the drain: {snap}")
+    if eng.pool.kind == "paged":
+        eng.pool.check_invariants()
+        if eng.pool.n_active or (snap["blocks_held"]
+                                 != snap["prefix_cached_blocks"]):
+            fail(f"{label}: blocks leaked after the drain: {snap}")
+    elif eng.pool.n_active or any(eng.pool.slot_live):
+        fail(f"{label}: slots still live after the drain: {snap}")
     print(f"serve[{label}]: {stats['completed']}/{len(trace)} requests, "
           f"{stats['tokens']} tokens in {stats['wall_s']:.3f}s = "
           f"{stats['tokens_per_s']:.1f} tok/s, ttft p50 "
           f"{stats['p50_ttft_s']:.4f}s, decode {stats['decode_tok_per_s']:.1f}"
           f" tok/s, prefill {stats['prefill_tokens_computed']}/"
           f"{stats['prefill_tokens_total']} tokens computed, "
-          f"{stats['cow_copies']} COW copies, launches {launches}",
-          flush=True)
+          f"{stats['cow_copies']} COW copies, launches {launches}, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB", flush=True)
     return eng, done, stats, launches
 
 
 def check_tokens(torch, cfg, params, reqs, tol):
-    """The served tokens against one full-sequence prefill (flash kernel,
-    no paged cache) over prompt + generated tokens: at every generated
-    position the served token's logit is within ``tol`` (phase 4's bound
-    for two paths that differ only in rounding) of the row's maximum — a
-    tie-aware greedy check of the paged decode path against an
-    independent path."""
+    """The served tokens against one full-sequence prefill (no decode
+    cache) over prompt + generated tokens: at every generated position the
+    served token's logit is within ``tol`` (the parity phase's bound for
+    two paths that differ only in rounding) of the row's maximum — a
+    tie-aware greedy check of the decode path (paged KV or stored ssm
+    state) against an independent path."""
     from repro_torch.models import lm
     worst, exact, total = 0.0, 0, 0
     for r in reqs:
@@ -383,21 +526,167 @@ def check_tokens(torch, cfg, params, reqs, tol):
         worst = max(worst, float(gap.max()))
         exact += int((gap == 0).sum())
         total += len(r.tokens_out)
-    if worst > tol:
-        fail(f"served tokens disagree with the prefill path: logit gap "
-             f"{worst} > {tol}")
     print(f"tokens: {exact}/{total} served tokens are the prefill path's "
           f"argmax, worst logit gap {worst:.4g} (tolerance {tol})",
           flush=True)
+    if worst > tol:
+        fail(f"served tokens disagree with the prefill path: logit gap "
+             f"{worst} > {tol}")
+
+
+# ------------------------------------------------------------ phase 7
+def ssm_parity(torch, cfg, params):
+    """Token-by-token decode (S = 1 from the stored state, the scan kernel
+    with h0 written in place) against one prefill of the same sequence
+    (the scan kernel from zeros), at full width.
+
+    - 12 tokens from a zero state, 2 sequences: one layer deep the last
+      logits agree within 2e-2; at all 64 layers they are held against a
+      rounding-noise floor measured in the run — the decode path against
+      itself with its stored state h scaled by (1 + 2^-22), two f32 ulps,
+      before every step — within 2e-2 + 1.5 x that floor.
+    - At the serve's shapes, 8 sequences: a 288-token prefill, then 12
+      decode steps of 8 rows, against one 300-token prefill.  Their
+      matmuls round bf16 products in other orders (cuBLAS picks other
+      kernels for 8 rows than for 2,400), and the bf16 residual stream
+      carries those roundings through 64 layers.  The largest logit
+      difference over the 12 steps is the rounding floor of "served vs
+      one prefill", and every argmax mismatch must be a near-tie within
+      2e-2 + 1.5 x that floor.
+
+    Returns that bound: the served-token check's tolerance."""
+    import dataclasses
+
+    from repro_torch.models import lm
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def model(depth):
+        return (dataclasses.replace(cfg, n_layers=depth),
+                dict(params, layers=_slice(params["layers"], depth)))
+
+    def decode(c, p, tok, t0, cache, eps=0.0):
+        """Logits (B, S - t0, V) of decode steps t0.. of ``tok``."""
+        B, S = tok.shape
+        out = []
+        for t in range(t0, S):
+            cache["h"].mul_(1 + eps)
+            logits, cache = lm.decode_step(
+                p, cache, tok[:, t:t + 1],
+                torch.full((B,), t, dtype=torch.int32, device=dev), c)
+            out.append(logits[:, 0].float())
+        torch.cuda.synchronize()
+        out = torch.stack(out, 1)
+        if not torch.isfinite(out).all():
+            fail("ssm decode logits not finite")
+        return out
+
+    def zero_cache(c, B):
+        shapes = lm.init_cache_shapes(c, B)
+        return {"conv": torch.zeros(shapes["conv"], dtype=torch.bfloat16,
+                                    device=dev),
+                "h": torch.zeros(shapes["h"], device=dev)}
+
+    def near_ties(out, ref, tol, what):
+        miss = out.argmax(-1) != ref.argmax(-1)
+        gap = ref.max(-1).values - ref.gather(
+            -1, out.argmax(-1, keepdim=True))[..., 0]
+        if float((gap * miss).max()) > tol:
+            fail(f"{what}: argmax gap {float((gap * miss).max())} beyond "
+                 f"{tol}")
+        return 1 - float(miss.float().mean())
+
+    tok = torch.randint(0, cfg.vocab_size, (2, 12), generator=g, device=dev)
+    errs = {}
+    for depth in (1, cfg.n_layers):
+        c, p = model(depth)
+        ref = lm.prefill(p, tok, c)[0][:, -1].float()
+        out = decode(c, p, tok, 0, zero_cache(c, 2))[:, -1]
+        errs[depth] = (out, ref)
+    err1 = check_close(torch, "1-layer ssm decode vs prefill", *errs[1],
+                       BF16_TOL)
+    out, ref = errs[cfg.n_layers]
+    noise = max_err(torch, decode(cfg, params, tok, 0, zero_cache(cfg, 2),
+                                  eps=2.0 ** -22)[:, -1], out)
+    tol = BF16_TOL + 1.5 * noise
+    err = max_err(torch, out, ref)
+    if err > tol:
+        fail(f"full-width ssm decode vs prefill: max abs err {err} beyond "
+             f"{tol}")
+    agree = near_ties(out, ref, tol, "full-width ssm decode vs prefill")
+    print(f"parity[{cfg.name}]: decode (S=1 from the stored state) vs one "
+          f"prefill of 12 tokens at full width: 1 layer max_abs_err="
+          f"{err1:.4g} (bound {BF16_TOL}); {cfg.n_layers} layers "
+          f"max_abs_err={err:.4g} against a rounding-noise floor of "
+          f"{noise:.4g} (bound {tol:.4g}), argmax agreement {agree:.3f}, "
+          f"|logit| max {float(ref.abs().max()):.3f}", flush=True)
+
+    tok = torch.randint(0, cfg.vocab_size, (8, 300), generator=g,
+                        device=dev)
+    ref = lm.logits_fn(params, lm.forward(params, tok, cfg)[0][:, 288:],
+                       cfg).float()
+    cache = lm.forward(params, tok[:, :288], cfg)[1]
+    floor = max_err(torch, decode(cfg, params, tok, 288, cache), ref)
+    tol = BF16_TOL + 1.5 * max(floor, noise)
+    agree = near_ties(decode(cfg, params, tok, 288,
+                             lm.forward(params, tok[:, :288], cfg)[1]),
+                      ref, tol, "serve-shaped ssm decode vs prefill")
+    print(f"parity[{cfg.name}]: 288-token prefill + 12 decode steps of 8 "
+          f"rows vs one 300-token prefill: max_abs_err={floor:.4g} "
+          f"(the served-token check's floor; bound {tol:.4g}), argmax "
+          f"agreement {agree:.3f}", flush=True)
+    return tol
+
+
+def ssm_path(torch, card):
+    """Phase 7 on full-width falcon-mamba-7b.  Returns the scan's launch
+    count in the serve."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.serving import DEFAULT_SERVING_SETTING
+    from repro_torch.serving.workload import make_trace
+    cfg = get_config("falcon-mamba-7b")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"model: {cfg.name} full width, {n_params / 1e9:.3f} B params "
+          f"bf16, init {time.perf_counter() - t0:.1f}s", flush=True)
+    tol = ssm_parity(torch, cfg, params)
+    setting = dict(DEFAULT_SERVING_SETTING, max_batch=8, cache_dtype="bf16")
+    trace = make_trace("mixed_lengths", 400.0, 0.04, vocab=cfg.vocab_size,
+                       seed=5, short_lens=(16, 96), long_lens=(256, 512),
+                       long_frac=0.25, max_news=(32, 32))
+    spans = LaunchSpans(LAUNCHES)
+    eng, done, stats, launches = serve_arm(torch, cfg, params, setting,
+                                           trace, "falcon-mamba bf16",
+                                           tracer=spans)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    by = {k: v["selective_scan"] for k, v in spans.by_span.items()
+          if k in ("serve.prefill", "serve.decode")}
+    print(f"serve[falcon-mamba bf16]: selective_scan launches by span "
+          f"{by}", flush=True)
+    if min(by.get("serve.prefill", 0), by.get("serve.decode", 0)) == 0:
+        fail(f"the ssm serve did not launch selective_scan in both prefill "
+             f"and decode: {by}")
+    profile_decode(torch, cfg, params)
+    check_tokens(torch, cfg, params, [done[0], done[1], max(
+        done, key=lambda r: len(r.prompt))], tol)
+    print(f"serve[falcon-mamba bf16]: {stats['tokens_per_s']:.1f} tok/s, "
+          f"ttft p50 {stats['p50_ttft_s']:.4f}s, decode "
+          f"{stats['decode_tok_per_s']:.1f} tok/s on {card}; peak device "
+          f"memory in the serve {peak:.2f} GiB", flush=True)
+    return launches["selective_scan"]
 
 
 # ------------------------------------------------------------ phase 6
 def profile_decode(torch, cfg, params):
-    """Where a decode tick's time goes: the serve arm's decode step (8
-    slots, ~290-370 tokens of context, bf16 pool, bs 16, ctx_cols 33)
-    timed without the profiler, then under ``torch.profiler``: the card's
-    kernel time per step against the wall time, and the kernels that take
-    it."""
+    """Where a decode tick's time goes.  Dense: the serve arm's decode step
+    (8 slots, ~290-370 tokens of context, bf16 pool, bs 16, ctx_cols 33);
+    ssm: 8 slots of stored state (bf16 conv window, f32 h).  Timed
+    without the profiler, then under ``torch.profiler``: the card's kernel
+    time per step against the wall time, and the kernels that take it."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import lm
@@ -405,15 +694,22 @@ def profile_decode(torch, cfg, params):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     B, bs, mb = 8, 16, 64
-    shape = lm.init_paged_cache_shapes(cfg, B * mb + 1, bs)["k"]
-    cache = {k: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-             for k in "kv"}
-    cache["block_tables"] = (torch.arange(B * mb, device=dev).reshape(B, mb)
-                             + 1).to(torch.int32)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device=dev)
     pos = torch.tensor([300, 317, 333, 351, 288, 299, 345, 372], device=dev,
                        dtype=torch.int32)
-    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device=dev)
-    knobs = ModelKnobs(attn_impl="paged", attn_ctx=33)
+    if cfg.family == "ssm":
+        shapes = lm.init_cache_shapes(cfg, B)
+        cache = {"conv": torch.randn(shapes["conv"], generator=g, device=dev
+                                     ).to(torch.bfloat16),
+                 "h": torch.randn(shapes["h"], generator=g, device=dev)}
+        knobs = ModelKnobs()
+    else:
+        shape = lm.init_paged_cache_shapes(cfg, B * mb + 1, bs)["k"]
+        cache = {k: torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16) for k in "kv"}
+        cache["block_tables"] = (torch.arange(B * mb, device=dev).reshape(
+            B, mb) + 1).to(torch.int32)
+        knobs = ModelKnobs(attn_impl="paged", attn_ctx=33)
 
     def step():
         lm.decode_step(params, cache, tok, pos, cfg, knobs)
@@ -438,7 +734,8 @@ def profile_decode(torch, cfg, params):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     busy = sum(dev_us(e) for e in kernels) / n / 1e3
-    print(f"profile: decode step (8 slots, 30 layers) {wall:.3f} ms wall, "
+    print(f"profile[{cfg.name}]: decode step (8 slots, {cfg.n_layers} "
+          f"layers) {wall:.3f} ms wall, "
           f"{busy:.3f} ms of kernels on the card = busy share "
           f"{busy / wall:.3f}; {sum(e.count for e in kernels) // n} kernel "
           f"launches a step", flush=True)
@@ -447,40 +744,13 @@ def profile_decode(torch, cfg, params):
               f"{e.count // n:5d} x  {e.key[:90]}", flush=True)
 
 
-def main():
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        fail("src/repro_torch not found beside chip_smoke.py")
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
-    if not torch.cuda.is_available():
-        fail("torch sees no CUDA device")
+def dense_path(torch, card):
+    """Phases 4-6 on full-width starcoder2-3b.  Returns the launch counts of
+    the dense path's kernels in its two serve arms."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import LAUNCHES, build_all
     from repro_torch.models import lm
     from repro_torch.serving import DEFAULT_SERVING_SETTING, Request
     from repro_torch.serving.workload import make_trace
-
-    t_all = time.perf_counter()
-    card = card_line()
-    print(f"device: {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}",
-          flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    t0 = time.perf_counter()
-    logs = build_all()
-    print(f"build: {len(logs)} libraries in {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    for name, log in logs.items():
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-        spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", log))
-        print(f"build[{name}]: {len(regs)} kernels for sm_90a, registers "
-              f"{min(regs, default=0)}-{max(regs, default=0)} a thread, "
-              f"{spill} bytes of spill stores+loads", flush=True)
-
-    rows = check_kernels(torch)
-
     cfg = get_config("starcoder2-3b")
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
@@ -502,6 +772,7 @@ def main():
     trace.append(cow)
     _, done, stats, la = serve_arm(torch, cfg, params, share, trace,
                                    "prefix_share bf16")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if stats["cow_copies"] == 0:
         fail("the whole-template request made no copy-on-write copy")
     check_tokens(torch, cfg, params,
@@ -510,15 +781,55 @@ def main():
     trace8 = make_trace("shared_prefix", 400.0, 0.015, vocab=cfg.vocab_size,
                         seed=100, prefix_len=192, tail_lens=(8, 48),
                         max_news=(8, 8))
-    _, done8, _, lb = serve_arm(torch, cfg, params, int8, trace8, "int8")
+    _, _, _, lb = serve_arm(torch, cfg, params, int8, trace8, "int8")
     profile_decode(torch, cfg, params)
-    launches = {k: la[k] + lb[k] for k in LAUNCHES}
+    launches = {k: la[k] + lb[k] for k in DENSE_KERNELS}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"the serve path never launched {missing}: {launches}")
     print(f"serve: {stats['tokens_per_s']:.1f} tok/s, ttft p50 "
-          f"{stats['p50_ttft_s']:.4f}s on {card}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+          f"{stats['p50_ttft_s']:.4f}s on {card}; peak device memory in the "
+          f"prefix_share serve {peak:.2f} GiB", flush=True)
+    return launches
+
+
+def main():
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail("src/repro_torch not found beside chip_smoke.py")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA device")
+    from repro_torch.kernels import build_all
+
+    t_all = time.perf_counter()
+    card = card_line()
+    print(f"device: {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    logs = build_all()
+    print(f"build: {len(logs)} libraries in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    for name, log in logs.items():
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", log))
+        print(f"build[{name}]: {len(regs)} kernels for sm_90a, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)} a thread, "
+              f"{spill} bytes of spill stores+loads", flush=True)
+
+    rows = check_kernels(torch)
+    rows["selective_scan"] = check_scan(torch)
+    launches = dense_path(torch, card)
+    # free the dense model (and its engines' pools) before falcon-mamba
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"freed the dense model: {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+          f" GiB still allocated", flush=True)
+    launches["selective_scan"] = ssm_path(torch, card)
 
     line = {"kernels": [
         {"name": name, "route": r["route"], "source": r["source"],

@@ -9,7 +9,8 @@ launch builds what it needs, and ``build_all`` builds every kernel at once,
 one ``nvcc`` process per source, all started together.
 
 ``--use_fast_math`` is deliberately absent: the int8 quantizer must be
-bit-exact against its plain version.
+bit-exact against its plain version, and the selective scan's ``expf``
+within f32 rounding of its own.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per launch, nowhere
 else), so a run can show that its path went through the kernels.
@@ -27,12 +28,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention", "flash_attention", "quant")
+SOURCES = ("paged_attention", "flash_attention", "quant", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"paged_attention": 0, "flash_attention": 0, "quantize": 0,
-            "dequantize": 0}
+            "dequantize": 0, "selective_scan": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -5,12 +5,18 @@ setting, on the CUDA device by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
       --batch 4
 
+  # full-width falcon-mamba-7b (ssm family, selective-scan kernel):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+
   # reduced config on the CPU (plain PyTorch versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+      --reduced --device cpu
 
-Weights are random, drawn from ``--seed``.  ``--selftune`` and
-``--tuning-store`` come with a later slice of the port and raise.
+Weights are random, drawn from ``--seed``.  ``--selftune``,
+``--tuning-store`` and the hybrid, moe, vlm and encoder archs come with
+later slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -60,4 +60,4 @@ def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
     scale = 1.0 / np.sqrt(shape[in_axis])
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * scale).to(dtype)
+    return t.mul_(scale).to(dtype)      # in place: one f32 copy at a time

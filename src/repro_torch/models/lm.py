@@ -1,17 +1,21 @@
-"""Dense decoder LM: parameters, prefill and paged decode.
+"""Decoder LM: parameters, prefill and decode, for the dense family
+(attention + SwiGLU MLP, paged KV decode) and the ssm family (mamba1
+blocks, recurrent-state decode).
 
-The port of the JAX package's ``models/lm.py`` for the dense family.
-Parameters are a nested dict of tensors with the JAX tree's keys: layer
-weights are stacked on a leading L axis and weight matrices keep JAX's
-(in, out) orientation, so ``x @ w`` is the JAX einsum.  The layer loop is
-a Python loop over views of the stacked tensors.
+The port of the JAX package's ``models/lm.py``.  Parameters are a nested
+dict of tensors with the JAX tree's keys: layer weights are stacked on a
+leading L axis and weight matrices keep JAX's (in, out) orientation, so
+``x @ w`` is the JAX einsum.  The layer loop is a Python loop over views
+of the stacked tensors.
 
-Decode writes the new KV rows into the paged pool *in place* (JAX returns
-rebuilt arrays): ``cache["k"]``/``cache["v"]`` are the pool's own tensors,
-and ``decode_step`` returns the same dict it was given.
+Decode writes the new state into the cache it is given *in place* (JAX
+returns rebuilt arrays): the dense family's KV rows into the paged pool's
+``cache["k"]``/``cache["v"]``, the ssm family's conv window and SSM state
+into ``cache["conv"]``/``cache["h"]``; ``decode_step`` returns the same
+dict it was given.
 
-Other families (moe, ssm, hybrid, vlm, encoder) are served by later
-slices of the port and raise ``NotImplementedError``.
+Other families (hybrid, moe, vlm, encoder) are served by later slices of
+the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,8 +29,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import common
 from repro_torch.models.attention import (chunked_attention, decode_attention,
                                           paged_decode_attention)
+from repro_torch.models.mamba import mamba1_block
 
-ZERO_INIT = ("scale", "bq", "bk", "bv")     # norm gains (1 + scale), biases
+ZERO_INIT = ("scale", "bq", "bk", "bv",     # norm gains (1 + scale), biases
+             "conv_b", "dt_b")
 
 
 @dataclass(frozen=True)
@@ -43,11 +49,14 @@ class ModelKnobs:
 
 
 def check_family(cfg: ModelConfig):
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: this slice of the "
-            f"port serves the dense family; moe, ssm, hybrid, vlm and "
-            f"encoder come with the 'other families' slice")
+    if cfg.family == "dense" or (cfg.family == "ssm"
+                                 and cfg.ssm_version == 1):
+        return
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet: the port serves the "
+        f"dense family and the ssm family (mamba1); hybrid (mamba2 + shared "
+        f"attention), moe, vlm and encoder come with a later 'other "
+        f"families' slice")
 
 
 def _pdt(cfg: ModelConfig):
@@ -61,19 +70,30 @@ def _pdt(cfg: ModelConfig):
 def param_shapes(cfg: ModelConfig) -> dict:
     """Nested dict of shapes, keyed as the JAX package's ``param_shapes``."""
     check_family(cfg)
-    L, D, H, K, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                      cfg.hd)
-    F_, V = cfg.d_ff, cfg.vocab_size
-    attn = {"wq": (L, D, H * hd), "wk": (L, D, K * hd), "wv": (L, D, K * hd),
-            "wo": (L, H * hd, D)}
-    if cfg.qkv_bias:
-        attn.update({"bq": (L, H * hd), "bk": (L, K * hd), "bv": (L, K * hd)})
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    if cfg.family == "ssm":
+        Di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+        layers = {"ln1": {"scale": (L, D)},
+                  "ssm": {"in_proj": (L, D, 2 * Di),
+                          "conv_w": (L, Di, cfg.ssm_conv), "conv_b": (L, Di),
+                          "out_proj": (L, Di, D),
+                          "x_proj": (L, Di, R + 2 * N), "dt_w": (L, R, Di),
+                          "dt_b": (L, Di), "A_log": (L, Di, N),
+                          "Dskip": (L, Di)}}
+    else:
+        H, K, hd, F_ = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+        attn = {"wq": (L, D, H * hd), "wk": (L, D, K * hd),
+                "wv": (L, D, K * hd), "wo": (L, H * hd, D)}
+        if cfg.qkv_bias:
+            attn.update({"bq": (L, H * hd), "bk": (L, K * hd),
+                         "bv": (L, K * hd)})
+        layers = {"ln1": {"scale": (L, D)}, "ln2": {"scale": (L, D)},
+                  "attn": attn,
+                  "mlp": {"wi": (L, D, F_), "wg": (L, D, F_),
+                          "wo": (L, F_, D)}}
     tree = {
         "embed": {"tokens": (V, D)},
-        "layers": {"ln1": {"scale": (L, D)}, "ln2": {"scale": (L, D)},
-                   "attn": attn,
-                   "mlp": {"wi": (L, D, F_), "wg": (L, D, F_),
-                           "wo": (L, F_, D)}},
+        "layers": layers,
         "final_norm": {"scale": (D,)},
     }
     if not cfg.tie_embeddings:
@@ -91,13 +111,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default: the CUDA device; raises without one unless ``device`` is
     given): truncated normal on [-2, 2] over sqrt(fan_in), with norm gains
-    and biases zero — the JAX package's distributions, not its numbers."""
+    and biases zero, and the ssm fix-ups ``A_log = log(1..N)`` and
+    ``Dskip = 1`` — the JAX package's distributions, not its numbers."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dt = _pdt(cfg)
 
     def make(path, shape):
+        if path[-1] == "A_log":
+            a = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                       device=dev))
+            return a.expand(shape).to(dt)
+        if path[-1] == "Dskip":
+            return torch.ones(shape, dtype=dt, device=dev)
         if len(shape) <= 1 or path[-1] in ZERO_INIT:
             return torch.zeros(shape, dtype=dt, device=dev)
         return common.dense_init(gen, shape, in_axis=max(0, len(shape) - 2),
@@ -178,12 +205,27 @@ def _layer(tree: dict, i: int) -> dict:
 
 def forward(params, tokens, cfg: ModelConfig,
             knobs: ModelKnobs = ModelKnobs(), mode: str = "prefill",
-            cache=None, pos=None):
-    """tokens: (B, S) int.  Returns (hidden (B, S, D), cache): the stacked
-    (L, B, S, K, hd) prefill activations, or the paged pool written in
-    place (``mode="decode"``, ``pos`` (B,) the first write position)."""
+            cache=None, pos=None, valid_len=None):
+    """tokens: (B, S) int.  Returns (hidden (B, S, D), cache).
+
+    Dense: the stacked (L, B, S, K, hd) prefill activations, or the paged
+    pool written in place (``mode="decode"``, ``pos`` (B,) the first write
+    position).  ssm: the stacked prefill state (conv (L, B, Di, K-1), h
+    (L, B, Di, N) f32), or the decode cache written in place (``pos`` is
+    not read).
+
+    ``valid_len`` (int, prefill only): non-pad tokens of a right-padded
+    batch.  Attention ignores it (the causal mask and the caller's slicing
+    isolate pads); the ssm family returns the state *after token
+    valid_len*, not after the pads."""
     check_family(cfg)
     x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(
+            f"mode {mode!r}: training comes with the training slice")
+    if cfg.family == "ssm":
+        return _forward_ssm(params, x, cfg, mode, cache,
+                            valid_len if mode == "prefill" else None)
     B, S, D = x.shape
     ar = torch.arange(S, device=x.device)
     if mode == "decode":
@@ -191,12 +233,9 @@ def forward(params, tokens, cfg: ModelConfig,
         bt = cache["block_tables"]
         pos = pos.to(torch.int32)
         rows = paged_rows(positions, bt, cache["k"].shape[2])
-    elif mode == "prefill":
+    else:
         positions = ar[None, :].expand(B, S)
         bt = rows = None
-    else:
-        raise NotImplementedError(
-            f"mode {mode!r}: training comes with the training slice")
     rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
     ks, vs = [], []
     for i in range(cfg.n_layers):
@@ -218,6 +257,28 @@ def forward(params, tokens, cfg: ModelConfig,
     return x, new_cache
 
 
+def _forward_ssm(params, x, cfg: ModelConfig, mode: str, cache,
+                 valid_len=None):
+    """[mamba1] x L.  Decode hands each layer views of ``cache["conv"]``
+    and ``cache["h"]``, which the block updates in place."""
+    convs, hs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        st = ({"conv": cache["conv"][i], "h": cache["h"][i]}
+              if mode == "decode" else None)
+        h, new_st = mamba1_block(common.rms_norm(x, lp["ln1"]["scale"],
+                                                 cfg.norm_eps),
+                                 lp["ssm"], cfg, st, valid_len)
+        x = x + h
+        if mode == "prefill":
+            convs.append(new_st["conv"])
+            hs.append(new_st["h"])
+    new_cache = ({"conv": torch.stack(convs), "h": torch.stack(hs)}
+                 if mode == "prefill" else cache)
+    x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    return x, new_cache
+
+
 def logits_fn(params, hidden, cfg: ModelConfig):
     w = (params["embed"]["tokens"].T if cfg.tie_embeddings
          else params["lm_head"]["w"])
@@ -230,10 +291,27 @@ def logits_fn(params, hidden, cfg: ModelConfig):
 
 def init_paged_cache_shapes(cfg: ModelConfig, n_blocks: int,
                             block_size: int) -> dict:
-    """Shapes of a paged decode cache: (L, NB, bs, K, hd) for k and v."""
+    """Shapes of a paged decode cache: (L, NB, bs, K, hd) for k and v.
+    Attention families only: recurrent state has no sequence axis to
+    page."""
     check_family(cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"family {cfg.family!r} has no paged KV cache")
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
     return {"k": shape, "v": shape}
+
+
+def init_cache_shapes(cfg: ModelConfig, batch: int) -> dict:
+    """Shapes of the ssm family's per-slot decode state: conv (L, B, Di,
+    K-1) (the pool's dtype) and h (L, B, Di, N) (always f32) — no sequence
+    axis.  The dense family decodes from the paged pool
+    (``init_paged_cache_shapes``)."""
+    check_family(cfg)
+    if cfg.family != "ssm":
+        raise ValueError(f"family {cfg.family!r} decodes from the paged pool")
+    L, Di = cfg.n_layers, cfg.d_inner
+    return {"conv": (L, batch, Di, cfg.ssm_conv - 1),
+            "h": (L, batch, Di, cfg.ssm_state)}
 
 
 def prefill(params, tokens, cfg: ModelConfig,
@@ -246,8 +324,8 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
                 knobs: ModelKnobs = ModelKnobs()):
     """tokens: (B, S); pos: (B,) write position of the first token (S > 1
     = chunked prefill against the cache).  ``cache``: the paged pool
-    (``k``, ``v``, ``block_tables``), updated in place.  Returns (logits,
-    cache)."""
+    (``k``, ``v``, ``block_tables``) or the ssm state (``conv``, ``h``),
+    updated in place.  Returns (logits, cache)."""
     hidden, cache = forward(params, tokens, cfg, knobs, mode="decode",
                             cache=cache, pos=pos)
     return logits_fn(params, hidden, cfg), cache

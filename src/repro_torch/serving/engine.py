@@ -1,4 +1,5 @@
-"""Continuous-batching inference engine (fixed setting, dense family).
+"""Continuous-batching inference engine (fixed setting; dense and ssm
+families).
 
 The port of the JAX package's ``serving/engine.py`` main path:
 
@@ -6,17 +7,25 @@ The port of the JAX package's ``serving/engine.py`` main path:
     ``max_batch`` requests in flight; while decodes run, the continuous
     ``admit_budget`` knob meters prefills per scheduling quantum, and a
     short bounded lookahead lets small requests pass a long prompt;
-  * ``PagedKVPool`` (repro_torch.serving.pool): paged KV blocks, block
-    tables and copy-on-write prompt-prefix sharing;
+  * the state pool from ``make_state_pool`` (repro_torch.serving.pool):
+    ``PagedKVPool`` (dense: paged KV blocks, block tables, copy-on-write
+    prompt-prefix sharing) or ``SSMStatePool`` (ssm: one recurrent state
+    per slot);
   * prefill per request at batch 1, padded to a multiple of
-    ``prefill_chunk`` (flash-attention kernel); a prompt whose prefix is
-    cached computes only its suffix, as one multi-token paged decode step
-    against the shared blocks (paged-attention kernel);
-  * decode advances every live slot one token per quantum, reading KV
-    blocks in place through the block table (paged-attention kernel),
-    per context bucket so short batches read only their live blocks;
+    ``prefill_chunk`` (flash-attention kernel; for ssm the selective-scan
+    kernel, with the state stopped at the last prompt token); a prompt
+    whose prefix is cached in a paged pool computes only its suffix, as
+    one multi-token paged decode step against the shared blocks
+    (paged-attention kernel);
+  * decode advances every live slot one token per quantum: paged decode
+    reads KV blocks in place through the block table (paged-attention
+    kernel), per context bucket so short batches read only their live
+    blocks; ssm decode continues each slot's stored state (selective-scan
+    kernel);
   * ``quant="int8"`` re-quantizes freshly written KV rows through the
-    int8 quantize/dequantize kernels.
+    int8 quantize/dequantize kernels.  ``quant`` and ``prefix_share``
+    apply to paged pools only and are ignored for ssm pools, as in the
+    JAX engine.
 
 Steps run eagerly; the LRU keeps one callable per shape key, under the
 JAX package's keys.  Speculative decoding, the self-tuning loop and online
@@ -41,7 +50,7 @@ from repro_torch.models.lm import ModelKnobs
 from repro_torch.obs.metrics import NULL_METRICS
 from repro_torch.obs.trace import NOP_TRACER
 from repro_torch.serving.knobs import DEFAULT_SERVING_SETTING
-from repro_torch.serving.pool import PagedKVPool
+from repro_torch.serving.pool import make_state_pool
 
 LATER = {
     "spec_k": "speculative decoding",
@@ -104,7 +113,7 @@ class ServingEngine:
         self._steps = LRUCache(step_cache_size)
         self._steps.tracer = self.tr
         self.queue: deque[Request] = deque()
-        self.pool = PagedKVPool(cfg, self.setting, max_seq, self.device)
+        self.pool = make_state_pool(cfg, self.setting, max_seq, self.device)
         self._reset_slots()
         self.clock = 0.0              # wall time supplied by serve_loop
         self._admit_acc = 0.0         # fractional admit_budget carry
@@ -165,9 +174,9 @@ class ServingEngine:
     # ---------------------------------------------------------- step cache
     def _ctx_buckets(self) -> tuple:
         """Context buckets of the paged decode step: numbers of visible
-        block-table columns (at most 6 per pool geometry); the gather path
-        always reads the full table (0)."""
-        if self.attn_impl == "gather":
+        block-table columns (at most 6 per pool geometry); 0 = the full
+        table (the gather path) or no table at all (ssm pools)."""
+        if self.pool.kind != "paged" or self.attn_impl == "gather":
             return (0,)
         mb = self.pool.mb
         g = -(-mb // 6)
@@ -203,8 +212,11 @@ class ServingEngine:
             kn = ModelKnobs(k_chunk=self.setting["k_chunk"])
 
             def f(params, tokens, last_idx: int):
+                # valid_len: the ssm family must not fold right-pad tokens
+                # into the recurrent state (attention ignores it)
                 hidden, cache = lm.forward(params, tokens, cfg, kn,
-                                           mode="prefill")
+                                           mode="prefill",
+                                           valid_len=last_idx + 1)
                 last = hidden[:, last_idx:last_idx + 1]
                 return lm.logits_fn(params, last, cfg)[:, 0], cache
             return f
@@ -315,13 +327,17 @@ class ServingEngine:
             with self.tr.span("serve.prefill", bucket=bucket, plen=P):
                 logits, pcache = self._prefill_exec(bucket)(
                     self.params, self._tensor(padded, torch.long), P - 1)
-                kv = {k: pcache[k][:, 0] for k in ("k", "v")}
-                if self.setting["quant"] == "int8":
-                    with self.tr.span("serve.quant", bucket=bucket):
-                        kv = {k: self._quant_exec(bucket)(v)
-                              for k, v in kv.items()}
-                self.pool.write_kv(slot, {k: v[:, :P] for k, v in kv.items()},
-                                   start=0)
+                if self.pool.kind == "paged":
+                    kv = {k: pcache[k][:, 0] for k in ("k", "v")}
+                    if self.setting["quant"] == "int8":
+                        with self.tr.span("serve.quant", bucket=bucket):
+                            kv = {k: self._quant_exec(bucket)(v)
+                                  for k, v in kv.items()}
+                    self.pool.write_kv(slot, {k: v[:, :P]
+                                              for k, v in kv.items()},
+                                       start=0)
+                else:
+                    self.pool.write_prefill(slot, pcache)
                 tok = int(torch.argmax(logits[0]))
             self.prefill_tokens_computed += P
         self.prefill_tokens_total += P
@@ -413,8 +429,10 @@ class ServingEngine:
             self.metrics.histogram("serve.tick_s").observe(dt)
             self.metrics.gauge("serve.active_slots").set(self.n_active)
             self.metrics.gauge("serve.queue_depth").set(self.queue_depth)
-            self.metrics.gauge("pool.block_utilization").set(
-                self.pool.snapshot()["block_utilization"])
+            snap = self.pool.snapshot()
+            if "block_utilization" in snap:       # paged pools only
+                self.metrics.gauge("pool.block_utilization").set(
+                    snap["block_utilization"])
         return {"dt": dt, "tokens": tokens, "active": self.n_active,
                 "queued": self.queue_depth, "load": self.load,
                 "idle": tokens == 0 and not self.has_work()}
@@ -427,9 +445,10 @@ class ServingEngine:
         """Server startup: build the CUDA kernels (one nvcc per source, in
         parallel; a no-op when they are built or on the CPU) and the step
         callables of the current setting — decode per context bucket,
-        prefill and shared-prefix suffix prefill per length bucket, int8
-        quantization per bucket.  Warming a whole knob ``space`` is the
-        self-tuning loop's and comes with that slice."""
+        prefill per length bucket, and for a paged pool shared-prefix
+        suffix prefill per length bucket (an ssm pool shares nothing);
+        int8 quantization per bucket.  Warming a whole knob ``space`` is
+        the self-tuning loop's and comes with that slice."""
         assert self.n_active == 0, "warm_start before serving, not during"
         if space is not None:
             raise _not_ported("tuner")
@@ -443,7 +462,7 @@ class ServingEngine:
             self._decode_exec(cols)
         for b in buckets:
             self._prefill_exec(b)
-            if self.setting.get("prefix_share"):
+            if self.setting.get("prefix_share") and self.pool.kind == "paged":
                 self._chunk_prefill_exec(b)
             if self.setting["quant"] == "int8":
                 self._quant_exec(b)

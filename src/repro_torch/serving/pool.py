@@ -1,20 +1,28 @@
-"""Paged KV pool — the serving engine's memory layer (dense family).
+"""Serving state pools — the engine's memory layer.
 
-``PagedKVPool`` keeps KV in fixed-size blocks addressed through
-per-request block tables.  Whole prompt blocks are shared between requests
-copy-on-write — refcounted physical blocks keyed by a chained hash of the
-block's tokens — so identical prompt prefixes are prefilled once.
-Admission is block-granular: a request reserves ``ceil(tokens /
-block_size)`` blocks under an overcommit budget.
+``StatePool`` is the interface the engine schedules every family through:
 
-The host bookkeeping (tables, refcounts, prefix cache, budget) is the JAX
-package's numpy logic unchanged, so both pools make the same decisions
-for the same requests.  The KV blocks are torch tensors on the pool's
+  * ``PagedKVPool`` (dense family): KV in fixed-size blocks addressed
+    through per-request block tables.  Whole prompt blocks are shared
+    between requests copy-on-write — refcounted physical blocks keyed by
+    a chained hash of the block's tokens — so identical prompt prefixes
+    are prefilled once.  Admission is block-granular: a request reserves
+    ``ceil(tokens / block_size)`` blocks under an overcommit budget.
+  * ``SSMStatePool`` (ssm family): per-slot recurrent state (conv window +
+    SSM state).  No sequence axis — a slot is O(1) memory at any sequence
+    length, so admission is slot-granular and there is nothing to page or
+    share.
+
+The host bookkeeping (tables, refcounts, prefix cache, budget, slots) is
+the JAX package's numpy logic unchanged, so both packages make the same
+decisions for the same requests.  The state is torch tensors on the pool's
 device, and every write — prefill rows, copy-on-write copies, the decode
-step's scatter — updates them *in place* (the JAX pool rebuilds arrays).
+step's scatter or state update — changes them *in place* (the JAX pools
+rebuild arrays).
 
-Relayout and staged migration (Type I-b reconfiguration) and speculative
-write records come with later slices of the port.
+Relayout and staged migration (Type I-b reconfiguration), speculative
+write records and the hybrid family's shared-attention slab come with
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -41,7 +49,38 @@ def _block_chain_key(parent, tokens: np.ndarray):
     return hash((parent, np.ascontiguousarray(tokens, np.int32).tobytes()))
 
 
-class PagedKVPool:
+class StatePool:
+    """Interface the ServingEngine schedules against.
+
+    Memory protocol, per request lifetime: ``try_admit(prompt, max_new)``
+    reserves a slot (+ memory) or returns None; ``write_kv`` /
+    ``write_prefill`` land the prefill state; ``prepare_write`` /
+    ``prepare_step_writes`` resolve copy-on-write before any in-place
+    write; ``decode_cache`` / ``set_cache`` bracket the decode step;
+    ``release(slot)`` returns the memory.  ``exec_key()`` names the pool
+    geometry for the step cache."""
+
+    kind = "abstract"
+    n_slots = 0
+    # counters every pool reports (benchmarks read them)
+    shared_blocks_hit = 0
+    cow_copies = 0
+    cache_evictions = 0
+
+    @property
+    def n_active(self) -> int:
+        return sum(self.slot_live)
+
+    def snapshot(self) -> dict:
+        """Occupancy/effectiveness counters for the observability layer."""
+        return {"kind": self.kind, "n_slots": self.n_slots,
+                "live_slots": self.n_active,
+                "shared_blocks_hit": self.shared_blocks_hit,
+                "cow_copies": self.cow_copies,
+                "cache_evictions": self.cache_evictions}
+
+
+class PagedKVPool(StatePool):
     """Paged KV cache with block tables, prefix sharing, and COW."""
 
     kind = "paged"
@@ -105,10 +144,6 @@ class PagedKVPool:
         while held + len(self._free) > target and self._free:
             self._reserved.add(self._free.pop())
 
-    @property
-    def n_active(self) -> int:
-        return sum(self.slot_live)
-
     def evictable_blocks(self) -> int:
         return sum(1 for b in self.block_key if self.ref[b] == 0)
 
@@ -122,11 +157,7 @@ class PagedKVPool:
         usable = self.usable_blocks()
         held = (self.nb - 1) - len(self._free) - len(self._reserved)
         return {
-            "kind": self.kind, "n_slots": self.n_slots,
-            "live_slots": self.n_active,
-            "shared_blocks_hit": self.shared_blocks_hit,
-            "cow_copies": self.cow_copies,
-            "cache_evictions": self.cache_evictions,
+            **super().snapshot(),
             "block_size": self.bs,
             "blocks_total": self.nb - 1,
             "blocks_usable": usable,
@@ -342,3 +373,77 @@ class PagedKVPool:
         for s in slots:
             p = int(positions[s])
             self.prepare_write(s, p, p + 1)
+
+
+class SSMStatePool(StatePool):
+    """Per-slot recurrent state for the ssm family.
+
+    State has no sequence axis (conv window + SSM state are O(1) per slot),
+    so admission is slot-granular and there is nothing to page or share.
+    ``cache_dtype`` applies to the conv window; the SSM state ``h`` stays
+    float32 — the recurrence accumulates, and truncating it is a
+    correctness knob, not an efficiency knob."""
+
+    kind = "ssm"
+
+    def __init__(self, cfg, setting: dict, max_seq: int, device):
+        # max_seq bounds nothing here: the state has no sequence axis
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.setting = dict(setting)
+        self.n_slots = int(setting["max_batch"])
+        dt = pool_dtype(self.setting)
+        shapes = lm.init_cache_shapes(cfg, self.n_slots)  # raises if not ssm
+        self.state = {k: torch.zeros(s, dtype=torch.float32 if k == "h"
+                                     else dt, device=self.device)
+                      for k, s in shapes.items()}
+        self.slot_live = [False] * self.n_slots
+
+    def exec_key(self) -> tuple:
+        return ("ssm", self.n_slots, self.setting.get("cache_dtype"))
+
+    def try_admit(self, prompt: np.ndarray, max_new: int):
+        """Slot-granular admission: recurrent state is O(1) per request,
+        so the only resource is a free slot.  ``shared_len`` is always 0
+        — there is no prefix KV to share."""
+        slot = next((i for i, live in enumerate(self.slot_live) if not live),
+                    None)
+        if slot is None:
+            return None
+        self.slot_live[slot] = True
+        return slot, 0
+
+    def release(self, slot: int):
+        """Return the slot; its state is overwritten by the next
+        admission."""
+        self.slot_live[slot] = False
+
+    def write_prefill(self, slot: int, pcache: dict):
+        """Land a batch-1 prefill's (L, 1, ...) state in ``slot`` (in
+        place, cast to the pool's dtypes); the prefill already stopped its
+        state at the last prompt token (``valid_len``)."""
+        for k, v in pcache.items():
+            self.state[k][:, slot] = v[:, 0]
+
+    def decode_cache(self) -> dict:
+        """Operands of the decode step: the pool's own state tensors, which
+        the step updates in place."""
+        return dict(self.state)
+
+    def set_cache(self, new_cache: dict):
+        """Adopt the state a decode step returns, pinned to the pool's
+        dtypes (h f32, conv the pool dtype)."""
+        self.state = {k: new_cache[k].to(self.state[k].dtype)
+                      for k in self.state}
+
+    def prepare_step_writes(self, slots, positions):
+        pass                                  # recurrent state: no COW
+
+
+def make_state_pool(cfg, setting: dict, max_seq: int, device):
+    """Family dispatch: paged KV for the dense family, recurrent-state
+    slots for the ssm family; other families raise (later slices)."""
+    lm.check_family(cfg)
+    if cfg.family == "ssm":
+        return SSMStatePool(cfg, setting, max_seq, device)
+    return PagedKVPool(cfg, setting, max_seq, device)

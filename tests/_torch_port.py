@@ -1,9 +1,10 @@
 """Shared set-up of the PyTorch-port parity tests: the same reduced
-starcoder2-3b parameters in both packages, and the tolerances the tests
-hold the port to."""
+starcoder2-3b and falcon-mamba-7b parameters in both packages, the
+tolerances the tests hold the port to, and the tie-aware token check."""
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from repro.configs.registry import get_config
@@ -21,14 +22,44 @@ from repro_torch.models.convert import params_from_numpy
 LOGIT_TOL = 4 / 64
 
 
-def dense_models(seed: int = 0):
-    """(jax cfg, port cfg, jax params, port params on the CPU)."""
-    cfg = get_config("starcoder2-3b").reduced()
-    tcfg = torch_get_config("starcoder2-3b").reduced()
+def _models(arch: str, seed: int):
+    cfg = get_config(arch).reduced()
+    tcfg = torch_get_config(arch).reduced()
     jp = jlm.init_params(cfg, jax.random.PRNGKey(seed))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
                            device="cpu")
     return cfg, tcfg, jp, tp
+
+
+def dense_models(seed: int = 0):
+    """(jax cfg, port cfg, jax params, port params on the CPU)."""
+    return _models("starcoder2-3b", seed)
+
+
+def ssm_models(seed: int = 0):
+    """The same for reduced falcon-mamba-7b (2 mamba1 layers, d_model 64,
+    d_inner 128, N 16, vocab 256)."""
+    return _models("falcon-mamba-7b", seed)
+
+
+def tie_aware_check(jp, cfg, prompt, ref_tokens, got_tokens):
+    """Equal greedy tokens, except at an exact or near tie of the JAX
+    model: at the first mismatch, the reference logits (JAX prefill over
+    the prompt and the reference tokens so far) must rank the port's token
+    within LOGIT_TOL of the reference's own; the continuations then
+    legitimately differ and are not compared.  Returns the index of the
+    first mismatch, or None."""
+    assert len(got_tokens) == len(ref_tokens)
+    for t, (a, b) in enumerate(zip(ref_tokens, got_tokens)):
+        if a == b:
+            continue
+        seq = np.concatenate([prompt, np.asarray(ref_tokens[:t], np.int32)])
+        lg, _ = jlm.prefill(jp, {"tokens": jnp.asarray(seq[None])}, cfg)
+        lg = np.asarray(lg[0, -1], np.float32)
+        assert lg[a] - lg[b] <= LOGIT_TOL, (
+            f"token {t}: reference {a} ({lg[a]}) vs port {b} ({lg[b]})")
+        return t
+    return None
 
 
 def f32(x) -> np.ndarray:

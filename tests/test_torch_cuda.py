@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain version,
-the paged decode step against the gather path, and a short serve through
-the kernels.  Every test here needs an NVIDIA GPU and skips without one;
-``python3 chip_smoke.py`` runs the same checks at full width."""
+the paged decode step against the gather path, and short serves through
+the kernels (dense and ssm).  Every test here needs an NVIDIA GPU and
+skips without one; ``python3 chip_smoke.py`` runs the same checks at full
+width."""
 import numpy as np
 import pytest
 import torch
@@ -9,6 +10,7 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.mamba_scan import selective_scan, selective_scan_ref
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_ref)
 from repro_torch.kernels.quant import (dequantize, dequantize_ref, quantize,
@@ -87,6 +89,33 @@ def test_quant_kernels_bit_exact(dev):
                            dequantize_ref(rq, rs, block=256))
 
 
+@pytest.mark.parametrize("B,S,D,N,xdt,h0", [
+    (1, 37, 8192, 16, torch.bfloat16, False),    # ragged prefill, bf16 x
+    (1, 64, 1000, 8, torch.float32, True),       # ragged D, N = 8
+    (8, 1, 8192, 16, torch.bfloat16, True),      # decode tick
+    (2, 5, 256, 4, torch.float32, True),         # multi-token decode
+])
+def test_scan_kernel_matches_plain(dev, B, S, D, N, xdt, h0):
+    """The selective-scan kernel against its plain version: y and h_last
+    within 1e-4 (f32 rounding of expf and of the <h, C> sum over S steps);
+    ``h_out=h0`` writes the state in place."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = _randn(g, (B, S, D), dev, xdt)
+    dt = (_randn(g, (B, S, D), dev).abs() * 0.1).to(xdt)
+    Bm, Cm = (_randn(g, (B, S, N), dev) for _ in range(2))
+    A = -_randn(g, (D, N), dev).abs() - 0.1
+    h = _randn(g, (B, D, N), dev) if h0 else None
+    ry, rh = selective_scan_ref(x, dt, Bm, Cm, A, h)
+    hs = None if h is None else h.clone()
+    reset_launches()
+    y, hl = selective_scan(x, dt, Bm, Cm, A, hs, h_out=hs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["selective_scan"] == 1
+    assert hs is None or hl is hs
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(hl, rh, atol=1e-4, rtol=1e-4)
+
+
 def test_reduced_decode_paged_matches_gather_and_serve(dev):
     cfg = get_config("starcoder2-3b").reduced(head_dim=64)
     params = lm.init_params(cfg, 0, device=dev)
@@ -100,7 +129,8 @@ def test_reduced_decode_paged_matches_gather_and_serve(dev):
     reset_launches()
     stats = serve_loop(eng, trace)
     assert stats["completed"] == len(trace)
-    assert all(LAUNCHES[k] > 0 for k in LAUNCHES), LAUNCHES
+    dense = ("paged_attention", "flash_attention", "quantize", "dequantize")
+    assert all(LAUNCHES[k] > 0 for k in dense), LAUNCHES
     eng.pool.check_invariants()
     cache = eng.pool.decode_cache()
     tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
@@ -111,4 +141,36 @@ def test_reduced_decode_paged_matches_gather_and_serve(dev):
                              tok, pos, cfg, ModelKnobs(attn_impl="paged"))
     np.testing.assert_allclose(lg_p.float().cpu().numpy(),
                                lg_g.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_reduced_ssm_serve_launches_the_scan(dev):
+    """Reduced falcon-mamba served on the card: every request completes and
+    the scan kernel ran in prefill and decode; decode from the stored
+    state reproduces a full-sequence prefill."""
+    cfg = get_config("falcon-mamba-7b").reduced()
+    params = lm.init_params(cfg, 0, device=dev)
+    eng = ServingEngine(params, cfg, dict(DEFAULT_SERVING_SETTING,
+                                          max_batch=4), max_seq=64,
+                        device=dev)
+    eng.warm_start(max_prompt=40)
+    trace = make_trace("mixed_lengths", 400.0, 0.03, vocab=cfg.vocab_size,
+                       seed=0, short_lens=(2, 8), long_lens=(20, 40),
+                       max_news=(4, 8))
+    reset_launches()
+    stats = serve_loop(eng, trace)
+    assert stats["completed"] == len(trace)
+    assert LAUNCHES["selective_scan"] > 0
+    assert eng.pool.n_active == 0
+    tok = torch.randint(0, cfg.vocab_size, (2, 9), device=dev)
+    full, _ = lm.prefill(params, tok, cfg)
+    shapes = lm.init_cache_shapes(cfg, 2)
+    cache = {"conv": torch.zeros(shapes["conv"], device=dev,
+                                 dtype=torch.bfloat16),
+             "h": torch.zeros(shapes["h"], device=dev)}
+    for t in range(9):
+        lg, cache = lm.decode_step(params, cache, tok[:, t:t + 1],
+                                   torch.full((2,), t, device=dev), cfg)
+    np.testing.assert_allclose(lg[:, 0].float().cpu().numpy(),
+                               full[:, -1].float().cpu().numpy(), atol=2e-2,
                                rtol=2e-2)

@@ -2,12 +2,10 @@
 the same parameters and requests, for prefix sharing on/off x int8 KV
 on/off — greedy tokens equal (tie-aware), every request complete, no block
 leaked."""
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.models import lm as jlm
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
 from repro.serving.engine import serve_loop as j_serve_loop
@@ -15,7 +13,7 @@ from repro.serving.knobs import DEFAULT_SERVING_SETTING
 from repro_torch.serving import Request, ServingEngine, serve_loop
 from repro_torch.serving.workload import make_trace
 
-from _torch_port import LOGIT_TOL, dense_models
+from _torch_port import dense_models, tie_aware_check
 
 
 @pytest.fixture(scope="module")
@@ -35,25 +33,6 @@ def _requests(vocab: int):
     prompts.insert(1, tpl[0].copy())
     prompts.append(rng.integers(0, vocab, (11,)).astype(np.int32))
     return [(i, p, 6) for i, p in enumerate(prompts)]
-
-
-def _tie_aware_check(jp, cfg, prompt, ref_tokens, got_tokens):
-    """Equal greedy tokens, except at an exact or near tie of the JAX
-    model: at the first mismatch, the reference logits (JAX prefill over
-    the prompt and the reference tokens so far) must rank the port's token
-    within LOGIT_TOL of the reference's own; the continuations then
-    legitimately differ and are not compared."""
-    assert len(got_tokens) == len(ref_tokens)
-    for t, (a, b) in enumerate(zip(ref_tokens, got_tokens)):
-        if a == b:
-            continue
-        seq = np.concatenate([prompt, np.asarray(ref_tokens[:t], np.int32)])
-        lg, _ = jlm.prefill(jp, {"tokens": jnp.asarray(seq[None])}, cfg)
-        lg = np.asarray(lg[0, -1], np.float32)
-        assert lg[a] - lg[b] <= LOGIT_TOL, (
-            f"token {t}: reference {a} ({lg[a]}) vs port {b} ({lg[b]})")
-        return t
-    return None
 
 
 @pytest.mark.parametrize("prefix_share", [False, True])
@@ -79,7 +58,7 @@ def test_engine_tokens_match_jax_engine(models, prefix_share, quant):
     tout = {r.rid: r.tokens_out for r in te.finished}
     for i, p, n in reqs:
         assert len(tout[i]) == n
-        _tie_aware_check(jp, cfg, p, jout[i], tout[i])
+        tie_aware_check(jp, cfg, p, jout[i], tout[i])
     te.pool.check_invariants()
     assert te.pool.n_active == 0
     snap = te.pool.snapshot()

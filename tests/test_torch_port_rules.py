@@ -87,7 +87,7 @@ def test_later_slices_raise_not_implemented(case):
         "store": lambda: launch_serve.main(
             ["--arch", "starcoder2-3b", "--reduced", "--tuning-store", "x"]),
         "family": lambda: lm.init_params(
-            get_config("falcon-mamba-7b").reduced(), 0, device="cpu"),
+            get_config("zamba2-1.2b").reduced(), 0, device="cpu"),
         "space": lambda: engine().warm_start(space=object()),
         "reconfigure": lambda: engine().reconfigure({"max_batch": 2}),
     }[case]
