@@ -11,15 +11,20 @@ Phases, in order; any failure exits non-zero before the result line:
              nvcc per source, in parallel.
 3. kernels — each kernel against its plain PyTorch version at the serving
              paths' shapes: paged attention over bf16 and f32 pools (H=24,
-             K=2, hd=128), bs 8/16, S=1 and S=32/128, tail positions and
-             trash-block rows; flash attention at ragged prefill lengths;
+             K=2, hd=128), bs 8/16, S=1 and S=5-128, tail positions,
+             trash-block rows, contexts up to 1,000 over many KV splits
+             (some wholly in the future), each case twice (the split
+             counters return to zero); flash attention at ragged prefill
+             lengths x k_chunk 128/256, hd 64, causal=False and two
+             requests at different positions;
              int8 quantize/dequantize bit-exact; the selective scan (D=8192,
              N=16) at prefill lengths 1-512 with and without h0, f32 and
              bf16 x/dt, and at decode (B=8, S=1 and S=5 from h0).  Then
              each kernel's time (CUDA events around device work, L2
              flushed) beside its plain version's, a library call's where
              one computes the same function, and its bound at this run's
-             shapes.
+             shapes: paged at a decode tick and a suffix prefill, flash at
+             S=320 and S=1024 beside SDPA.
 4. parity  — full-width starcoder2-3b decode step: paged kernel against
              the plain dense gather path on one f32 pool, one layer deep
              and all 30 layers (against a measured rounding-noise floor).
@@ -154,19 +159,24 @@ def check_kernels(torch):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     # -- paged attention: decode ticks and suffix prefills of the serve
-    def paged_case(B, S, bs, q_dt, pool_dt, pos, mb=64, trash_cols=0):
+    def paged_case(B, S, bs, q_dt, pool_dt, pos, trash_cols=0):
+        mb = 1024 // bs                  # the serve's max_seq
         nb = B * mb + 1
         q = randn((B, S, H, HD), q_dt)
         kp, vp = randn((nb, bs, K, HD), pool_dt), randn((nb, bs, K, HD),
                                                         pool_dt)
         bt = torch.randperm(nb - 1, generator=g, device=dev)[:B * mb]
         bt = (bt.reshape(B, mb) + 1).to(torch.int32)
-        if trash_cols:                   # stale entries: the trash block
+        if trash_cols == "extent":       # every column past the request's
+            for b, p in enumerate(pos):  # extent is stale: the trash block
+                bt[b, (p + S - 1) // bs + 1:] = 0
+        elif trash_cols:                 # stale entries: the trash block
             bt[:, -trash_cols:] = 0
         pos = torch.tensor(pos, dtype=torch.int32, device=dev)
         return q, kp, vp, bt, pos
 
-    def ctx_cols(pos, S, bs, mb=64):     # the engine's context bucket
+    def ctx_cols(pos, S, bs):            # the engine's context bucket
+        mb = 1024 // bs
         need = (max(pos) + S - 1) // bs + 1
         gcol = -(-mb // 6)
         return next(c for c in sorted({min(t * gcol, mb)
@@ -180,18 +190,40 @@ def check_kernels(torch):
             (8, 1, 16, f32, f32, [1, 15, 16, 31, 32, 63, 64, 1000], 0),
             (1, 32, 16, bf16, bf16, [256], 16),
             (1, 128, 8, bf16, f32, [256], 0),
-            (1, 96, 16, f32, bf16, [240], 4)]:
+            (1, 96, 16, f32, bf16, [240], 4),
+            # long contexts over many splits, some wholly in the future of
+            # a request, every column past a request's extent stale
+            (8, 1, 8, bf16, bf16, [999, 0, 5, 130, 257, 511, 640, 1000],
+             "extent"),
+            (8, 1, 16, bf16, f32, [1000, 3, 500, 77, 998, 16, 15, 700],
+             "extent"),
+            (4, 1, 8, f32, bf16, [999, 0, 420, 800], "extent"),
+            (4, 1, 16, f32, f32, [1000, 31, 32, 640], "extent"),
+            (2, 7, 8, f32, f32, [990, 100], "extent"),
+            (2, 5, 16, bf16, bf16, [900, 12], "extent")]:
         q, kp, vp, bt, p = paged_case(B, S, bs, q_dt, pool_dt, pos,
                                       trash_cols=trash)
         for cols in (0, ctx_cols(pos, S, bs)):
             w = cols or bt.shape[1]
-            out = paged_attention(q, kp, vp, bt, p, ctx_cols=cols)
-            torch.cuda.synchronize()
-            ref = paged_attention_ref(q, kp, vp, bt[:, :w], p)
-            err = max(err, check_close(
-                torch, f"paged_attention B={B} S={S} bs={bs} q={q_dt} "
-                f"pool={pool_dt} cols={cols}", out, ref,
-                F32_TOL if q_dt == f32 else BF16_TOL))
+            for _ in range(2):           # the split counters return to 0
+                out = paged_attention(q, kp, vp, bt, p, ctx_cols=cols)
+                torch.cuda.synchronize()
+                ref = paged_attention_ref(q, kp, vp, bt[:, :w], p)
+                err = max(err, check_close(
+                    torch, f"paged_attention B={B} S={S} bs={bs} q={q_dt} "
+                    f"pool={pool_dt} pos={pos} cols={cols}", out, ref,
+                    F32_TOL if q_dt == f32 else BF16_TOL))
+
+    def paged_bound(q, pos, S, cols, bt):
+        """Each key a request's last query sees, K and V read once; q read
+        and out written once; the visible table read once.  Operations:
+        q.k and p.v for every (query row, visible key) pair."""
+        seen = sum(p + S for p in pos)               # keys read
+        pairs = sum(p + j + 1 for p in pos for j in range(S))
+        nbytes = (seen * K * HD * 2 * 2 + 2 * q.numel() * 2
+                  + bt[:, :cols].numel() * 4)
+        return bound(nbytes, 4 * pairs * H * HD, BF16_FLOPS)
+
     # timing at a decode tick of the bf16-pool serve arm: 8 requests with
     # ~300-370 tokens of context, the context bucket of the engine
     pos = [300, 317, 333, 351, 288, 299, 345, 372]
@@ -201,46 +233,71 @@ def check_kernels(torch):
                                                  ctx_cols=cols))
     plain = timed_ms(torch, lambda: paged_attention_ref(q, kp, vp,
                                                         bt[:, :cols], p))
-    ctx = sum(x + 1 for x in pos)                  # keys the queries see
-    nbytes = ctx * K * HD * 2 * 2 + 2 * q.numel() * 2 + bt[:, :cols].numel() * 4
     rows["paged_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:90",
         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
         shape=f"decode B=8 S=1 H={H} K={K} hd={HD} bs=16 bf16 pool, "
               f"ctx {min(pos) + 1}-{max(pos) + 1}, ctx_cols={cols}",
-        bound=bound(nbytes, 4 * ctx * H * HD, BF16_FLOPS))
+        bound=paged_bound(q, pos, 1, cols, bt))
     # and at a suffix prefill (S = 64 bucket over a 256-token shared prefix)
     q, kp, vp, bt, p = paged_case(1, 64, 16, bf16, bf16, [256])
     cols = ctx_cols([256], 64, 16)
-    rows["paged_attention"]["suffix_ms"] = timed_ms(
-        torch, lambda: paged_attention(q, kp, vp, bt, p, ctx_cols=cols))
+    sb = paged_bound(q, [256], 64, cols, bt)
+    rows["paged_attention"]["extra"] = (
+        f" suffix_prefill(S=64 over 256)_ms="
+        f"{timed_ms(torch, lambda: paged_attention(q, kp, vp, bt, p, ctx_cols=cols)):.4f}"
+        f" suffix_bound_ms={sb[0]:.4f} ({sb[1]})")
 
-    # -- flash attention: prefill buckets (ragged lengths included)
+    # -- flash attention: prefill buckets (ragged lengths included), hd 64,
+    #    not causal, and two requests at different positions
     err = 0.0
-    for S, kc in [(320, 128), (320, 256), (37, 128), (200, 256), (1000, 128)]:
+    for S, kc in [(S, kc) for S in (37, 200, 320, 1000) for kc in (128, 256)]:
         q = randn((1, S, H, HD), bf16)
         k, v = randn((1, S, K, HD), bf16), randn((1, S, K, HD), bf16)
         out = flash_attention(q, k, v, block_k=kc)
         torch.cuda.synchronize()
         err = max(err, check_close(torch, f"flash_attention S={S} kc={kc}",
                                    out, attention_ref(q, k, v), BF16_TOL))
-    S = 320                                        # a ~300-token prompt
-    q = randn((1, S, H, HD), bf16)
-    k, v = randn((1, S, K, HD), bf16), randn((1, S, K, HD), bf16)
-    ms = timed_ms(torch, lambda: flash_attention(q, k, v, block_k=128))
-    plain = timed_ms(torch, lambda: attention_ref(q, k, v))
+    for B, Sq, Skv, h, hd, causal, shift in [
+            (1, 200, 200, H, 64, True, 0), (1, 320, 320, H, HD, False, 0),
+            (1, 100, 333, 8, 64, False, 0), (2, 300, 300, H, HD, True, 70),
+            (2, 64, 1000, H, 64, True, 500)]:
+        q = randn((B, Sq, h, hd), bf16)
+        k, v = randn((B, Skv, K, hd), bf16), randn((B, Skv, K, hd), bf16)
+        qp = torch.arange(Sq, device=dev) + (Skv - Sq)
+        qp = torch.stack([qp - shift * b for b in range(B)]).clamp_min(0)
+        kp = torch.arange(Skv, device=dev).expand(B, Skv)
+        out = flash_attention(q, k, v, qp, kp, causal=causal)
+        torch.cuda.synchronize()
+        err = max(err, check_close(
+            torch, f"flash_attention B={B} Sq={Sq} Skv={Skv} H={h} hd={hd} "
+            f"causal={causal} shift={shift}", out,
+            attention_ref(q, k, v, qp, kp, causal=causal), BF16_TOL))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True))
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 2 * S * 4
+    flash_t = {}
+    for S in (320, 1024):                # a ~300-token prompt; max_seq
+        q = randn((1, S, H, HD), bf16)
+        k, v = randn((1, S, K, HD), bf16), randn((1, S, K, HD), bf16)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        ms = timed_ms(torch, lambda: flash_attention(q, k, v, pos, pos,
+                                                     block_k=128))
+        plain = timed_ms(torch, lambda: attention_ref(q, k, v, pos, pos))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 2 * S * 4
+        flash_t[S] = (ms, plain, lib, bound(
+            nbytes, 4 * H * HD * S * (S + 1) / 2, BF16_FLOPS))
+    ms, plain, lib, b = flash_t[320]
+    ms2, plain2, lib2, b2 = flash_t[1024]
     rows["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:79",
         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-        shape=f"prefill B=1 S={S} H={H} K={K} hd={HD} bf16, k_chunk=128",
-        bound=bound(nbytes, 4 * H * HD * S * S / 2, BF16_FLOPS))
+        shape=f"prefill B=1 S=320 H={H} K={K} hd={HD} bf16, k_chunk=128",
+        bound=b, extra=f" S=1024: kernel_ms={ms2:.4f} plain_ms={plain2:.4f} "
+                       f"library_ms={lib2:.4f} bound_ms={b2[0]:.4f} ({b2[1]})")
 
     # -- int8 quantize / dequantize: the engine's KV rows, bit-exact
     n = 30 * 320 * K * HD                          # L x bucket x (K*hd)
@@ -276,8 +333,7 @@ def check_kernels(torch):
             bound=bound(nbytes, ops, F32_FLOPS))
     for name, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        extra = (f" suffix_prefill_ms={r['suffix_ms']:.4f}"
-                 if "suffix_ms" in r else "")
+        extra = r.get("extra", "")
         print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3g} "
               f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={lib} bound_ms={r['bound'][0]:.4f} "

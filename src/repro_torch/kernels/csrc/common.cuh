@@ -1,4 +1,5 @@
-// Helpers shared by the port's kernels: dtype conversion and warp reductions.
+// Helpers shared by the port's kernels: dtype conversion, warp reductions
+// and the asynchronous shared-memory copy (cp.async) of the attention kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,6 +31,26 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Shared-memory address of a generic pointer, for cp.async and ldmatrix.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copies 16 bytes from device memory to shared memory without going through
+// registers; with `valid` false nothing is read and the 16 bytes are zeroed.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Waits until at most N of this thread's committed copy groups are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace port

@@ -12,7 +12,6 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      default_positions)
 
 HEAD_DIMS = (64, 128)
-MAX_BLOCK_K = 256          # K+V tile of 256 keys x 128 dims: 128 KB of smem
 
 
 def flash_attention(q, k, v, q_positions=None, kv_positions=None, *,
@@ -20,9 +19,9 @@ def flash_attention(q, k, v, q_positions=None, kv_positions=None, *,
     """q: (B, Sq, H, hd) bf16; k, v: (B, Skv, K, hd) bf16 with H % K == 0.
 
     ``*_positions``: (S,) or (B, S) positions for the causal mask (default:
-    q aligned to the end of kv).  ``block_k`` is the KV tile (the k_chunk
-    knob), cut to 256 keys, the most shared memory holds.  Returns
-    (B, Sq, H, hd) bf16.
+    q aligned to the end of kv).  ``block_k`` is the k_chunk knob; the
+    kernel takes its own KV tile of 64 keys, so the result does not depend
+    on it (nor does the plain version's).  Returns (B, Sq, H, hd) bf16.
     """
     if q.device.type == "cpu":
         return attention_ref(q, k, v, q_positions, kv_positions,
@@ -39,14 +38,16 @@ def flash_attention(q, k, v, q_positions=None, kv_positions=None, *,
         raise ValueError(f"flash_attention: bf16 only, got q={q.dtype} "
                          f"k={k.dtype} v={v.dtype}")
     if (H % K or hd not in HEAD_DIMS or v.shape != k.shape
-            or k.shape[0] != B or k.shape[3] != hd or Skv < 1):
+            or k.shape[0] != B or k.shape[3] != hd or Skv < 1
+            or qp.shape != (B, Sq) or kp.shape != (B, Skv)):
         raise ValueError(f"flash_attention: unsupported shapes "
                          f"q={tuple(q.shape)} k={tuple(k.shape)}")
-    kc = max(1, min(block_k, MAX_BLOCK_K, Skv))
+    if block_k < 1:
+        raise ValueError(f"flash_attention: block_k={block_k}")
     out = torch.empty_like(q)
-    fn = _build.bind("flash_attention", "flash_attention", 6, 8, 1)
+    fn = _build.bind("flash_attention", "flash_attention", 6, 7, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
-             kp.data_ptr(), out.data_ptr(), B, Sq, Skv, H, K, hd, kc,
+             kp.data_ptr(), out.data_ptr(), B, Sq, Skv, H, K, hd,
              int(causal), hd ** -0.5, _build.stream_of(q))
     _build.check_launch(err, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1

@@ -4,6 +4,10 @@ Consumes the PagedKVPool layout in place: physical KV blocks
 (NB, bs, K, hd), per-request block tables (B, MB) and first-query
 positions (B,).  A CUDA tensor launches the kernel (or raises); a CPU
 tensor runs the plain version in ``ref.py``.
+
+The kernel splits the KV axis over CTAs (``split_plan``) and merges the
+splits in the same launch; the wrapper allocates the f32 partials and
+keeps one zeroed counter buffer per device, which the kernel leaves zeroed.
 """
 from __future__ import annotations
 
@@ -15,6 +19,41 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 HEAD_DIMS = (64, 128)
 BLOCK_SIZES = (8, 16)
+ROWS_PER_CTA = 16          # (query token, head) rows of one CTA
+STAGE_KEYS = 32            # keys of one stage; a split is whole stages
+MAX_STAGES = 3             # stages of one split, all in shared memory at once
+
+_COUNTERS: dict = {}       # device -> int32 counters, zero between launches
+_N_SMS: dict = {}
+
+
+def split_plan(B: int, S: int, H: int, K: int, bs: int, n_vis: int,
+               n_sms: int):
+    """(row tiles, n_split, split_keys) of a launch.  The KV axis of
+    ``n_vis`` columns is cut into whole 32-key stages and shared among
+    ``n_split`` splits of at most ``MAX_STAGES`` stages each, and at least
+    as many as make B x K x tiles x splits about one CTA per SM.  Sized
+    from n_vis alone: pos stays on the device."""
+    tiles = -(-S * (H // K) // ROWS_PER_CTA)
+    stages = max(1, -(-n_vis * bs // STAGE_KEYS))
+    want = max(-(-n_sms // (B * K * tiles)), -(-stages // MAX_STAGES))
+    per_split = -(-stages // min(want, stages))
+    return tiles, -(-stages // per_split), per_split * STAGE_KEYS
+
+
+def _counters(device, n: int):
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
+def _n_sms(device) -> int:
+    if device not in _N_SMS:
+        _N_SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _N_SMS[device]
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, pos, *,
@@ -53,11 +92,21 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos, *,
             f"pos={tuple(pos.shape)} (hd in {HEAD_DIMS}, bs in "
             f"{BLOCK_SIZES})")
     out = torch.empty_like(q)
-    fn = _build.bind("paged_attention", "paged_attention", 6, 10, 1)
+    tiles, n_split, split_keys = split_plan(B, S, H, K, bs, n_vis,
+                                            _n_sms(q.device))
+    ml = acc = cnt = None
+    if n_split > 1:
+        rows = B * K * tiles * n_split * ROWS_PER_CTA
+        ml = torch.empty((rows, 2), dtype=torch.float32, device=q.device)
+        acc = torch.empty((rows, hd), dtype=torch.float32, device=q.device)
+        cnt = _counters(q.device, B * K * tiles)
+    fn = _build.bind("paged_attention", "paged_attention", 9, 12, 1)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-             B, S, H, K, hd, bs, MB, n_vis, DTYPES[q.dtype],
-             DTYPES[k_pool.dtype], hd ** -0.5, _build.stream_of(q))
+             *(0 if t is None else t.data_ptr() for t in (ml, acc, cnt)),
+             B, S, H, K, hd, bs, MB, n_vis, n_split, split_keys,
+             DTYPES[q.dtype], DTYPES[k_pool.dtype], hd ** -0.5,
+             _build.stream_of(q))
     _build.check_launch(err, "paged_attention")
     _build.LAUNCHES["paged_attention"] += 1
     return out

@@ -5,9 +5,10 @@ CUDA tensors go to the hand-written kernels (``repro_torch.kernels``);
 CPU tensors run plain PyTorch versions.  The plain paged and dense decode
 paths keep the JAX package's numerics: q is cast to bf16, scores and
 accumulation run in f32, and p is rounded to the cache dtype before P.V.
-The prefill path follows the flash kernel instead (p stays f32), so its
-outputs differ from the JAX package's ``chunked_attention`` by that one
-bf16 rounding.
+The prefill path's plain version keeps p in f32, so on the CPU its outputs
+differ from the JAX package's ``chunked_attention`` by that one bf16
+rounding; the flash kernel on the card rounds p to bf16 for its
+tensor-core P.V, as ``chunked_attention`` does.
 """
 from __future__ import annotations
 
@@ -30,8 +31,9 @@ def chunked_attention(q, k, v, *, causal: bool, q_positions, kv_positions,
     """Prefill attention.  q: (B, Sq, H, hd); k, v: (B, Skv, K, hd);
     positions (B, S).  Returns (B, Sq, H, hd) in q.dtype.
 
-    On CUDA this is the flash kernel with a KV tile of ``k_chunk`` keys;
-    on the CPU the kernel's plain version (f32 softmax and P.V)."""
+    On CUDA this is the flash kernel (``k_chunk`` is passed as its
+    ``block_k``, which the kernel's fixed 64-key tile does not need); on
+    the CPU the kernel's plain version (f32 softmax and P.V)."""
     if q.is_cuda:
         return flash_attention(q, k, v, q_positions, kv_positions,
                                causal=causal, block_k=k_chunk)

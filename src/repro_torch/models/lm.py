@@ -39,7 +39,7 @@ ZERO_INIT = ("scale", "bq", "bk", "bv",     # norm gains (1 + scale), biases
 class ModelKnobs:
     """Per-step system knobs (Type II settings: they change only how the
     step runs, never its result beyond rounding)."""
-    k_chunk: int = 1024        # prefill: KV tile of the flash kernel
+    k_chunk: int = 1024        # prefill: the flash kernel's block_k (knob)
     attn_impl: str = "paged"   # paged decode: "paged" reads KV blocks in
                                # place (the paged-attention kernel);
                                # "gather" gathers the table into a dense

@@ -1,0 +1,296 @@
+"""PyTorch port: the schedules of the two attention kernels, emulated in
+plain torch on the CPU and held to the port's plain versions and to the
+JAX package's Pallas kernels (interpret mode).
+
+- Paged attention cuts the KV axis into splits of whole 32-key stages
+  (``split_plan``); a split past a row tile's last query position is not
+  run, each live split keeps an f32 online softmax (masked keys -1e30), and
+  the splits are merged by log-sum-exp.  The emulation follows the kernel
+  split by split and stage by stage.
+- Flash attention walks 64-key tiles for 64-row query tiles, skips a tile
+  whose keys are all past the tile's last query position, and rounds P to
+  bf16 before P.V (scores, row sums and the accumulator stay f32).
+
+The CUDA kernels run only on the card (``test_torch_cuda.py`` and
+``chip_smoke.py`` hold them to the same plain versions there); these tests
+show that the schedules themselves are right."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.paged_attention import paged_attention as j_paged
+from repro_torch.kernels.flash_attention import attention_ref
+from repro_torch.kernels.paged_attention import paged_attention_ref
+from repro_torch.kernels.paged_attention.kernel import (MAX_STAGES,
+                                                        ROWS_PER_CTA,
+                                                        STAGE_KEYS,
+                                                        split_plan)
+
+from _torch_port import f32
+
+RNG = np.random.default_rng(13)
+T = torch.from_numpy
+NEG_INF = -1e30
+F32_TOL = 2e-5          # summation order only
+BF16_TOL = 2e-2         # one bf16 step at |x| < 4, plus slack
+TILE = 64               # the flash kernel's query rows and keys per tile
+
+
+# ----------------------------------------------------------- paged, split-KV
+def paged_split_kv(q, k_pool, v_pool, tables, pos, *, ctx_cols=0,
+                   n_sms=132):
+    """The split-KV paged kernel's schedule in plain torch (f32 inside):
+    returns (out in q's dtype, number of live splits per row tile)."""
+    B, S, H, hd = q.shape
+    NB, bs, K, _ = k_pool.shape
+    MB = tables.shape[1]
+    n_vis = min(ctx_cols, MB) if ctx_cols else MB
+    G, rows = H // K, S * (H // K)
+    tiles, n_split, split_keys = split_plan(B, S, H, K, bs, n_vis, n_sms)
+    out = torch.empty((B, S, H, hd), dtype=torch.float32)
+    live = []
+    for b in range(B):
+        cols = tables[b, :n_vis].long()
+        for kh in range(K):
+            kk = k_pool[cols, :, kh].reshape(n_vis * bs, hd).float()
+            vv = v_pool[cols, :, kh].reshape(n_vis * bs, hd).float()
+            r = torch.arange(rows)
+            qr = q[b, r // G, kh * G + r % G].float()        # (rows, hd)
+            qpos = int(pos[b]) + r // G
+            for t in range(tiles):
+                rr = slice(t * ROWS_PER_CTA, min((t + 1) * ROWS_PER_CTA, rows))
+                end_key = min(n_vis * bs, int(qpos[rr][-1]) + 1)
+                n_live = min(n_split, -(-end_key // split_keys))
+                live.append(n_live)
+                parts = []
+                for sp in range(n_live):
+                    k_end = min((sp + 1) * split_keys, end_key)
+                    m = torch.full((qr[rr].shape[0],), NEG_INF)
+                    l = torch.zeros_like(m)
+                    acc = torch.zeros((m.shape[0], hd))
+                    for k0 in range(sp * split_keys, k_end, STAGE_KEYS):
+                        kv = torch.arange(k0, min(k0 + STAGE_KEYS, k_end))
+                        s = qr[rr] @ kk[kv].T * hd ** -0.5
+                        s = torch.where(kv[None] <= qpos[rr][:, None], s,
+                                        NEG_INF)
+                        mx = torch.maximum(m, s.max(1).values)
+                        corr = torch.exp(m - mx)
+                        p = torch.exp(s - mx[:, None])
+                        l = l * corr + p.sum(1)
+                        acc = acc * corr[:, None] + p @ vv[kv]
+                        m = mx
+                    parts.append((m, l, acc))
+                if n_live == 1:
+                    m, l, acc = parts[0]
+                    o = acc / l.clamp_min(1e-30)[:, None]
+                else:                  # one pass, rescaling as M grows
+                    M = torch.full_like(parts[0][0], NEG_INF)
+                    L = torch.zeros_like(M)
+                    A = torch.zeros_like(parts[0][2])
+                    for m, l, acc in parts:
+                        mx = torch.maximum(M, m)
+                        c, w = torch.exp(M - mx), torch.exp(m - mx)
+                        L = L * c + l * w
+                        A = A * c[:, None] + acc * w[:, None]
+                        M = mx
+                    o = A / L.clamp_min(1e-30)[:, None]
+                ri = r[rr]
+                out[b, ri // G, kh * G + ri % G] = o
+    return out.to(q.dtype), live
+
+
+def _paged_case(B, S, H, K, hd, bs, MB, pos, pool_dtype, q_dtype):
+    NB = B * MB + 1
+    q = RNG.standard_normal((B, S, H, hd)).astype(np.float32)
+    kp = RNG.standard_normal((NB, bs, K, hd)).astype(np.float32)
+    vp = RNG.standard_normal((NB, bs, K, hd)).astype(np.float32)
+    bt = (RNG.permutation(NB - 1)[:B * MB].reshape(B, MB) + 1).astype(
+        np.int32)
+    for b, p in enumerate(pos):         # past the request's extent: trash
+        bt[b, (p + S - 1) // bs + 1:] = 0
+    return (T(q).to(q_dtype), T(kp).to(pool_dtype), T(vp).to(pool_dtype),
+            T(bt), T(np.asarray(pos, np.int32)))
+
+
+@pytest.mark.parametrize("B,S,H,K,bs,MB,pos,pool_dt,q_dt", [
+    (4, 1, 4, 2, 16, 32, [0, 100, 300, 511], "float32", "float32"),
+    (4, 1, 4, 2, 8, 64, [511, 3, 260, 64], "float32", "bfloat16"),
+    (3, 1, 6, 2, 16, 32, [37, 500, 8], "bfloat16", "float32"),
+    (2, 5, 4, 2, 8, 64, [400, 31], "bfloat16", "bfloat16"),
+    (2, 9, 6, 2, 16, 32, [470, 120], "float32", "float32"),
+])
+def test_paged_split_kv_matches_plain_and_pallas(B, S, H, K, bs, MB, pos,
+                                                 pool_dt, q_dt):
+    """Contexts of up to 512 keys over up to 16 splits, some wholly in the
+    future of a request (a split with nothing to see is not run), trash
+    columns past every request's extent, S > 1, both block sizes, f32 and
+    bf16 pools and queries: the split schedule equals the port's plain
+    version and the Pallas kernel within 2e-5 for f32 queries (summation
+    order only) and within one bf16 step for bf16 ones; cutting the
+    visible prefix gives the same."""
+    hd = 16
+    q, kp, vp, bt, p = _paged_case(B, S, H, K, hd, bs, MB, pos,
+                                   getattr(torch, pool_dt),
+                                   getattr(torch, q_dt))
+    tol = F32_TOL if q_dt == "float32" else BF16_TOL
+    need = (max(pos) + S - 1) // bs + 1
+    for cols in (0, need):
+        w = cols or MB
+        out, live = paged_split_kv(q, kp, vp, bt, p, ctx_cols=cols)
+        ref = paged_attention_ref(q, kp, vp, bt[:, :w], p)
+        ker = j_paged(jnp.asarray(f32(q)).astype(getattr(jnp, q_dt)),
+                      jnp.asarray(f32(kp)).astype(getattr(jnp, pool_dt)),
+                      jnp.asarray(f32(vp)).astype(getattr(jnp, pool_dt)),
+                      jnp.asarray(bt.numpy()), jnp.asarray(p.numpy()),
+                      ctx_cols=cols, interpret=True)
+        np.testing.assert_allclose(f32(out), f32(ref), atol=tol, rtol=tol)
+        np.testing.assert_allclose(f32(out), f32(ker), atol=tol, rtol=tol)
+        _, n_split, _ = split_plan(B, S, H, K, bs, w, 132)
+        assert n_split > 1 and min(live) < n_split, (n_split, live)
+
+
+def test_paged_combine_of_a_row_masked_in_its_split():
+    """A row tile of S = 3 chunk rows whose split starts between the
+    rows' positions: the first row sees nothing in that split (its
+    partial is m = -1e30, l = the split's key count), and the merge gives
+    it weight exp(-1e30 - M) = 0; the result equals the plain version."""
+    B, S, H, K, hd, bs, MB = 1, 3, 2, 1, 16, 16, 8
+    q, kp, vp, bt, p = _paged_case(B, S, H, K, hd, bs, MB, [63],
+                                   torch.float32, torch.float32)
+    _, n_split, split_keys = split_plan(B, S, H, K, bs, MB, 132)
+    assert split_keys == STAGE_KEYS and 63 < 2 * split_keys <= 65
+    out, live = paged_split_kv(q, kp, vp, bt, p)
+    assert live == [3]                    # keys 0-31, 32-63, 64-65
+    np.testing.assert_allclose(
+        f32(out), f32(paged_attention_ref(q, kp, vp, bt, p)), atol=F32_TOL,
+        rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,K,bs,n_vis,want", [
+    (8, 1, 24, 2, 16, 33, (1, 9, 64)),     # the serve's decode tick
+    (1, 64, 24, 2, 16, 22, (48, 4, 96)),   # suffix prefill S = 64
+    (1, 96, 24, 2, 16, 64, (72, 11, 96)),
+    (8, 1, 24, 2, 8, 1, (1, 1, 32)),
+    (4, 3, 4, 2, 8, 128, (1, 16, 64)),
+])
+def test_split_plan(B, S, H, K, bs, n_vis, want):
+    """Splits fill about one CTA per SM from n_vis alone; each is whole
+    32-key stages, at most three, together they cover the visible keys,
+    and none is empty."""
+    tiles, n_split, split_keys = split_plan(B, S, H, K, bs, n_vis, 132)
+    assert (tiles, n_split, split_keys) == want
+    assert split_keys % STAGE_KEYS == 0
+    assert split_keys <= MAX_STAGES * STAGE_KEYS
+    assert (n_split - 1) * split_keys < n_vis * bs <= n_split * split_keys
+    assert tiles == -(-S * H // K // ROWS_PER_CTA)
+
+
+# ------------------------------------------------- flash, tensor-core tiles
+def flash_tiles(q, k, v, qpos, kpos, *, causal=True):
+    """The tensor-core flash kernel's schedule in plain torch: 64-row query
+    tiles against 64-key tiles, tiles wholly past the query tile's last
+    position skipped (causal), f32 scores and online softmax, P rounded to
+    bf16 for P.V, f32 accumulator; keys past Skv do not exist."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    out = torch.empty((B, Sq, H, hd), dtype=torch.float32)
+    for b in range(B):
+        for h in range(H):
+            kk, vv = k[b, :, h // G].float(), v[b, :, h // G].float()
+            for q0 in range(0, Sq, TILE):
+                qs = q[b, q0:q0 + TILE, h].float()
+                qp = qpos[b, q0:q0 + TILE]
+                m = torch.full((qs.shape[0],), NEG_INF)
+                l = torch.zeros_like(m)
+                acc = torch.zeros((qs.shape[0], hd))
+                for k0 in range(0, Skv, TILE):
+                    kp = kpos[b, k0:k0 + TILE]
+                    if causal and not bool((kp <= qp.max()).any()):
+                        continue
+                    s = qs @ kk[k0:k0 + TILE].T * hd ** -0.5
+                    if causal:
+                        s = torch.where(kp[None] <= qp[:, None], s, NEG_INF)
+                    mx = torch.maximum(m, s.max(1).values)
+                    corr = torch.exp(m - mx)
+                    p = torch.exp(s - mx[:, None])
+                    l = l * corr + p.sum(1)
+                    acc = (acc * corr[:, None]
+                           + p.bfloat16().float() @ vv[k0:k0 + TILE])
+                    m = mx
+                out[b, q0:q0 + TILE, h] = acc / l.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+def _bf16(shape):
+    return T(RNG.standard_normal(shape).astype(np.float32)).bfloat16()
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,shift", [
+    (1, 77, 77, 4, 2, 16, True, 0),      # ragged tails
+    (1, 200, 200, 4, 1, 32, True, 0),    # MQA, four tiles
+    (1, 50, 130, 4, 2, 16, False, 0),    # not causal, Sq != Skv
+    (2, 150, 150, 6, 2, 16, True, 70),   # per-request positions
+    (2, 40, 300, 4, 2, 16, True, 0),     # suffix queries over a longer kv
+])
+def test_flash_tiles_match_plain(B, Sq, Skv, H, K, hd, causal, shift):
+    """The tiled schedule, with P in bf16, against the port's plain version
+    (f32 P) within one bf16 step: ragged tails, skipped tiles, GQA/MQA,
+    causal=False and two requests at different positions."""
+    q, k, v = _bf16((B, Sq, H, hd)), _bf16((B, Skv, K, hd)), _bf16(
+        (B, Skv, K, hd))
+    qp = torch.arange(Sq) + (Skv - Sq)
+    qp = torch.stack([qp - shift * b for b in range(B)]).clamp_min(0)
+    kp = torch.arange(Skv).expand(B, Skv)
+    out = flash_tiles(q, k, v, qp, kp, causal=causal)
+    ref = attention_ref(q, k, v, qp, kp, causal=causal)
+    np.testing.assert_allclose(f32(out), f32(ref), atol=BF16_TOL,
+                               rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("Sq,Skv,kv_start", [
+    (128, 128, 0),       # the default causal alignment
+    (128, 192, 96),      # rows 0..95 of the queries see no key at all
+])
+def test_flash_tiles_match_pallas_at_block_64(Sq, Skv, kv_start):
+    """Against the Pallas kernel (interpret mode) at block_q = block_k = 64,
+    which skips the same tiles: equal within one bf16 step, all-masked
+    rows included — such a row averages V over the keys of the tiles its
+    query tile visits (p = exp(-1e30 + 1e30) = 1), in both kernels; the
+    plain version, which never skips, averages over all keys instead."""
+    H, K, hd = 4, 2, 16
+    q, k, v = _bf16((1, Sq, H, hd)), _bf16((1, Skv, K, hd)), _bf16(
+        (1, Skv, K, hd))
+    qp = torch.arange(Sq) + (Skv - Sq if not kv_start else 0)
+    kp = torch.arange(Skv) + kv_start
+    out = flash_tiles(q, k, v, qp[None], kp[None])
+    ker = j_flash(jnp.asarray(f32(q), jnp.bfloat16),
+                  jnp.asarray(f32(k), jnp.bfloat16),
+                  jnp.asarray(f32(v), jnp.bfloat16),
+                  jnp.asarray(qp.numpy(), jnp.int32),
+                  jnp.asarray(kp.numpy(), jnp.int32),
+                  block_q=TILE, block_k=TILE, interpret=True)
+    np.testing.assert_allclose(f32(out), f32(ker), atol=BF16_TOL,
+                               rtol=BF16_TOL)
+    if kv_start:
+        dead = qp < kv_start                         # all keys masked
+        ref = attention_ref(q, k, v, qp, kp)
+        assert dead.any()
+        np.testing.assert_allclose(f32(out)[0, ~dead], f32(ref)[0, ~dead],
+                                   atol=BF16_TOL, rtol=BF16_TOL)
+
+
+def test_flash_p_rounding_error_is_inside_the_bf16_output_step():
+    """P in bf16 against P in f32 over the same tiles, at the serve's
+    head width and a 320-token prompt: the difference stays well inside
+    one bf16 step of the output, so the f32-P plain version remains the
+    yardstick at 2e-2."""
+    S, H, K, hd = 320, 2, 1, 128
+    q, k, v = _bf16((1, S, H, hd)), _bf16((1, S, K, hd)), _bf16(
+        (1, S, K, hd))
+    pos = torch.arange(S)[None]
+    out = flash_tiles(q, k, v, pos, pos).float()
+    ref = attention_ref(q, k, v, pos, pos).float()
+    assert float((out - ref).abs().max()) < BF16_TOL / 2

@@ -66,6 +66,40 @@ def test_paged_kernel_matches_plain(dev, S, bs, q_dt, pool_dt):
                                    rtol=tol)
 
 
+@pytest.mark.parametrize("S,bs,hd,q_dt,pool_dt", [
+    (1, 16, 128, torch.bfloat16, torch.bfloat16),
+    (1, 8, 128, torch.bfloat16, torch.float32),
+    (1, 8, 64, torch.float32, torch.bfloat16),
+    (3, 16, 64, torch.float32, torch.float32),
+    (64, 16, 128, torch.bfloat16, torch.bfloat16),
+])
+def test_paged_kernel_many_splits(dev, S, bs, hd, q_dt, pool_dt):
+    """Long contexts (up to 1,000 tokens) cut into many KV splits, some of
+    them wholly in the future of a request, with trash-block columns past
+    each request's extent: the split kernel and its in-launch combine
+    against the plain version, twice in a row (the counters must come back
+    to zero), with the visible prefix cut too."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, H, K = 4, 24, 2
+    MB = 1024 // bs
+    NB = B * MB + 1
+    q = _randn(g, (B, S, H, hd), dev, q_dt)
+    kp, vp = (_randn(g, (NB, bs, K, hd), dev, pool_dt) for _ in range(2))
+    bt = (torch.randperm(NB - 1, generator=g, device=dev)[:B * MB]
+          .reshape(B, MB) + 1).to(torch.int32)
+    pos = torch.tensor([0, 137, 600, 1000 - S], dtype=torch.int32,
+                       device=dev)
+    for b, p in enumerate(pos.tolist()):        # stale columns: trash block
+        bt[b, (p + S - 1) // bs + 1:] = 0
+    tol = 2e-5 if q_dt == torch.float32 else 2e-2
+    for cols in (0, 0, (1000 - 1) // bs + 1):
+        out = paged_attention(q, kp, vp, bt, pos, ctx_cols=cols)
+        torch.cuda.synchronize()
+        ref = paged_attention_ref(q, kp, vp, bt[:, :cols or MB], pos)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
 @pytest.mark.parametrize("S,kc", [(128, 128), (200, 256), (37, 128)])
 def test_flash_kernel_matches_plain(dev, S, kc):
     g = torch.Generator(device=dev).manual_seed(1)
@@ -75,6 +109,32 @@ def test_flash_kernel_matches_plain(dev, S, kc):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), attention_ref(q, k, v).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal", [
+    (1, 77, 77, 8, 2, 64, True),       # hd 64, ragged
+    (1, 100, 130, 24, 2, 128, False),  # not causal, Sq != Skv
+    (2, 150, 150, 24, 2, 128, True),   # two requests, distinct positions
+    (2, 33, 300, 4, 4, 64, True),      # suffix queries over a longer kv
+])
+def test_flash_kernel_positions_and_shapes(dev, B, Sq, Skv, H, K, hd,
+                                           causal):
+    """hd 64, causal=False, and B = 2 with per-request positions (the
+    second request's queries shifted back, so some of its KV tiles are
+    wholly in the future): the tensor-core kernel against its plain
+    version within one bf16 step."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = _randn(g, (B, Sq, H, hd), dev, torch.bfloat16)
+    k, v = (_randn(g, (B, Skv, K, hd), dev, torch.bfloat16)
+            for _ in range(2))
+    qp = torch.arange(Sq, device=dev) + (Skv - Sq)
+    qp = torch.stack([qp - 40 * b for b in range(B)]).clamp_min(0)
+    kp = torch.arange(Skv, device=dev).expand(B, Skv)
+    out = flash_attention(q, k, v, qp, kp, causal=causal, block_k=256)
+    torch.cuda.synchronize()
+    ref = attention_ref(q, k, v, qp, kp, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_quant_kernels_bit_exact(dev):
