@@ -18,13 +18,16 @@ Phases, in order; any failure exits non-zero before the result line:
              lengths x k_chunk 128/256, hd 64, causal=False and two
              requests at different positions;
              int8 quantize/dequantize bit-exact; the selective scan (D=8192,
-             N=16) at prefill lengths 1-512 with and without h0, f32 and
-             bf16 x/dt, and at decode (B=8, S=1 and S=5 from h0).  Then
-             each kernel's time (CUDA events around device work, L2
-             flushed) beside its plain version's, a library call's where
-             one computes the same function, and its bound at this run's
-             shapes: paged at a decode tick and a suffix prefill, flash at
-             S=320 and S=1024 beside SDPA.
+             N=16, and N=4, 8, 32) at prefill lengths 1-512 with and
+             without h0, f32 and bf16 x/dt, Bm/Cm contiguous f32 or bf16
+             views of an x_proj output, and at decode (B=8, S=1 and S=5
+             from h0, written in place).  Then each kernel's time (CUDA
+             events around device work, L2 flushed) beside its plain
+             version's, a library call's where one computes the same
+             function, and its bound at this run's shapes: paged at a
+             decode tick and a suffix prefill, flash at S=320 and S=1024
+             beside SDPA, the scan at a decode tick and at the 16, 96, 256
+             and 512-token prefill buckets.
 4. parity  — full-width starcoder2-3b decode step: paged kernel against
              the plain dense gather path on one f32 pool, one layer deep
              and all 30 layers (against a measured rounding-noise floor).
@@ -73,8 +76,10 @@ N_SMS = 132
 H, K, HD = 24, 2, 128              # starcoder2-3b attention geometry
 BF16_TOL = 2e-2                    # one bf16 step at |x| < 4, plus slack
 F32_TOL = 2e-5                     # summation order only
-SCAN_TOL = 1e-4                    # f32 rounding of expf, the state update
-                                   # and the <h, C> sum over <= 512 steps
+SCAN_TOL = 1e-4                    # f32 rounding of the exponential (the
+                                   # kernel's ex2.approx, the plain version's
+                                   # exp), the state update and the <h, C>
+                                   # sum over <= 512 steps
 
 
 def fail(msg: str):
@@ -343,41 +348,60 @@ def check_kernels(torch):
 
 def check_scan(torch):
     """The selective scan against its plain version at falcon-mamba-7b's
-    width (D = 8192, N = 16), then timed at the serve's shapes: a prefill
-    of a 256-token bucket (B = 1, no h0) and a decode tick (B = 8, S = 1,
-    h0 updated in place).  Inputs as the model makes them: x bf16 (the
-    conv's output), dt f32 from a softplus, A = -(1..16)."""
+    width (D = 8192, N = 16), and at N = 4, 8 and 32; with x, dt, Bm and
+    Cm in f32 and bf16, Bm and Cm contiguous or as bf16 views of an x_proj
+    output (the model's form); from zeros and from h0 written in place.
+    Then timed at the serve's shapes on the model's inputs (x and dt bf16,
+    Bm and Cm bf16 views, A = -(1..16)): a decode tick (B = 8, S = 1, h0
+    updated in place, the kernels line's row) and prefills of the 16, 96,
+    256 and 512-token buckets (B = 1, no h0), each beside its bound."""
     from repro_torch.kernels.mamba_scan import (selective_scan,
                                                 selective_scan_ref)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
-    D, N = 8192, 16
-    A = -torch.arange(1, N + 1, dtype=f32, device=dev).expand(D, N) \
-        .contiguous()
+    D, R = 8192, 256                     # d_inner, dt_rank
 
-    def case(B, S, xdt, dtdt, h0):
+    def A_of(N):
+        return -torch.arange(1, N + 1, dtype=f32, device=dev).expand(
+            D, N).contiguous()
+
+    def case(B, S, xdt, dtdt, h0, N=16, views=False):
         x = torch.randn((B, S, D), generator=g, device=dev).to(xdt)
         dt = torch.nn.functional.softplus(
             torch.randn((B, S, D), generator=g, device=dev)).to(dtdt)
-        Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev)
-                  for _ in range(2))
+        if views:                        # as mamba1_block hands them over
+            proj = torch.randn((B, S, R + 2 * N), generator=g,
+                               device=dev).to(bf16)
+            _, Bm, Cm = proj.split([R, N, N], dim=-1)
+        else:
+            Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev)
+                      for _ in range(2))
         h = (torch.randn((B, D, N), generator=g, device=dev) if h0
              else None)
-        return x, dt, Bm, Cm, A, h
+        return x, dt, Bm, Cm, A_of(N), h
 
     err = 0.0
     cases = [(1, S, xdt, xdt, h0) for S in (1, 16, 37, 256, 512)
              for h0 in (False, True) for xdt in (f32, bf16)]
     cases += [(1, 256, bf16, f32, False), (8, 1, bf16, f32, True),
               (8, 1, f32, f32, True), (8, 5, bf16, f32, True)]
-    for B, S, xdt, dtdt, h0 in cases:
-        x, dt, Bm, Cm, A_, h = case(B, S, xdt, dtdt, h0)
+    cases = [c + (16, False) for c in cases]
+    cases += [(B, S, bf16, bf16, h0, 16, True) for B, S, h0 in [
+        (8, 1, True), (8, 5, True), (1, 16, False), (1, 96, False),
+        (1, 256, False), (1, 512, False), (2, 37, True)]]
+    cases += [(B, S, bf16, bf16, h0, N, views) for N in (4, 8, 32)
+              for B, S, h0, views in [(8, 1, True, True), (2, 37, True, True),
+                                      (1, 96, False, True),
+                                      (1, 96, False, False)]]
+    for B, S, xdt, dtdt, h0, N, views in cases:
+        x, dt, Bm, Cm, A_, h = case(B, S, xdt, dtdt, h0, N, views)
         ry, rh = selective_scan_ref(x, dt, Bm, Cm, A_, h)
         hs = None if h is None else h.clone()
         y, hl = selective_scan(x, dt, Bm, Cm, A_, hs, h_out=hs)
         torch.cuda.synchronize()
-        what = (f"selective_scan B={B} S={S} x={xdt} dt={dtdt} "
+        what = (f"selective_scan B={B} S={S} N={N} x={xdt} dt={dtdt} "
+                f"B/C={'bf16 views' if views else Bm.dtype} "
                 f"h0={'yes' if h0 else 'no'}")
         if hs is not None and hl.data_ptr() != hs.data_ptr():
             fail(f"{what}: h_out was not written in place")
@@ -386,13 +410,16 @@ def check_scan(torch):
 
     clock = sm_clock_ghz()
 
-    def scan_bound(B, S, xb, h0):
+    def scan_bound(x, dt, Bm, Cm, A_, h):
+        """Each input read once (Bm and Cm: the N values of each row the
+        scan reads), y and h_last written once; operations: the B S D N
+        exponentials on the SFU, the f32 FMAs beside them."""
+        B, S, _ = x.shape
+        N = A_.shape[1]
         n = B * S * D
-        nbytes = (n * (xb + 4)           # x, dt read
-                  + n * 4                # y written
-                  + 2 * B * S * N * 4    # Bm, Cm
-                  + D * N * 4            # A
-                  + B * D * N * 4 * (2 if h0 else 1))   # h0, h_last
+        nbytes = (x.numel() * x.element_size() + dt.numel() * dt.element_size()
+                  + 2 * B * S * N * Bm.element_size() + A_.numel() * 4
+                  + n * 4 + B * D * N * 4 * (2 if h is not None else 1))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_exp = n * N / (SFU_PER_SM_CLOCK * N_SMS * clock * 1e9) * 1e3
         t_fma = (6 * n * N + n) / F32_FLOPS * 1e3
@@ -401,29 +428,31 @@ def check_scan(torch):
                 else (t_ops, "operations")), t_bytes, t_exp, t_fma
 
     timed = {}
-    for label, B, S, h0 in (("decode", 8, 1, True), ("prefill", 1, 256,
-                                                     False)):
-        x, dt, Bm, Cm, A_, h = case(B, S, bf16, f32, h0)
+    for label, B, S, h0 in [("decode", 8, 1, True)] + [
+            ("prefill", 1, S, False) for S in (16, 96, 256, 512)]:
+        x, dt, Bm, Cm, A_, h = case(B, S, bf16, bf16, h0, views=True)
         ms = timed_ms(torch, lambda: selective_scan(x, dt, Bm, Cm, A_, h,
                                                     h_out=h))
         plain = timed_ms(torch, lambda: selective_scan_ref(x, dt, Bm, Cm,
                                                            A_, h))
-        b, tb, te, tf = scan_bound(B, S, 2, h0)
-        timed[label] = (ms, plain, b)
+        b, tb, te, tf = scan_bound(x, dt, Bm, Cm, A_, h)
+        timed[label, S] = (ms, plain, b)
         print(f"kernel selective_scan[{label} B={B} S={S}]: "
               f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms="
               f"{b[0]:.4f} ({b[1]}; bytes {tb:.4f}, exponentials {te:.4f} "
               f"at {clock:.3f} GHz x {N_SMS} SMs x {SFU_PER_SM_CLOCK}/clock,"
               f" f32 FMAs {tf:.4f})", flush=True)
-    ms, plain, b = timed["decode"]
+    ms, plain, b = timed["decode", 1]
+    pre = "; ".join(f"S={S} {timed['prefill', S][0]:.4f} ms (plain "
+                    f"{timed['prefill', S][1]:.4f}, bound "
+                    f"{timed['prefill', S][2][0]:.4f} "
+                    f"{timed['prefill', S][2][1]})" for S in (16, 96, 256, 512))
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/mamba_scan.cu",
         replaces="src/repro/kernels/mamba_scan/kernel.py:58",
         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, bound=b,
-        shape=f"decode B=8 S=1 D={D} N={N}, x bf16, dt f32, h0 in place; "
-              f"prefill B=1 S=256: {timed['prefill'][0]:.4f} ms (plain "
-              f"{timed['prefill'][1]:.4f}, bound {timed['prefill'][2][0]:.4f}"
-              f" {timed['prefill'][2][1]})")
+        shape=f"decode B=8 S=1 D={D} N=16, x/dt bf16, Bm/Cm bf16 views, h0 "
+              f"in place; prefill B=1: {pre}")
 
 
 # ------------------------------------------------------------ phase 4
@@ -798,6 +827,13 @@ def profile_decode(torch, cfg, params):
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         print(f"profile:   {dev_us(e) / n / 1e3:8.4f} ms/step "
               f"{e.count // n:5d} x  {e.key[:90]}", flush=True)
+    port = [e for e in kernels if re.search(
+        r"\b(paged_attention|flash_attention|quantize|dequantize)_kernel\b"
+        r"|\bscan_(direct|chunked)\b", e.key)]
+    for e in port:
+        print(f"profile:   the port's kernel {e.key[:70]}: "
+              f"{dev_us(e) / n / 1e3:.4f} ms/step, {e.count // n} launches "
+              f"a step", flush=True)
 
 
 def dense_path(torch, card):

@@ -11,6 +11,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.mamba_scan import selective_scan, selective_scan_ref
+from repro_torch.kernels.mamba_scan.kernel import SHORT_S, launch_plan
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_ref)
 from repro_torch.kernels.quant import (dequantize, dequantize_ref, quantize,
@@ -172,6 +173,84 @@ def test_scan_kernel_matches_plain(dev, B, S, D, N, xdt, h0):
     torch.cuda.synchronize()
     assert LAUNCHES["selective_scan"] == 1
     assert hs is None or hl is hs
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(hl, rh, atol=1e-4, rtol=1e-4)
+
+
+def _scan_model_inputs(g, B, S, D, N, dev, R=256):
+    """The scan's inputs as the model hands them over: x and dt bf16, Bm
+    and Cm bf16 views into one (B, S, R + 2N) projection."""
+    x = _randn(g, (B, S, D), dev, torch.bfloat16)
+    dt = torch.nn.functional.softplus(_randn(g, (B, S, D), dev)).to(
+        torch.bfloat16)
+    proj = _randn(g, (B, S, R + 2 * N), dev, torch.bfloat16)
+    _, Bm, Cm = proj.split([R, N, N], dim=-1)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(
+        D, N).contiguous()
+    return x, dt, Bm, Cm, A
+
+
+@pytest.mark.parametrize("S", [1, 2, 5, 16, 37, 96, 256, 512])
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+def test_scan_kernel_strided_bf16_bc(dev, S, N):
+    """Bm and Cm read where they lie (bf16 views of the projection), at
+    decode-like shapes (B = 8 from a stored state, ``h_out`` aliasing
+    ``h0``) and prefill-like ones (B = 1 from zeros); D = 8192 at N = 16,
+    a ragged 1000 otherwise: within 1e-4 of the plain version, and equal
+    to the kernel on contiguous f32 copies of the same values."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B = 8 if S <= 16 else 1
+    D = 8192 if N == 16 else 1000
+    x, dt, Bm, Cm, A = _scan_model_inputs(g, B, S, D, N, dev)
+    h = _randn(g, (B, D, N), dev) if B == 8 else None
+    ry, rh = selective_scan_ref(x, dt, Bm, Cm, A, h)
+    hs = None if h is None else h.clone()
+    y, hl = selective_scan(x, dt, Bm, Cm, A, hs, h_out=hs)
+    torch.cuda.synchronize()
+    assert hs is None or hl is hs
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(hl, rh, atol=1e-4, rtol=1e-4)
+    y2, h2 = selective_scan(x, dt, Bm.float().contiguous(),
+                            Cm.float().contiguous(), A, h)
+    assert torch.equal(y, y2) and torch.equal(hl, h2)
+
+
+@pytest.mark.parametrize("S", [5, 21])
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+def test_scan_kernel_every_build(dev, N, S):
+    """Each build of the kernel, direct (S = 5) and chunked (S = 21, a
+    ragged last chunk), for every N, from a stored state at a ragged D; a
+    step with dt = 0 passes the state through exactly."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, D, live = 3, 200, S - 2
+    assert launch_plan(S, N)[1] == (S > SHORT_S)
+    x, dt, Bm, Cm, A = _scan_model_inputs(g, B, S, D, N, dev)
+    dt[:, live:] = 0
+    h = _randn(g, (B, D, N), dev)
+    ry, rh = selective_scan_ref(x, dt, Bm, Cm, A, h)
+    y, hl = selective_scan(x, dt, Bm, Cm, A, h)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(hl, rh, atol=1e-4, rtol=1e-4)
+    _, h_live = selective_scan(x[:, :live].contiguous(),
+                               dt[:, :live].contiguous(), Bm[:, :live],
+                               Cm[:, :live], A, h)
+    assert torch.equal(hl, h_live)
+
+
+@pytest.mark.parametrize("S", [3, 40])
+def test_scan_kernel_unaligned_inputs(dev, S):
+    """A D that is not a multiple of 4 and Bm, Cm at an odd offset and
+    stride (a projection of R = 255 columns plus 2N): both kernels read
+    bf16 inputs at any alignment; from a stored state, written in place."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, D, N = 2, 203, 16
+    x, dt, Bm, Cm, A = _scan_model_inputs(g, B, S, D, N, dev, R=255)
+    h = _randn(g, (B, D, N), dev)
+    ry, rh = selective_scan_ref(x, dt, Bm, Cm, A, h)
+    y, hl = selective_scan(x, dt, Bm, Cm, A, h, h_out=h)
+    torch.cuda.synchronize()
+    assert hl is h
     torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(hl, rh, atol=1e-4, rtol=1e-4)
 

@@ -199,6 +199,35 @@ def test_mamba1_block_modes_match_jax(models, mode, S, valid_len):
                                rtol=0)
 
 
+@pytest.mark.parametrize("S,with_state,valid_len", [
+    (1, True, None), (8, False, 5)])
+def test_mamba1_block_hands_the_scan_its_inputs_where_they_lie(
+        models, monkeypatch, S, with_state, valid_len):
+    """The block passes dt in bf16 and Bm, Cm as bf16 views of the x_proj
+    output (no cast, no copy), with dt zeroed past ``valid_len`` in bf16."""
+    cfg, tcfg, _, tl = _layer0(models)
+    B, Di, N, R = 2, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    seen, scan = {}, tmamba.selective_scan
+
+    def spy(x, dt, Bm, Cm, A, h0=None, *, h_out=None):
+        seen.update(dt=dt, Bm=Bm, Cm=Cm)
+        return scan(x, dt, Bm, Cm, A, h0, h_out=h_out)
+
+    monkeypatch.setattr(tmamba, "selective_scan", spy)
+    x = T(RNG.standard_normal((B, S, cfg.d_model)).astype(np.float32))
+    st = (tmamba.init_mamba_state(tcfg, B, dtype=torch.bfloat16)
+          if with_state else None)
+    tmamba.mamba1_block(x.to(torch.bfloat16), tl, tcfg, state=st,
+                        valid_len=valid_len)
+    dt, Bm, Cm = seen["dt"], seen["Bm"], seen["Cm"]
+    assert dt.dtype == Bm.dtype == Cm.dtype == torch.bfloat16
+    assert Bm.shape == Cm.shape == (B, S, N)
+    assert Bm.stride() == Cm.stride() == (S * (R + 2 * N), R + 2 * N, 1)
+    assert Cm.data_ptr() - Bm.data_ptr() == N * Bm.element_size()
+    if valid_len is not None:
+        assert not dt[:, valid_len:].any() and dt[:, :valid_len].all()
+
+
 def test_decode_from_init_mamba_state_is_the_full_sequence_mode(models):
     """``mamba1_block`` decoding S tokens from ``init_mamba_state`` (zeros)
     is its full-sequence mode: the same output and state, bit for bit."""
