@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero before the result line:
              counters return to zero); flash attention at ragged prefill
              lengths x k_chunk 128/256, hd 64, causal=False and two
              requests at different positions;
-             int8 quantize/dequantize bit-exact; the selective scan (D=8192,
+             int8 quantize/dequantize bit-exact for f32 and bf16 x, random
+             and one-value (stride-0) u, f32 and bf16 out, every registry
+             block (32-3072) and a ragged one, views at an odd offset (the
+             scalar kernels) and n = 0; the selective scan (D=8192,
              N=16, and N=4, 8, 32) at prefill lengths 1-512 with and
              without h0, f32 and bf16 x/dt, Bm/Cm contiguous f32 or bf16
              views of an x_proj output, and at decode (B=8, S=1 and S=5
@@ -27,7 +30,9 @@ Phases, in order; any failure exits non-zero before the result line:
              function, and its bound at this run's shapes: paged at a
              decode tick and a suffix prefill, flash at S=320 and S=1024
              beside SDPA, the scan at a decode tick and at the 16, 96, 256
-             and 512-token prefill buckets.
+             and 512-token prefill buckets, quantize and dequantize at the
+             table's shape (f32) and the engine's (bf16 x, one-value u, bf16
+             out), dequantize beside torch.mul.
 4. parity  — full-width starcoder2-3b decode step: paged kernel against
              the plain dense gather path on one f32 pool, one layer deep
              and all 30 layers (against a measured rounding-noise floor).
@@ -36,7 +41,9 @@ Phases, in order; any failure exits non-zero before the result line:
              ``serve_loop``: a prefix-sharing bf16-pool arm on the
              shared_prefix trace plus one whole-template prompt (prefill,
              suffix prefill, copy-on-write and decode) and a short int8
-             arm; every request completes, the pool leaks no
+             arm, whose engine's _quant_exec(320) round trip is then held
+             bit for bit to the plain path on the CPU and timed; every
+             request completes, the pool leaks no
              block, every kernel's launch counter rose during the serve,
              and the served tokens agree with a full-sequence prefill.
 6. profile — one decode step of the serve arm under torch.profiler: the
@@ -76,6 +83,9 @@ N_SMS = 132
 H, K, HD = 24, 2, 128              # starcoder2-3b attention geometry
 BF16_TOL = 2e-2                    # one bf16 step at |x| < 4, plus slack
 F32_TOL = 2e-5                     # summation order only
+# K * hd of every registry configuration, the reduced ones' 32 and 64, and
+# a ragged block (a multiple of 4 f32 but not of 8 bf16)
+QUANT_BLOCKS = (32, 64, 256, 512, 1024, 1280, 2048, 3072, 36)
 SCAN_TOL = 1e-4                    # f32 rounding of the exponential (the
                                    # kernel's ex2.approx, the plain version's
                                    # exp), the state update and the <h, C>
@@ -304,8 +314,46 @@ def check_kernels(torch):
         bound=b, extra=f" S=1024: kernel_ms={ms2:.4f} plain_ms={plain2:.4f} "
                        f"library_ms={lib2:.4f} bound_ms={b2[0]:.4f} ({b2[1]})")
 
-    # -- int8 quantize / dequantize: the engine's KV rows, bit-exact
-    n = 30 * 320 * K * HD                          # L x bucket x (K*hd)
+    # -- int8 quantize / dequantize, bit-exact in every form they take: x
+    #    f32 or bf16, u random or one value expanded, out f32 or bf16, every
+    #    registry block, a ragged one, views at an odd offset, n = 0
+    def at_offset(t, offset):
+        v = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)[offset:]
+        return v.copy_(t)
+
+    cases = 0
+    for block in QUANT_BLOCKS:
+        m = 37 * block
+        for x_dt in (f32, bf16):
+            xq = (randn((m,)) * 3).to(x_dt)
+            for one_u in (False, True):
+                u = (torch.full((1,), 0.5, device=dev).expand(m) if one_u
+                     else torch.rand(m, generator=g, device=dev))
+                rq, rs = quantize_ref(xq, u, block=block)
+                for off in (0, 1):
+                    qq, ss = quantize(at_offset(xq, off),
+                                      u if one_u else at_offset(u, off),
+                                      block=block)
+                    what = (f"block={block} x={x_dt} u="
+                            f"{'one value' if one_u else 'random'} "
+                            f"offset={off}")
+                    if not (torch.equal(qq, rq) and torch.equal(ss, rs)):
+                        fail(f"quantize not bit-exact ({what})")
+                    for out_dt in (f32, bf16):
+                        if not torch.equal(
+                                dequantize(at_offset(qq, off), ss,
+                                           block=block, out_dtype=out_dt),
+                                dequantize_ref(rq, rs, block=block,
+                                               out_dtype=out_dt)):
+                            fail(f"dequantize not bit-exact ({what}, "
+                                 f"out={out_dt})")
+                    cases += 1
+    e = torch.zeros(0, device=dev)
+    if quantize(e, e)[0].numel() or dequantize(*quantize(e, e)).numel():
+        fail("quantize/dequantize of n = 0 returned values")
+    # the table's shape: the engine's KV rows of a 320-token admission
+    # (30 layers x 320 rows x K*hd = 256), f32 x and u, at three magnitudes
+    n = 30 * 320 * K * HD
     x = randn((n,)) * 3
     for u in (torch.full_like(x, 0.5), torch.rand(n, generator=g, device=dev)):
         for scale in (1.0, 1e-4, 1e4):
@@ -318,24 +366,49 @@ def check_kernels(torch):
             if not torch.equal(dequantize(qq, ss, block=K * HD),
                                dequantize_ref(rq, rs, block=K * HD)):
                 fail(f"dequantize not bit-exact (scale {scale})")
+    print(f"quant: {cases + 6} cases bit-exact (blocks {QUANT_BLOCKS}, f32/"
+          f"bf16 x, random/one-value u, f32/bf16 out, odd offsets; n = 0)",
+          flush=True)
     u = torch.full_like(x, 0.5)
     qq, ss = quantize(x, u, block=K * HD)
-    for name, fn, ref, nbytes, ops in [
+    nb = ss.numel()
+
+    def lib_dq():                        # one PyTorch call: int8 x f32 -> f32
+        return torch.mul(qq.view(nb, K * HD), ss.view(nb, 1))
+
+    if not torch.equal(lib_dq().reshape(-1), dequantize_ref(qq, ss,
+                                                           block=K * HD)):
+        fail("torch.mul(q, scales) is not dequantize's function")
+    # the engine's shape: bf16 rows, u of one value, bf16 out
+    xe = x.to(bf16)
+    ue = torch.full((1,), 0.5, device=dev).expand(n)
+    qe, se = quantize(xe, ue, block=K * HD)
+    eng_q = timed_ms(torch, lambda: quantize(xe, ue, block=K * HD))
+    eng_dq = timed_ms(torch, lambda: dequantize(qe, se, block=K * HD,
+                                                out_dtype=bf16))
+    eng_qb = bound(n * 2 + 4 + n + nb * 4, 6 * n, F32_FLOPS)
+    eng_dqb = bound(n + nb * 4 + n * 2, n, F32_FLOPS)
+    for name, fn, ref, lib, nbytes, ops, eng in [
             ("quantize", lambda: quantize(x, u, block=K * HD),
-             lambda: quantize_ref(x, u, block=K * HD),
-             n * 4 * 2 + n + ss.numel() * 4, 6 * n),
+             lambda: quantize_ref(x, u, block=K * HD), None,
+             n * 4 * 2 + n + nb * 4, 6 * n, (eng_q, eng_qb)),
             ("dequantize", lambda: dequantize(qq, ss, block=K * HD),
-             lambda: dequantize_ref(qq, ss, block=K * HD),
-             n + ss.numel() * 4 + n * 4, n)]:
+             lambda: dequantize_ref(qq, ss, block=K * HD), lib_dq,
+             n + nb * 4 + n * 4, n, (eng_dq, eng_dqb))]:
         rows[name] = dict(
             route="cuda", source="src/repro_torch/kernels/csrc/quant.cu",
             replaces=("src/repro/kernels/quant/kernel.py:34"
                       if name == "quantize"
                       else "src/repro/kernels/quant/kernel.py:52"),
             max_abs_err=0.0, ms=timed_ms(torch, fn),
-            plain_ms=timed_ms(torch, ref), library_ms=None,
-            shape=f"n={n} (30 layers x 320 rows x 256), block=256, f32",
-            bound=bound(nbytes, ops, F32_FLOPS))
+            plain_ms=timed_ms(torch, ref),
+            library_ms=None if lib is None else timed_ms(torch, lib),
+            shape=f"n={n} (30 layers x 320 rows x 256), block=256, f32 x"
+                  + (" and u" if name == "quantize" else ", f32 out"),
+            bound=bound(nbytes, ops, F32_FLOPS),
+            extra=f" engine_shape(bf16 x, one-value u, bf16 out)_ms="
+                  f"{eng[0]:.4f} engine_bound_ms={eng[1][0]:.6f} "
+                  f"({eng[1][1]})")
     for name, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         extra = r.get("extra", "")
@@ -589,6 +662,45 @@ def serve_arm(torch, cfg, params, setting, trace, label, tracer=None):
     return eng, done, stats, launches
 
 
+def quant_roundtrip(torch, eng, cfg):
+    """The int8 arm's ``_quant_exec(320)`` on one (30, 320, 2, 128) bf16
+    tensor, as a 320-token admission hands it over: bit-exact against the
+    plain path on the CPU (f32 quantize, f32 dequantize, the pool write's
+    cast, as the JAX engine does); its device time and the device
+    operations one call runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.quant import dequantize_ref, quantize_ref
+    g = torch.Generator(device="cuda").manual_seed(3)
+    kv = torch.randn((cfg.n_layers, 320, cfg.n_kv_heads, cfg.hd), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    f = eng._quant_exec(320)
+    before = dict(LAUNCHES)
+    out = f(kv)
+    torch.cuda.synchronize()
+    launched = {k: LAUNCHES[k] - before[k] for k in ("quantize", "dequantize")}
+    block = cfg.n_kv_heads * cfg.hd
+    flat = kv.cpu().reshape(-1).float()
+    rq, rs = quantize_ref(flat, torch.full_like(flat, 0.5), block=block)
+    want = dequantize_ref(rq, rs, block=block).to(eng.pool.kv["k"].dtype)
+    if not torch.equal(out.cpu(), want.reshape(kv.shape)):
+        fail(f"_quant_exec(320) on the card differs from the plain path: "
+             f"{int((out.cpu() != want.reshape(kv.shape)).sum())} values")
+    if launched != {"quantize": 1, "dequantize": 1}:
+        fail(f"_quant_exec(320) launched {launched}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        f(kv)
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages()
+              if "CUDA" in str(e.device_type))
+    print(f"quant: _quant_exec(320) on {tuple(kv.shape)} bf16 rows -> "
+          f"{out.dtype}: bit-exact against the CPU plain path, "
+          f"{timed_ms(torch, lambda: f(kv)):.4f} ms device time, {ops} "
+          f"device operations a call ({launched})", flush=True)
+
+
 def check_tokens(torch, cfg, params, reqs, tol):
     """The served tokens against one full-sequence prefill (no decode
     cache) over prompt + generated tokens: at every generated position the
@@ -828,7 +940,8 @@ def profile_decode(torch, cfg, params):
         print(f"profile:   {dev_us(e) / n / 1e3:8.4f} ms/step "
               f"{e.count // n:5d} x  {e.key[:90]}", flush=True)
     port = [e for e in kernels if re.search(
-        r"\b(paged_attention|flash_attention|quantize|dequantize)_kernel\b"
+        r"\b(paged_attention|flash_attention|quantize|dequantize)(_scalar)?"
+        r"_kernel\b"
         r"|\bscan_(direct|chunked)\b", e.key)]
     for e in port:
         print(f"profile:   the port's kernel {e.key[:70]}: "
@@ -873,7 +986,8 @@ def dense_path(torch, card):
     trace8 = make_trace("shared_prefix", 400.0, 0.015, vocab=cfg.vocab_size,
                         seed=100, prefix_len=192, tail_lens=(8, 48),
                         max_news=(8, 8))
-    _, _, _, lb = serve_arm(torch, cfg, params, int8, trace8, "int8")
+    eng8, _, _, lb = serve_arm(torch, cfg, params, int8, trace8, "int8")
+    quant_roundtrip(torch, eng8, cfg)
     profile_decode(torch, cfg, params)
     launches = {k: la[k] + lb[k] for k in DENSE_KERNELS}
     missing = [k for k, n in launches.items() if n == 0]

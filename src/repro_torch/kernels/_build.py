@@ -36,6 +36,7 @@ LAUNCHES = {"paged_attention": 0, "flash_attention": 0, "quantize": 0,
             "dequantize": 0, "selective_scan": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_N_SMS: dict = {}
 
 
 def reset_launches():
@@ -123,6 +124,14 @@ def check_cuda(what: str, *tensors):
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensor of shape {tuple(t.shape)} is "
                              f"not contiguous")
+
+
+def n_sms(device) -> int:
+    """The SM count of a CUDA device (kernels size their grids to it)."""
+    if device not in _N_SMS:
+        _N_SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _N_SMS[device]
 
 
 def stream_of(t) -> int:

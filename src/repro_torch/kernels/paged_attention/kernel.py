@@ -24,7 +24,6 @@ STAGE_KEYS = 32            # keys of one stage; a split is whole stages
 MAX_STAGES = 3             # stages of one split, all in shared memory at once
 
 _COUNTERS: dict = {}       # device -> int32 counters, zero between launches
-_N_SMS: dict = {}
 
 
 def split_plan(B: int, S: int, H: int, K: int, bs: int, n_vis: int,
@@ -47,13 +46,6 @@ def _counters(device, n: int):
         buf = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                               device=device)
     return buf
-
-
-def _n_sms(device) -> int:
-    if device not in _N_SMS:
-        _N_SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _N_SMS[device]
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, pos, *,
@@ -93,7 +85,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos, *,
             f"{BLOCK_SIZES})")
     out = torch.empty_like(q)
     tiles, n_split, split_keys = split_plan(B, S, H, K, bs, n_vis,
-                                            _n_sms(q.device))
+                                            _build.n_sms(q.device))
     ml = acc = cnt = None
     if n_split > 1:
         rows = B * K * tiles * n_split * ROWS_PER_CTA

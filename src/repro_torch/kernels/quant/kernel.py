@@ -1,7 +1,11 @@
 """Wrappers of the CUDA int8 quantization kernels (``csrc/quant.cu``).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version in ``ref.py``.
+version in ``ref.py``.  Inputs are read where they lie: x in f32 or bf16,
+u as an (n,) array or one value expanded to (n,) (stride 0, read once), and
+the dequantizer writes f32 or bf16.  Ragged blocks and views at an odd
+offset go through the kernel file's scalar kernels, never the plain
+version.
 """
 from __future__ import annotations
 
@@ -10,54 +14,74 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.quant.ref import dequantize_ref, quantize_ref
 
+X_DTYPES = (torch.float32, torch.bfloat16)
+
 
 def _check_block(n: int, block: int, what: str):
     if block < 1 or n % block:
         raise ValueError(f"{what}: n={n} is not a multiple of block={block}")
 
 
+def is_one_value(u) -> bool:
+    """u is one value expanded to (n,): every element at the same address."""
+    return u.dim() == 1 and u.shape[0] > 1 and u.stride(0) == 0
+
+
 def quantize(x, rand_u01, *, block: int = 256):
-    """x, rand_u01: (n,) f32 with n % block == 0 -> (int8 (n,), f32
-    (n//block,))."""
+    """x: (n,) f32 or bf16 with n % block == 0; rand_u01: (n,) f32
+    uniforms, contiguous or one value expanded (stride 0) -> (int8 (n,),
+    f32 (n//block,))."""
     if x.device.type == "cpu":
         return quantize_ref(x, rand_u01, block=block)
     if x.device.type != "cuda":
         raise ValueError(f"quantize: unsupported device {x.device}")
-    _build.check_cuda("quantize", x, rand_u01)
-    if x.dtype != torch.float32 or rand_u01.dtype != torch.float32 \
+    one_u = is_one_value(rand_u01)
+    # an expanded u is checked as its one element; any other
+    # non-contiguous u is refused
+    _build.check_cuda("quantize", x, rand_u01[:1] if one_u else rand_u01)
+    if x.dtype not in X_DTYPES or rand_u01.dtype != torch.float32 \
             or x.dim() != 1 or rand_u01.shape != x.shape:
-        raise ValueError(f"quantize: need two (n,) f32 tensors, got "
-                         f"{x.dtype}{tuple(x.shape)} and "
+        raise ValueError(f"quantize: need (n,) f32/bf16 x and (n,) f32 u, "
+                         f"got {x.dtype}{tuple(x.shape)} and "
                          f"{rand_u01.dtype}{tuple(rand_u01.shape)}")
     n = x.shape[0]
     _check_block(n, block, "quantize")
     q = torch.empty(n, dtype=torch.int8, device=x.device)
     scales = torch.empty(n // block, dtype=torch.float32, device=x.device)
-    fn = _build.bind("quant", "quantize", 4, 2)
+    if n == 0:
+        return q, scales
+    fn = _build.bind("quant", "quantize", 4, 5)
     err = fn(x.data_ptr(), rand_u01.data_ptr(), q.data_ptr(),
-             scales.data_ptr(), n, block, _build.stream_of(x))
+             scales.data_ptr(), n, block, int(x.dtype == torch.bfloat16),
+             int(one_u), _build.n_sms(x.device), _build.stream_of(x))
     _build.check_launch(err, "quantize")
     _build.LAUNCHES["quantize"] += 1
     return q, scales
 
 
-def dequantize(q, scales, *, block: int = 256):
-    """int8 (n,) and f32 (n//block,) -> f32 (n,)."""
+def dequantize(q, scales, *, block: int = 256, out_dtype=torch.float32):
+    """int8 (n,) and f32 (n//block,) -> (n,) in ``out_dtype`` (f32, or bf16
+    rounded to nearest even)."""
     if q.device.type == "cpu":
-        return dequantize_ref(q, scales, block=block)
+        return dequantize_ref(q, scales, block=block, out_dtype=out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"dequantize: unsupported device {q.device}")
     _build.check_cuda("dequantize", q, scales)
     n = q.shape[0]
     if q.dtype != torch.int8 or scales.dtype != torch.float32 \
-            or q.dim() != 1 or scales.shape != (n // max(block, 1),):
-        raise ValueError(f"dequantize: need int8 (n,) and f32 (n/block,), "
-                         f"got {q.dtype}{tuple(q.shape)} and "
-                         f"{scales.dtype}{tuple(scales.shape)}")
+            or q.dim() != 1 or scales.shape != (n // max(block, 1),) \
+            or out_dtype not in X_DTYPES:
+        raise ValueError(f"dequantize: need int8 (n,) and f32 (n/block,) "
+                         f"into f32/bf16, got {q.dtype}{tuple(q.shape)} and "
+                         f"{scales.dtype}{tuple(scales.shape)} into "
+                         f"{out_dtype}")
     _check_block(n, block, "dequantize")
-    x = torch.empty(n, dtype=torch.float32, device=q.device)
-    fn = _build.bind("quant", "dequantize", 3, 2)
+    x = torch.empty(n, dtype=out_dtype, device=q.device)
+    if n == 0:
+        return x
+    fn = _build.bind("quant", "dequantize", 3, 4)
     err = fn(q.data_ptr(), scales.data_ptr(), x.data_ptr(), n, block,
+             int(out_dtype == torch.bfloat16), _build.n_sms(q.device),
              _build.stream_of(q))
     _build.check_launch(err, "dequantize")
     _build.LAUNCHES["dequantize"] += 1

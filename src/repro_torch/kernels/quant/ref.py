@@ -6,7 +6,8 @@ import torch
 
 
 def quantize_ref(x, rand_u01, block: int = 256):
-    """x: (n,) f32 (n % block == 0); rand_u01: (n,) uniforms in [0, 1).
+    """x: (n,) f32 or bf16 (n % block == 0; bf16 is widened, exactly);
+    rand_u01: (n,) uniforms in [0, 1), or one value expanded to (n,).
 
     Per-block symmetric int8 with stochastic rounding (unbiased).
     Returns (q: (n,) int8, scales: (n//block,) f32).
@@ -25,6 +26,8 @@ def quantize_ref(x, rand_u01, block: int = 256):
     return q.reshape(n).to(torch.int8), scale
 
 
-def dequantize_ref(q, scales, block: int = 256):
+def dequantize_ref(q, scales, block: int = 256, out_dtype=torch.float32):
+    """q * scale in f32, then rounded to ``out_dtype``."""
     nb = scales.shape[0]
-    return (q.reshape(nb, block).float() * scales[:, None]).reshape(-1)
+    x = (q.reshape(nb, block).float() * scales[:, None]).reshape(-1)
+    return x.to(out_dtype)

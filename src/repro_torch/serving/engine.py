@@ -50,7 +50,7 @@ from repro_torch.models.lm import ModelKnobs
 from repro_torch.obs.metrics import NULL_METRICS
 from repro_torch.obs.trace import NOP_TRACER
 from repro_torch.serving.knobs import DEFAULT_SERVING_SETTING
-from repro_torch.serving.pool import make_state_pool
+from repro_torch.serving.pool import make_state_pool, pool_dtype
 
 LATER = {
     "spec_k": "speculative decoding",
@@ -247,17 +247,22 @@ class ServingEngine:
     def _quant_exec(self, n: int):
         """int8 KV storage: per-(layer, position) blockwise quantization
         (block = K * hd) with deterministic rounding (u = 0.5), through the
-        quantize/dequantize kernels.  One callable per row count."""
+        quantize/dequantize kernels.  The rows are read in their own dtype,
+        u is one value expanded (the kernel reads it once), and the rows
+        come back in the pool's dtype.  One callable per row count."""
         key = ("quant", n)
 
         def build():
             block = max(self.cfg.n_kv_heads * self.cfg.hd, 1)
+            half = torch.full((1,), 0.5, device=self.device)
+            out_dtype = pool_dtype(self.setting)
 
             def f(kv):                       # (L, n, K, hd)
-                flat = kv.reshape(-1).float()
-                half = torch.full_like(flat, 0.5)
-                q, scales = quantize(flat, half, block=block)
-                return dequantize(q, scales, block=block).reshape(kv.shape)
+                flat = kv.reshape(-1)
+                q, scales = quantize(flat, half.expand(flat.shape[0]),
+                                     block=block)
+                return dequantize(q, scales, block=block,
+                                  out_dtype=out_dtype).reshape(kv.shape)
             return f
 
         return self._steps.get_or_create(key, build)

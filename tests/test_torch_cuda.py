@@ -143,11 +143,95 @@ def test_quant_kernels_bit_exact(dev):
     x = _randn(g, (30 * 48 * 256,), dev) * 3
     for u in (torch.full_like(x, 0.5), torch.rand(x.shape, generator=g,
                                                   device=dev)):
-        q, s = quantize(x, u, block=256)
-        rq, rs = quantize_ref(x, u, block=256)
-        assert torch.equal(q, rq) and torch.equal(s, rs)
-        assert torch.equal(dequantize(q, s, block=256),
-                           dequantize_ref(rq, rs, block=256))
+        for mag in (1.0, 1e-4, 1e4):
+            q, s = quantize(x * mag, u, block=256)
+            rq, rs = quantize_ref(x * mag, u, block=256)
+            assert torch.equal(q, rq) and torch.equal(s, rs)
+            assert torch.equal(dequantize(q, s, block=256),
+                               dequantize_ref(rq, rs, block=256))
+
+
+# K * hd of every registry configuration, the reduced ones' 32 and 64, and
+# a ragged block (a multiple of 4 f32 but not of 8 bf16)
+QUANT_BLOCKS = (32, 64, 256, 512, 1024, 1280, 2048, 3072, 36)
+
+
+def _at_offset(t, offset):
+    """A copy of t as a view ``offset`` elements into a larger tensor."""
+    v = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    v = v[offset:]
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("block", QUANT_BLOCKS)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_quant_kernels_every_form(dev, block, x_dtype):
+    """Both kernels bit-exact against their plain versions: x f32 or bf16,
+    u random or one value expanded (stride 0), out f32 or bf16; aligned
+    (the vector kernels) and as views at an odd offset (the scalar ones)."""
+    g = torch.Generator(device=dev).manual_seed(block)
+    nb = 37
+    n = nb * block
+    x = (_randn(g, (n,), dev) * 3).to(x_dtype)
+    for one_u in (False, True):
+        u = (torch.full((1,), 0.5, device=dev).expand(n) if one_u
+             else torch.rand(n, generator=g, device=dev))
+        rq, rs = quantize_ref(x, u, block=block)
+        for offset in (0, 1):
+            xo = _at_offset(x, offset)
+            uo = u if one_u else _at_offset(u, offset)
+            before = LAUNCHES["quantize"]
+            q, s = quantize(xo, uo, block=block)
+            torch.cuda.synchronize()
+            assert LAUNCHES["quantize"] == before + 1
+            assert torch.equal(q, rq) and torch.equal(s, rs), (one_u, offset)
+            for out_dtype in (torch.float32, torch.bfloat16):
+                out = dequantize(_at_offset(q, offset), s, block=block,
+                                 out_dtype=out_dtype)
+                assert out.dtype == out_dtype
+                assert torch.equal(out, dequantize_ref(
+                    rq, rs, block=block, out_dtype=out_dtype))
+
+
+def test_quant_kernels_empty_and_refused(dev):
+    """n = 0 launches nothing; a strided u that is not one value is
+    refused, as is an x of another dtype."""
+    before = dict(LAUNCHES)
+    q, s = quantize(torch.zeros(0, device=dev), torch.zeros(0, device=dev),
+                    block=256)
+    assert q.shape == (0,) and s.shape == (0,)
+    out = dequantize(q, s, block=256, out_dtype=torch.bfloat16)
+    assert out.shape == (0,) and dict(LAUNCHES) == before
+    x = torch.ones(512, device=dev)
+    with pytest.raises(ValueError, match="not contiguous"):
+        quantize(x, torch.rand(1024, device=dev)[::2], block=256)
+    with pytest.raises(ValueError, match="f32/bf16"):
+        quantize(x.half(), torch.rand(512, device=dev), block=256)
+
+
+def test_engine_quant_exec_on_card(dev):
+    """The engine's int8 round trip on bf16 rows: one quantize and one
+    dequantize launch, bf16 out, bit-exact against the plain path on the
+    CPU."""
+    cfg = get_config("starcoder2-3b").reduced(head_dim=64)
+    params = lm.init_params(cfg, 0, device=dev)
+    eng = ServingEngine(params, cfg, dict(DEFAULT_SERVING_SETTING,
+                                          quant="int8", cache_dtype="bf16"),
+                        max_seq=64, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    kv = _randn(g, (cfg.n_layers, 32, cfg.n_kv_heads, cfg.hd), dev,
+                torch.bfloat16)
+    reset_launches()
+    out = eng._quant_exec(32)(kv)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quantize"] == LAUNCHES["dequantize"] == 1
+    block = cfg.n_kv_heads * cfg.hd
+    flat = kv.cpu().reshape(-1).float()
+    rq, rs = quantize_ref(flat, torch.full_like(flat, 0.5), block=block)
+    want = dequantize_ref(rq, rs, block=block).to(torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.cpu(), want.reshape(kv.shape))
 
 
 @pytest.mark.parametrize("B,S,D,N,xdt,h0", [
