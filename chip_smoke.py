@@ -38,16 +38,28 @@ Phases, in order; any failure exits non-zero before the result line:
              and all 30 layers (against a measured rounding-noise floor).
 5. serve   — full-width starcoder2-3b (30 layers, random weights from a
              seeded generator) through ``ServingEngine`` and
-             ``serve_loop``: a prefix-sharing bf16-pool arm on the
-             shared_prefix trace plus one whole-template prompt (prefill,
-             suffix prefill, copy-on-write and decode) and a short int8
-             arm, whose engine's _quant_exec(320) round trip is then held
-             bit for bit to the plain path on the CPU and timed; every
-             request completes, the pool leaks no
-             block, every kernel's launch counter rose during the serve,
-             and the served tokens agree with a full-sequence prefill.
-6. profile — one decode step of the serve arm under torch.profiler: the
-             card's busy share and the kernels that take the time.
+             ``serve_loop``, every step a captured CUDA graph (warm-start
+             prints the captures' time and memory): a prefix-sharing
+             bf16-pool arm on the shared_prefix trace plus one
+             whole-template prompt (prefill, suffix prefill,
+             copy-on-write and decode) and a short int8 arm, whose
+             engine's _quant_exec(320) round trip is then held bit for
+             bit to the plain path on the CPU and timed; every request
+             completes, the pool leaks no block, and the served tokens
+             agree with a full-sequence prefill.
+6. graphs  — on the bf16 arm's pool, filled with random state: the step
+             of every decode context bucket, the 320-token prefill at two
+             last_idx, the 96-token suffix prefill and the int8 arm's
+             _quant_exec(320), each replayed and then run eagerly on a
+             copy of the same pool, bit for bit; then one decode step
+             (8 slots, 289-373 tokens of context) eager beside its graph:
+             wall time, CUDA-event time, the card's busy share under
+             torch.profiler, kernels and host launch calls a step.
+   spec    — the bf16 arm again with spec_k=3 and the n-gram drafter: the
+             S = 4 verify step launches paged attention, drafts are
+             accepted, and the tokens are the spec_k=0 arm's (a request
+             that differs is held to the prefill path, tie-aware); every
+             dense kernel's launch counter rose during the serves.
 7. ssm     — the dense model is freed; full-width falcon-mamba-7b (64
              mamba1 layers, d_inner 8192, N 16): token-by-token decode
              from the stored state against one prefill of the sequence
@@ -55,8 +67,12 @@ Phases, in order; any failure exits non-zero before the result line:
              floor); a serve of the mixed_lengths trace (8 slots, bf16
              conv state) in which the scan kernel must launch in prefill
              and in decode, every request completes, no slot stays live
-             and the served tokens agree with a full-sequence prefill; the
-             profile of one decode step at 8 slots.
+             and the served tokens agree with a full-sequence prefill;
+             phase 6's graph checks and profile on its pool; a serve with
+             spec_k=2 and the truncated drafter, in which the scan runs in
+             the drafter, the S = 3 verify and the rollback's replay from
+             the snapshot, with the spec_k=0 arm's tokens; the snapshot's
+             copy timed.
 
 Prints one JSON ``kernels`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -659,6 +675,12 @@ def serve_arm(torch, cfg, params, setting, trace, label, tracer=None):
           f"{stats['cow_copies']} COW copies, launches {launches}, peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
           f" GiB", flush=True)
+    cap = eng.capture_stats
+    print(f"serve[{label}]: warm-start captured {cap['steps']} steps as "
+          f"CUDA graphs in {cap['capture_s']:.2f}s, graph memory pool and "
+          f"static buffers {cap['graph_bytes'] / 2 ** 20:.1f} MiB; step "
+          f"cache {stats['exec_cache']}; speculation "
+          f"{stats['speculation']}", flush=True)
     return eng, done, stats, launches
 
 
@@ -835,14 +857,20 @@ def ssm_parity(torch, cfg, params):
     return tol
 
 
+def ssm_trace(cfg):
+    from repro_torch.serving.workload import make_trace
+    return make_trace("mixed_lengths", 400.0, 0.04, vocab=cfg.vocab_size,
+                      seed=5, short_lens=(16, 96), long_lens=(256, 512),
+                      long_frac=0.25, max_news=(32, 32))
+
+
 def ssm_path(torch, card):
     """Phase 7 on full-width falcon-mamba-7b.  Returns the scan's launch
-    count in the serve."""
+    count in the serves."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import lm
     from repro_torch.serving import DEFAULT_SERVING_SETTING
-    from repro_torch.serving.workload import make_trace
     cfg = get_config("falcon-mamba-7b")
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
@@ -852,12 +880,10 @@ def ssm_path(torch, card):
           f"bf16, init {time.perf_counter() - t0:.1f}s", flush=True)
     tol = ssm_parity(torch, cfg, params)
     setting = dict(DEFAULT_SERVING_SETTING, max_batch=8, cache_dtype="bf16")
-    trace = make_trace("mixed_lengths", 400.0, 0.04, vocab=cfg.vocab_size,
-                       seed=5, short_lens=(16, 96), long_lens=(256, 512),
-                       long_frac=0.25, max_news=(32, 32))
     spans = LaunchSpans(LAUNCHES)
     eng, done, stats, launches = serve_arm(torch, cfg, params, setting,
-                                           trace, "falcon-mamba bf16",
+                                           ssm_trace(cfg),
+                                           "falcon-mamba bf16",
                                            tracer=spans)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     by = {k: v["selective_scan"] for k, v in spans.by_span.items()
@@ -867,94 +893,264 @@ def ssm_path(torch, card):
     if min(by.get("serve.prefill", 0), by.get("serve.decode", 0)) == 0:
         fail(f"the ssm serve did not launch selective_scan in both prefill "
              f"and decode: {by}")
-    profile_decode(torch, cfg, params)
     check_tokens(torch, cfg, params, [done[0], done[1], max(
         done, key=lambda r: len(r.prompt))], tol)
     print(f"serve[falcon-mamba bf16]: {stats['tokens_per_s']:.1f} tok/s, "
           f"ttft p50 {stats['p50_ttft_s']:.4f}s, decode "
           f"{stats['decode_tok_per_s']:.1f} tok/s on {card}; peak device "
           f"memory in the serve {peak:.2f} GiB", flush=True)
-    return launches["selective_scan"]
+    g = fill_pool(torch, eng, 7)
+    check_graphs(torch, eng, "falcon-mamba-7b",
+                 step_cases(torch, eng, cfg, g))
+    profile_decode(torch, eng, cfg, g)
+    del eng
+    # speculation: the truncated drafter (the first 32 layers) proposes 2
+    # tokens a slot; each tick verifies 3 and rolls partial accepts back
+    # by a replay from the snapshot
+    spans = LaunchSpans(LAUNCHES)
+    _, sdone, _, sl = serve_arm(
+        torch, cfg, params, dict(setting, spec_k=2.0, drafter="truncated"),
+        ssm_trace(cfg), "falcon-mamba spec_k=2 truncated", tracer=spans)
+    by = {k: v["selective_scan"] for k, v in spans.by_span.items()
+          if k.startswith("decode.")}
+    print(f"spec[falcon-mamba]: selective_scan launches by span {by} "
+          f"(decode.verify at S = 3, decode.rollback = _ssm_replay from "
+          f"the snapshot at S = 1-2, decode.draft = the truncated "
+          f"drafter's prefill)", flush=True)
+    if min(by.get("decode.verify", 0), by.get("decode.rollback", 0),
+           by.get("decode.draft", 0)) == 0:
+        fail(f"the ssm spec arm did not verify, replay and draft through "
+             f"the scan: {by}")
+    same_tokens(torch, cfg, params, "falcon-mamba", sdone, done, tol)
+    time_snapshot(torch, cfg)
+    return launches["selective_scan"] + sl["selective_scan"]
+
+
+def time_snapshot(torch, cfg):
+    """The ssm rollback's snapshot: every slot's state copied into the
+    persistent buffer before a verify step (h f32 and the bf16 conv window
+    of 8 slots), device time."""
+    from repro_torch.models import lm
+    shapes = lm.init_cache_shapes(cfg, 8)
+    state = {"conv": torch.zeros(shapes["conv"], dtype=torch.bfloat16,
+                                 device="cuda"),
+             "h": torch.zeros(shapes["h"], device="cuda")}
+    saved = {k: torch.empty_like(v) for k, v in state.items()}
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+
+    def snap():
+        for k, v in state.items():
+            saved[k].copy_(v)
+
+    ms = timed_ms(torch, snap)
+    print(f"spec[falcon-mamba]: the rollback snapshot copies "
+          f"{nbytes / 1e6:.1f} MB a speculative tick in {ms:.4f} ms "
+          f"(bound {2 * nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, read and "
+          f"write)", flush=True)
+
+
+def same_tokens(torch, cfg, params, label, got, ref, tol):
+    """The speculative arm's tokens against the spec_k = 0 arm's on the
+    same trace; a request that differs is held to the prefill path tie-
+    aware (``check_tokens``): the verify step's S = k+1 matmuls round in
+    other orders than S = 1."""
+    want = {r.rid: r.tokens_out for r in ref}
+    differ = [r for r in got if r.tokens_out != want[r.rid]]
+    print(f"spec[{label}]: {len(got) - len(differ)}/{len(got)} requests "
+          f"served exactly the spec_k=0 arm's tokens", flush=True)
+    if differ:
+        check_tokens(torch, cfg, params, differ, tol)
 
 
 # ------------------------------------------------------------ phase 6
-def profile_decode(torch, cfg, params):
-    """Where a decode tick's time goes.  Dense: the serve arm's decode step
-    (8 slots, ~290-370 tokens of context, bf16 pool, bs 16, ctx_cols 33);
-    ssm: 8 slots of stored state (bf16 conv window, f32 h).  Timed
-    without the profiler, then under ``torch.profiler``: the card's kernel
-    time per step against the wall time, and the kernels that take it."""
+def fill_pool(torch, eng, seed):
+    """Random state in the serve arm's drained pool, as 8 live slots would
+    hold it: KV rows and a table of distinct blocks for every slot (paged),
+    or a conv window and h for every slot (ssm).  Returns the generator."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pool = eng.pool
+    for t in (pool.kv if pool.kind == "paged" else pool.state).values():
+        for i in range(t.shape[0]):
+            t[i].copy_(torch.randn(t.shape[1:], generator=g, device="cuda"))
+    if pool.kind == "paged":
+        n = pool.n_slots
+        pool.tables[:] = (torch.arange(n * pool.mb).reshape(n, pool.mb)
+                          + 1).numpy()
+    return g
+
+
+def _flat(out):
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in _flat(v)]
+    if isinstance(out, (tuple, list)):
+        return [t for v in out for t in _flat(v)]
+    return [out]
+
+
+def step_cases(torch, eng, cfg, g, quant_eng=None):
+    """(name, entry, arguments) of the serve arm's steps: the decode step
+    of every context bucket, the 320-token prefill at two last_idx, the
+    96-token suffix prefill (paged pools) and ``quant_eng``'s
+    _quant_exec(320)."""
+    dev = torch.device("cuda")
+    n, bs = eng.pool.n_slots, getattr(eng.pool, "bs", 16)
+
+    def toks(B, S):
+        return torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                             device=dev)
+
+    for cols in eng._ctx_buckets():
+        hi = cols * bs if cols else 1000
+        pos = torch.randint(max(hi - 2 * bs, 0), hi, (n,), generator=g,
+                            device=dev).to(torch.int32)
+        yield (f"decode(cols={cols})", eng._decode_exec(cols),
+               (eng.params, eng.pool.decode_cache(), toks(n, 1), pos))
+    for last in (100, 319):
+        yield (f"prefill(320, last_idx={last})", eng._prefill_exec(320),
+               (eng.params, toks(1, 320), torch.tensor([last], device=dev)))
+    if eng.pool.kind == "paged":
+        yield ("chunk_prefill(96)", eng._chunk_prefill_exec(96),
+               (eng.params, {"k": eng.pool.kv["k"], "v": eng.pool.kv["v"]},
+                torch.as_tensor(eng.pool.tables[1:2], device=dev),
+                toks(1, 96), torch.tensor([256], dtype=torch.int32,
+                                          device=dev),
+                torch.tensor([40], device=dev)))
+    if quant_eng is not None:
+        rows = torch.randn((cfg.n_layers, 320, cfg.n_kv_heads, cfg.hd),
+                           generator=g, device=dev).to(torch.bfloat16)
+        yield "quant(320)", quant_eng._quant_exec(320), (rows,)
+
+
+def check_graphs(torch, eng, label, cases):
+    """Each step replayed as its captured graph, then run by its eager
+    callable on a copy of the same pool: outputs and every pool tensor
+    bit for bit."""
+    pool = eng.pool
+    state = pool.kv if pool.kind == "paged" else pool.state
+    names = []
+    for name, entry, args in cases:
+        if not hasattr(entry, "graph"):
+            fail(f"graphs[{label}]: {name} is not a captured graph")
+        before = {k: v.clone() for k, v in state.items()}
+        got = [t.clone() for t in _flat(entry(*args))]
+        after = {k: v.clone() for k, v in state.items()}
+        for k, v in state.items():
+            v.copy_(before[k])
+        want = _flat(entry.eager(*args))
+        torch.cuda.synchronize()
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if not torch.equal(a, b)]
+        bad += [k for k, v in state.items() if not torch.equal(after[k], v)]
+        if bad or len(got) != len(want):
+            fail(f"graphs[{label}]: {name}: the replay differs from the "
+                 f"eager step in {bad}")
+        names.append(name)
+        del before, after, got, want
+    print(f"graphs[{label}]: replay == eager bit for bit (outputs and the "
+          f"pool) for {len(names)} steps: {', '.join(names)}", flush=True)
+
+
+def profile_decode(torch, eng, cfg, g):
+    """Where a decode tick's time goes, the eager step beside its captured
+    graph in one process.  Dense: 8 slots, 289-373 tokens of context, bf16
+    pool, bs 16, context bucket 33; ssm: 8 slots of stored state (bf16
+    conv window, f32 h).  Each is timed without the profiler (host clock
+    around a synchronised step; CUDA events around 10 back-to-back steps),
+    then under ``torch.profiler``: the card's kernel time per step against
+    the wall time, the kernels a step and the host's launch calls a step
+    (kernel launches, graph launches and asynchronous copies)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import lm
-    from repro_torch.models.lm import ModelKnobs
+    from repro_torch.kernels import LAUNCHES
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(2)
-    B, bs, mb = 8, 16, 64
-    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device=dev)
+    n = eng.pool.n_slots
+    tok = torch.randint(0, cfg.vocab_size, (n, 1), generator=g, device=dev)
     pos = torch.tensor([300, 317, 333, 351, 288, 299, 345, 372], device=dev,
                        dtype=torch.int32)
-    if cfg.family == "ssm":
-        shapes = lm.init_cache_shapes(cfg, B)
-        cache = {"conv": torch.randn(shapes["conv"], generator=g, device=dev
-                                     ).to(torch.bfloat16),
-                 "h": torch.randn(shapes["h"], generator=g, device=dev)}
-        knobs = ModelKnobs()
-    else:
-        shape = lm.init_paged_cache_shapes(cfg, B * mb + 1, bs)["k"]
-        cache = {k: torch.randn(shape, generator=g, device=dev).to(
-            torch.bfloat16) for k in "kv"}
-        cache["block_tables"] = (torch.arange(B * mb, device=dev).reshape(
-            B, mb) + 1).to(torch.int32)
-        knobs = ModelKnobs(attn_impl="paged", attn_ctx=33)
-
-    def step():
-        lm.decode_step(params, cache, tok, pos, cfg, knobs)
-        torch.cuda.synchronize()
-
-    for _ in range(3):
-        step()
-    n = 10
-    t0 = time.perf_counter()
-    for _ in range(n):
-        step()
-    wall = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-    kernels = [e for e in prof.key_averages()
-               if "CUDA" in str(e.device_type)]
+    entry = eng._decode_exec(eng._ctx_cols(372))
+    args = (eng.params, eng.pool.decode_cache(), tok, pos)
+    host_launch = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|"
+                             r"MemcpyAsync|LaunchKernelExC)")
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    busy = sum(dev_us(e) for e in kernels) / n / 1e3
-    print(f"profile[{cfg.name}]: decode step (8 slots, {cfg.n_layers} "
-          f"layers) {wall:.3f} ms wall, "
-          f"{busy:.3f} ms of kernels on the card = busy share "
-          f"{busy / wall:.3f}; {sum(e.count for e in kernels) // n} kernel "
-          f"launches a step", flush=True)
-    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
-        print(f"profile:   {dev_us(e) / n / 1e3:8.4f} ms/step "
-              f"{e.count // n:5d} x  {e.key[:90]}", flush=True)
-    port = [e for e in kernels if re.search(
-        r"\b(paged_attention|flash_attention|quantize|dequantize)(_scalar)?"
-        r"_kernel\b"
-        r"|\bscan_(direct|chunked)\b", e.key)]
-    for e in port:
-        print(f"profile:   the port's kernel {e.key[:70]}: "
-              f"{dev_us(e) / n / 1e3:.4f} ms/step, {e.count // n} launches "
-              f"a step", flush=True)
+    for mode, fn in (("eager", entry.eager), ("graph", entry)):
+        def step():
+            fn(*args)
+            torch.cuda.synchronize()
+
+        for _ in range(3):
+            step()
+        before = dict(LAUNCHES)
+        step()
+        wrapped = sum(LAUNCHES[k] - before[k] for k in LAUNCHES)
+        steps = 10
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(steps):
+            fn(*args)
+        b.record()
+        b.synchronize()
+        ev_ms = a.elapsed_time(b) / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+        events = prof.key_averages()
+        kernels = [e for e in events if "CUDA" in str(e.device_type)]
+        calls = sum(e.count for e in events
+                    if "CUDA" not in str(e.device_type)
+                    and host_launch.match(e.key))
+        busy = sum(dev_us(e) for e in kernels) / steps / 1e3
+        print(f"profile[{cfg.name}] {mode}: decode step (8 slots, "
+              f"{cfg.n_layers} layers) {wall:.3f} ms wall, {ev_ms:.3f} ms "
+              f"a step between CUDA events over {steps} back-to-back steps, "
+              f"{busy:.3f} ms of kernels on the card = busy share "
+              f"{busy / wall:.3f}; {sum(e.count for e in kernels) // steps} "
+              f"kernels and {calls // steps} host launch calls a step, "
+              f"{wrapped} launches of the port's kernels", flush=True)
+        if mode == "eager":
+            continue
+        for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+            print(f"profile:   {dev_us(e) / steps / 1e3:8.4f} ms/step "
+                  f"{e.count // steps:5d} x  {e.key[:90]}", flush=True)
+        port = [e for e in kernels if re.search(
+            r"\b(paged_attention|flash_attention|quantize|dequantize)"
+            r"(_scalar)?_kernel\b|\bscan_(direct|chunked)\b", e.key)]
+        for e in port:
+            print(f"profile:   the port's kernel {e.key[:70]}: "
+                  f"{dev_us(e) / steps / 1e3:.4f} ms/step, "
+                  f"{e.count // steps} launches a step", flush=True)
+
+
+def dense_trace(cfg):
+    """The shared_prefix trace of the bf16 arm plus one prompt that is a
+    whole template, arriving with the first: its last token re-lands in a
+    shared block, so admission copies it (COW)."""
+    from repro_torch.serving import Request
+    from repro_torch.serving.workload import make_trace
+    trace = make_trace("shared_prefix", 400.0, 0.04, vocab=cfg.vocab_size,
+                       seed=4, prefix_len=256, tail_lens=(16, 96),
+                       max_news=(32, 32))
+    trace.append(Request(rid=len(trace), prompt=trace[0].prompt[:256].copy(),
+                         max_new=32, arrival_s=trace[0].arrival_s))
+    return trace
 
 
 def dense_path(torch, card):
     """Phases 4-6 on full-width starcoder2-3b.  Returns the launch counts of
-    the dense path's kernels in its two serve arms."""
+    the dense path's kernels in its serve arms."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.models import lm
-    from repro_torch.serving import DEFAULT_SERVING_SETTING, Request
+    from repro_torch.serving import DEFAULT_SERVING_SETTING
     from repro_torch.serving.workload import make_trace
     cfg = get_config("starcoder2-3b")
     t0 = time.perf_counter()
@@ -967,29 +1163,42 @@ def dense_path(torch, card):
 
     share = dict(DEFAULT_SERVING_SETTING, max_batch=8, block_size=16,
                  cache_dtype="bf16", prefix_share=True)
-    trace = make_trace("shared_prefix", 400.0, 0.04, vocab=cfg.vocab_size,
-                       seed=4, prefix_len=256, tail_lens=(16, 96),
-                       max_news=(32, 32))
-    # one prompt that is a whole template, arriving with the first: its
-    # last token re-lands in a shared block, so admission copies it (COW)
-    cow = Request(rid=len(trace), prompt=trace[0].prompt[:256].copy(),
-                  max_new=32, arrival_s=trace[0].arrival_s)
-    trace.append(cow)
-    _, done, stats, la = serve_arm(torch, cfg, params, share, trace,
-                                   "prefix_share bf16")
+    eng, done, stats, la = serve_arm(torch, cfg, params, share,
+                                     dense_trace(cfg), "prefix_share bf16")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if stats["cow_copies"] == 0:
         fail("the whole-template request made no copy-on-write copy")
-    check_tokens(torch, cfg, params,
-                 [done[0], done[1]] + [r for r in done if r is cow], tol)
+    check_tokens(torch, cfg, params, [done[0], done[1]] + [
+        r for r in done if r.rid == len(done) - 1], tol)
     int8 = dict(share, quant="int8")
     trace8 = make_trace("shared_prefix", 400.0, 0.015, vocab=cfg.vocab_size,
                         seed=100, prefix_len=192, tail_lens=(8, 48),
                         max_news=(8, 8))
     eng8, _, _, lb = serve_arm(torch, cfg, params, int8, trace8, "int8")
     quant_roundtrip(torch, eng8, cfg)
-    profile_decode(torch, cfg, params)
-    launches = {k: la[k] + lb[k] for k in DENSE_KERNELS}
+    g = fill_pool(torch, eng, 7)
+    check_graphs(torch, eng, "starcoder2-3b",
+                 step_cases(torch, eng, cfg, g, quant_eng=eng8))
+    profile_decode(torch, eng, cfg, g)
+    del eng, eng8
+    # speculation: the n-gram drafter proposes 3 tokens a slot over the
+    # same trace; one S = 4 paged decode verifies them
+    spans = LaunchSpans(LAUNCHES)
+    _, sdone, sstats, lc = serve_arm(
+        torch, cfg, params, dict(share, spec_k=3.0, drafter="ngram"),
+        dense_trace(cfg), "prefix_share bf16 spec_k=3 ngram", tracer=spans)
+    by = {k: v["paged_attention"] for k, v in spans.by_span.items()
+          if k.startswith("decode.")}
+    print(f"spec[starcoder2-3b]: paged_attention launches by span {by} "
+          f"(decode.verify at S = 4)", flush=True)
+    if by.get("decode.verify", 0) == 0:
+        fail(f"the dense spec arm did not verify through paged attention: "
+             f"{by}")
+    if sstats["speculation"]["accepted"] == 0:
+        fail(f"the n-gram drafter had no draft accepted: "
+             f"{sstats['speculation']}")
+    same_tokens(torch, cfg, params, "starcoder2-3b", sdone, done, tol)
+    launches = {k: la[k] + lb[k] + lc[k] for k in DENSE_KERNELS}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"the serve path never launched {missing}: {launches}")

@@ -8,6 +8,8 @@ tensor runs the plain version in ``ref.py``.
 The kernel splits the KV axis over CTAs (``split_plan``) and merges the
 splits in the same launch; the wrapper allocates the f32 partials and
 keeps one zeroed counter buffer per device, which the kernel leaves zeroed.
+A CUDA graph captures that buffer by address, so it is allocated (or grown)
+only outside a capture: the eager warm-up before each capture sizes it.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ STAGE_KEYS = 32            # keys of one stage; a split is whole stages
 MAX_STAGES = 3             # stages of one split, all in shared memory at once
 
 _COUNTERS: dict = {}       # device -> int32 counters, zero between launches
+_OUTGROWN: list = []       # buffers a larger one replaced: graphs captured
+                           # on them still write them, so they stay alive
 
 
 def split_plan(B: int, S: int, H: int, K: int, bs: int, n_vis: int,
@@ -43,6 +47,13 @@ def split_plan(B: int, S: int, H: int, K: int, bs: int, n_vis: int,
 def _counters(device, n: int):
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # a buffer made here would live in the graph's memory pool
+            raise RuntimeError("paged_attention: split counters must be "
+                               "allocated before a CUDA graph capture (run "
+                               "the step once eagerly first)")
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                               device=device)
     return buf

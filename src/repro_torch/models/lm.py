@@ -214,18 +214,22 @@ def forward(params, tokens, cfg: ModelConfig,
     (L, B, Di, N) f32), or the decode cache written in place (``pos`` is
     not read).
 
-    ``valid_len`` (int, prefill only): non-pad tokens of a right-padded
-    batch.  Attention ignores it (the causal mask and the caller's slicing
-    isolate pads); the ssm family returns the state *after token
-    valid_len*, not after the pads."""
+    ``valid_len`` (int or (1,) int64 tensor, prefill only): non-pad tokens
+    of a right-padded batch.  Attention ignores it (the causal mask and the
+    caller's slicing isolate pads); the ssm family returns the state *after
+    token valid_len*, not after the pads.  A tensor stays on the device, so
+    a captured prefill serves every valid_len of its bucket."""
     check_family(cfg)
     x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(
             f"mode {mode!r}: training comes with the training slice")
     if cfg.family == "ssm":
-        return _forward_ssm(params, x, cfg, mode, cache,
-                            valid_len if mode == "prefill" else None)
+        if mode != "prefill" or valid_len is None:
+            valid_len = None
+        elif not isinstance(valid_len, torch.Tensor):
+            valid_len = torch.tensor([valid_len], device=x.device)
+        return _forward_ssm(params, x, cfg, mode, cache, valid_len)
     B, S, D = x.shape
     ar = torch.arange(S, device=x.device)
     if mode == "decode":

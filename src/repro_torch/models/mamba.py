@@ -29,10 +29,11 @@ def _causal_conv1d(x, w, b, state=None, valid_len=None):
     ``state`` (B, Di, K-1) is the trailing input window of the already
     processed prefix (zeros == no prefix), so the same code serves
     prefill (state=None), single-token decode (S=1 + state) and
-    multi-token decode (S>1 + state).  ``valid_len`` (int, right-padded
-    prefill): the returned state is the window ending at token
-    ``valid_len`` rather than at S, so pad tokens never leak into the
-    recurrent state.
+    multi-token decode (S>1 + state).  ``valid_len`` ((1,) int64 tensor,
+    right-padded prefill): the returned state is the window ending at
+    token ``valid_len`` rather than at S, so pad tokens never leak into the
+    recurrent state.  It stays on the device: the window is a gather, so
+    one CUDA graph serves every ``valid_len`` of a prefill bucket.
     """
     B, S, Di = x.shape
     K = w.shape[1]
@@ -43,8 +44,11 @@ def _causal_conv1d(x, w, b, state=None, valid_len=None):
     xp = torch.cat([past, x], dim=1)                         # (B, S+K-1, Di)
     # unfold K taps: sum_k x[t-K+1+k] * w[:, k]
     y = sum(xp[:, k:k + S] * w[:, k] for k in range(K))
-    start = S if valid_len is None else int(valid_len)
-    window = xp[:, start:start + K - 1]                      # last K-1 inputs
+    if valid_len is None:
+        window = xp[:, S:]                                   # last K-1 inputs
+    else:
+        taps = valid_len + torch.arange(K - 1, device=x.device)
+        window = xp.index_select(1, taps)
     return y + b, window.transpose(1, 2)
 
 
@@ -67,7 +71,8 @@ def mamba1_block(x, p, cfg, state=None, valid_len=None):
     if valid_len is not None:
         # zeroed dt makes a step a no-op (dA = exp(0) = 1, update = 0), so
         # right-pad tokens pass the recurrent state through unchanged
-        dt[:, int(valid_len):] = 0.0
+        pad = torch.arange(S, device=x.device) >= valid_len
+        dt = dt.masked_fill(pad[None, :, None], 0.0)
     A = -torch.exp(p["A_log"].float())                       # (Di, N)
     h0 = None if state is None else state["h"]
     y, new_h = selective_scan(xs, dt, Bm, Cm, A, h0, h_out=h0)

@@ -20,9 +20,14 @@ device, and every write — prefill rows, copy-on-write copies, the decode
 step's scatter or state update — changes them *in place* (the JAX pools
 rebuild arrays).
 
-Relayout and staged migration (Type I-b reconfiguration), speculative
-write records and the hybrid family's shared-attention slab come with
-later slices of the port.
+The engine's captured steps read the pools by address, so every tensor a
+step sees stays where it is for the pool's life: the block tables live in
+one device tensor, refreshed from a pinned host mirror only when the host
+tables changed, and the ssm pool's speculative snapshot is one persistent
+buffer.
+
+Relayout and staged migration (Type I-b reconfiguration) and the hybrid
+family's shared-attention slab come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -117,6 +122,14 @@ class PagedKVPool(StatePool):
         self.ref = np.zeros(self.nb, np.int32)
         self.ref[TRASH_BLOCK] = 1                       # pinned
         self.tables = np.zeros((n_slots, self.mb), np.int32)
+        # the device copy the decode step reads (captured by address), and
+        # the pinned host mirror of what it holds
+        cuda = self.device.type == "cuda"
+        self.dev_tables = torch.zeros((n_slots, self.mb), dtype=torch.int32,
+                                      device=self.device)
+        self._host_tables = torch.zeros((n_slots, self.mb),
+                                        dtype=torch.int32, pin_memory=cuda)
+        self._tables_copied = torch.cuda.Event() if cuda else None
         self.slot_blocks: list[list[int]] = [[] for _ in range(n_slots)]
         self.slot_live = [False] * n_slots
         self._free: set[int] = set()
@@ -326,7 +339,22 @@ class PagedKVPool(StatePool):
     # -------------------------------------------------------------- writing
     def prepare_write(self, slot: int, start: int, end: int):
         """Copy-on-write: any shared block overlapping write range
-        [start, end) is copied into a private block first (in place)."""
+        [start, end) is copied into a private block first (in place).  A
+        speculative write settled at once: the shared block keeps another
+        reference, so the drop never frees it."""
+        for _, old, _ in self.prepare_spec_write(slot, start, end):
+            self._release_block(old)
+
+    def prepare_spec_write(self, slot: int, start: int, end: int):
+        """Copy-on-write for a *speculative* write range [start, end).
+
+        Like ``prepare_write``, but the shared block's refcount drop is
+        deferred: rolling a rejected tail back must restore the original
+        block, and an eager decrement could free it (or hand it to another
+        request) mid-tick.  Returns rollback records
+        ``[(logical_block, old_physical, new_physical), ...]`` that
+        ``commit_spec_write`` settles after the verify step."""
+        recs = []
         for lb in range(start // self.bs, -(-end // self.bs)):
             b = int(self.tables[slot, lb])
             if self.ref[b] <= 1:
@@ -336,10 +364,29 @@ class PagedKVPool(StatePool):
             for t in self.kv.values():
                 t[:, nb] = t[:, b]
             self.ref[nb] = 1
-            self.ref[b] -= 1
+            # ref[b] is NOT decremented here — commit_spec_write settles
+            # it: release on keep, restore on rollback
             self.tables[slot, lb] = nb
             self.slot_blocks[slot][lb] = nb
             self.cow_copies += 1
+            recs.append((lb, b, nb))
+        return recs
+
+    def commit_spec_write(self, slot: int, recs, accepted_end: int):
+        """Settle a speculative write's COW records: a copy covering any
+        accepted position (block start < ``accepted_end``) is kept and the
+        old shared block finally dropped; a copy covering only rejected
+        positions is undone — the table entry is restored and the private
+        copy freed.  Rejected rows need no scrubbing: every decode step
+        re-resolves COW and rewrites its KV rows in-step before attention
+        reads them, and attention masks ``kvp <= q_pos``."""
+        for lb, old, new in recs:
+            if lb * self.bs < accepted_end:
+                self._release_block(old)      # the deferred decrement
+            else:
+                self.tables[slot, lb] = old
+                self.slot_blocks[slot][lb] = old
+                self._release_block(new)      # 1 -> 0: back to free list
 
     def write_kv(self, slot: int, kv: dict, start: int):
         """Scatter per-token KV rows (L, n, K, hd) into the slot's blocks
@@ -357,10 +404,20 @@ class PagedKVPool(StatePool):
     def decode_cache(self) -> dict:
         """Operands of the decode step: the physical KV block pools — what
         the paged-attention kernel reads in place — plus the per-slot block
-        tables (int32, on the pool's device)."""
+        tables, ``dev_tables``: one int32 device tensor for the pool's life,
+        brought up to date with the host tables here when they changed
+        (admission, copy-on-write, release), by an asynchronous copy from a
+        pinned mirror (a pageable copy would wait for the device's queue)."""
+        host = self._host_tables.numpy()
+        if not np.array_equal(host, self.tables):
+            if self._tables_copied is not None:
+                self._tables_copied.synchronize()   # the last copy has read
+            host[...] = self.tables                 # the mirror
+            self.dev_tables.copy_(self._host_tables, non_blocking=True)
+            if self._tables_copied is not None:
+                self._tables_copied.record()
         return {"k": self.kv["k"], "v": self.kv["v"],
-                "block_tables": torch.as_tensor(self.tables,
-                                                device=self.device)}
+                "block_tables": self.dev_tables}
 
     def set_cache(self, new_cache: dict):
         """Adopt the block pools a decode / chunked-prefill step returns
@@ -398,9 +455,22 @@ class SSMStatePool(StatePool):
                                      else dt, device=self.device)
                       for k, s in shapes.items()}
         self.slot_live = [False] * self.n_slots
+        self.saved = None         # the speculative snapshot (save_state)
 
     def exec_key(self) -> tuple:
         return ("ssm", self.n_slots, self.setting.get("cache_dtype"))
+
+    def save_state(self) -> dict:
+        """Copy every slot's state into one persistent buffer (allocated at
+        the first call, then reused: the replay steps capture it by
+        address) and return it.  The decode step writes the state in place,
+        so a speculative verify needs this real copy to roll back from."""
+        if self.saved is None:
+            self.saved = {k: torch.empty_like(v)
+                          for k, v in self.state.items()}
+        for k, v in self.state.items():
+            self.saved[k].copy_(v)
+        return self.saved
 
     def try_admit(self, prompt: np.ndarray, max_new: int):
         """Slot-granular admission: recurrent state is O(1) per request,

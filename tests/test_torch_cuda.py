@@ -212,8 +212,9 @@ def test_quant_kernels_empty_and_refused(dev):
 
 def test_engine_quant_exec_on_card(dev):
     """The engine's int8 round trip on bf16 rows: one quantize and one
-    dequantize launch, bf16 out, bit-exact against the plain path on the
-    CPU."""
+    dequantize launch a call (the step is captured, and its warm-up
+    launched, when it is built), bf16 out, bit-exact against the plain
+    path on the CPU."""
     cfg = get_config("starcoder2-3b").reduced(head_dim=64)
     params = lm.init_params(cfg, 0, device=dev)
     eng = ServingEngine(params, cfg, dict(DEFAULT_SERVING_SETTING,
@@ -222,8 +223,9 @@ def test_engine_quant_exec_on_card(dev):
     g = torch.Generator(device=dev).manual_seed(4)
     kv = _randn(g, (cfg.n_layers, 32, cfg.n_kv_heads, cfg.hd), dev,
                 torch.bfloat16)
+    step = eng._quant_exec(32)
     reset_launches()
-    out = eng._quant_exec(32)(kv)
+    out = step(kv)
     torch.cuda.synchronize()
     assert LAUNCHES["quantize"] == LAUNCHES["dequantize"] == 1
     block = cfg.n_kv_heads * cfg.hd
@@ -397,3 +399,165 @@ def test_reduced_ssm_serve_launches_the_scan(dev):
     np.testing.assert_allclose(lg[:, 0].float().cpu().numpy(),
                                full[:, -1].float().cpu().numpy(), atol=2e-2,
                                rtol=2e-2)
+
+
+# ---------------------------------------------------------------- graphs
+def _graph_engine(dev, family, **setting):
+    cfg = (get_config("starcoder2-3b").reduced(head_dim=64)
+           if family == "dense" else get_config("falcon-mamba-7b").reduced())
+    params = lm.init_params(cfg, 0, device=dev)
+    eng = ServingEngine(params, cfg, dict(DEFAULT_SERVING_SETTING,
+                                          max_batch=4, block_size=16,
+                                          **setting), max_seq=64,
+                        device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    pool = eng.pool
+    if pool.kind == "paged":
+        for t in pool.kv.values():
+            t.copy_(_randn(g, t.shape, dev, t.dtype))
+        pool.tables[:] = (np.arange(4 * pool.mb).reshape(4, pool.mb) + 1)
+    else:
+        for t in pool.state.values():
+            t.copy_(_randn(g, t.shape, dev, t.dtype))
+    return cfg, params, eng, g
+
+
+def _state(eng):
+    pool = eng.pool
+    tensors = dict(pool.kv) if pool.kind == "paged" else dict(pool.state)
+    if getattr(pool, "saved", None) is not None:
+        tensors.update({"saved_" + k: v for k, v in pool.saved.items()})
+    return tensors
+
+
+def _flat(out):
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in _flat(v)]
+    if isinstance(out, (tuple, list)):
+        return [t for v in out for t in _flat(v)]
+    return [out]
+
+
+def _step_case(eng, cfg, g, dev, case):
+    """(entry, its arguments) of one step key of the engine."""
+    n = eng.pool.n_slots
+    tok = lambda B, S: torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device=dev)
+    pos = torch.tensor([3, 17, 30, 9], dtype=torch.int32, device=dev)
+    if case.startswith("decode"):
+        s = int(case[len("decode"):])
+        cols = eng._ctx_cols(40)
+        return (eng._decode_exec(cols, s),
+                (eng.params, eng.pool.decode_cache(), tok(n, s), pos))
+    if case == "replay2":
+        eng.pool.save_state()
+        return (eng._replay_exec(2),
+                (eng.params, eng.pool.saved, tok(n, 2), pos))
+    if case.startswith("prefill"):
+        last = int(case.split("@")[1])
+        return (eng._prefill_exec(32),
+                (eng.params, tok(1, 32), torch.tensor([last], device=dev)))
+    if case == "chunkpf":
+        return (eng._chunk_prefill_exec(16),
+                (eng.params, {"k": eng.pool.kv["k"], "v": eng.pool.kv["v"]},
+                 torch.as_tensor(eng.pool.tables[1:2], device=dev),
+                 tok(1, 16),
+                 torch.tensor([20], dtype=torch.int32, device=dev),
+                 torch.tensor([11], device=dev)))
+    assert case == "quant"
+    rows = _randn(g, (cfg.n_layers, 32, cfg.n_kv_heads, cfg.hd), dev,
+                  torch.bfloat16)
+    return eng._quant_exec(32), (rows,)
+
+
+@pytest.mark.parametrize("family,case", [
+    ("dense", "decode1"), ("dense", "decode4"), ("dense", "prefill@0"),
+    ("dense", "prefill@21"), ("dense", "chunkpf"), ("dense", "quant"),
+    ("ssm", "decode1"), ("ssm", "decode3"), ("ssm", "replay2"),
+    ("ssm", "prefill@0"), ("ssm", "prefill@21")])
+def test_graph_replay_equals_eager(dev, family, case):
+    """Every step key as a captured graph against its eager callable on a
+    copy of the same pool: outputs and the pool's tensors bit for bit."""
+    cfg, params, eng, g = _graph_engine(dev, family, prefix_share=True,
+                                        quant="int8")
+    entry, args = _step_case(eng, cfg, g, dev, case)
+    assert hasattr(entry, "graph") and entry.eager is not entry
+    state = _state(eng)
+    before = {k: v.clone() for k, v in state.items()}
+    got = [t.clone() for t in _flat(entry(*args))]
+    after = {k: v.clone() for k, v in state.items()}
+    for k, v in state.items():
+        v.copy_(before[k])
+    want = _flat(entry.eager(*args))
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), case
+    for k, v in state.items():
+        assert torch.equal(after[k], v), (case, k)
+
+
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_cold_capture_leaves_live_state_untouched(dev, family):
+    """A step captured mid-serve (the verify step at S = 3, here after a
+    first decode) runs its eager warm-up on zero tensors, never on the
+    live pool: every live tensor is bit for bit what it was."""
+    cfg, params, eng, g = _graph_engine(dev, family)
+    eng._decode_exec(eng._ctx_cols(40))
+    state = _state(eng)
+    before = {k: v.clone() for k, v in state.items()}
+    eng._decode_exec(eng._ctx_cols(40), 3)
+    torch.cuda.synchronize()
+    for k, v in state.items():
+        assert torch.equal(before[k], v), k
+
+
+def test_replays_count_the_captured_launches(dev):
+    """LAUNCHES rises by the captured counts on every replay: a dense
+    decode step launches paged attention once a layer, an ssm step the
+    scan once a layer, an int8 round trip each quant kernel once."""
+    for family, kernel, make in (
+            ("dense", "paged_attention", lambda e: e._decode_exec(0)),
+            ("ssm", "selective_scan", lambda e: e._decode_exec(0)),
+            ("dense", "quantize", lambda e: e._quant_exec(32))):
+        cfg, params, eng, g = _graph_engine(dev, family)
+        entry, args = _step_case(eng, cfg, g, dev,
+                                 "quant" if kernel == "quantize"
+                                 else "decode1")
+        want = 1 if kernel == "quantize" else cfg.n_layers
+        assert entry.launches[kernel] == want
+        reset_launches()
+        for _ in range(3):
+            entry(*args)
+        assert LAUNCHES[kernel] == 3 * want, (kernel, dict(LAUNCHES))
+
+
+def test_shared_graph_pool_needs_outputs_consumed(dev):
+    """Why the engine reads or copies every step's outputs before the next
+    replay: steps share one memory pool, and a step captured later may
+    place its output where an earlier step keeps an intermediate.  Holding
+    that output across a replay of the earlier step loses it; a copy
+    taken before keeps it."""
+    from repro_torch.core.lru import GraphStep
+    pool = torch.cuda.graph_pool_handle()
+    n = 1 << 20
+    tmp_at = []
+
+    def a(x):
+        tmp = x * 2.0                   # freed when the capture ends
+        tmp_at.append(tmp.data_ptr())
+        return tmp.sum(0, keepdim=True)
+
+    def b(x):
+        return x + 1.0
+
+    x = torch.randn(n, device=dev)
+    ga = GraphStep(a, x, inputs=(0,), pool=pool)
+    gb = GraphStep(b, x, inputs=(0,), pool=pool)
+    assert gb.out.data_ptr() == tmp_at[-1]
+    out = gb(x)
+    kept = out.clone()
+    ga(torch.randn(n, device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(kept, x + 1.0)
+    assert not torch.equal(out, kept)      # overwritten by the replay of a

@@ -1,10 +1,11 @@
 """PyTorch port: package rules — no JAX or ``repro`` import anywhere in
 the port or ``chip_smoke.py``, entry points that refuse to fall back to
-the CPU, and settings of later slices that raise instead of quietly
-running something else."""
+the CPU, settings of later slices that raise instead of quietly running
+something else, and speculative decoding, which no longer raises."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -70,8 +71,8 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
     assert out.rstrip().endswith("OK") and "served" in out
 
 
-@pytest.mark.parametrize("case", ["spec_k", "tuner", "selftune", "store",
-                                  "family", "space", "reconfigure"])
+@pytest.mark.parametrize("case", ["tuner", "selftune", "store", "family",
+                                  "space", "reconfigure"])
 def test_later_slices_raise_not_implemented(case):
     params = lm.init_params(CFG, 0, device="cpu")
 
@@ -80,7 +81,6 @@ def test_later_slices_raise_not_implemented(case):
                                                **setting), device="cpu")
 
     call = {
-        "spec_k": lambda: engine(spec_k=2.0),
         "tuner": lambda: serve_loop(engine(), [], tuner=object()),
         "selftune": lambda: launch_serve.main(
             ["--arch", "starcoder2-3b", "--reduced", "--selftune"]),
@@ -93,6 +93,24 @@ def test_later_slices_raise_not_implemented(case):
     }[case]
     with pytest.raises(NotImplementedError, match="not ported yet"):
         call()
+
+
+@pytest.mark.parametrize("family", ["starcoder2-3b", "falcon-mamba-7b"])
+def test_spec_k_no_longer_raises(family):
+    """Speculative decoding is ported: an engine with spec_k > 0 serves,
+    and its stats carry the speculation block."""
+    cfg = get_config(family).reduced()
+    params = lm.init_params(cfg, 0, device="cpu")
+    eng = ServingEngine(params, cfg, dict(DEFAULT_SERVING_SETTING,
+                                          max_batch=2, spec_k=2.0),
+                        max_seq=32, device="cpu")
+    from repro_torch.serving import Request
+    stats = serve_loop(eng, [Request(rid=0, prompt=np.arange(1, 6,
+                                                            dtype=np.int32),
+                                     max_new=6)])
+    assert stats["completed"] == 1 and stats["tokens"] == 6
+    assert stats["speculation"]["spec_ticks"] > 0
+    assert stats["speculation"]["spec_k"] == 2
 
 
 def test_kernel_build_cache_is_gitignored():
