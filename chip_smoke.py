@@ -73,6 +73,26 @@ Phases, in order; any failure exits non-zero before the result line:
              the drafter, the S = 3 verify and the rollback's replay from
              the snapshot, with the spec_k=0 arm's tokens; the snapshot's
              copy timed.
+8. reconfig — online reconfiguration on the card, every step a captured
+             graph.  starcoder2-3b (before it is freed): forced switches
+             with live requests — a staged grow max_batch 4 -> 8
+             (begin_reconfig: the target's decode steps captured against
+             the double buffer between ticks, held blocks copied in
+             batches, the commit adopting both; a twin engine takes the
+             same switch stop-the-world), a re-block block_size 16 -> 8 ->
+             16 (apply_plan; the returning geometry's step is a new capture
+             bound to the new tensors) and, on a second wave, cache_dtype
+             bf16 -> f32 (every relocated row is its old value in f32, bit
+             for bit); after each the pool's invariants and the decode
+             graph's replay equal to its eager step, and the served tokens
+             those of an engine that never reconfigured (tie-aware).  Then
+             one self-tuned serve (the --selftune path: warm_start(space),
+             TuningManager + ServingObjective, serve_loop over a Poisson
+             trace): every request completes, every kind of switch the
+             tuner proposed commits, no staged capture fails; its tok/s,
+             TTFT, commits, final setting, step cache and graph memory.
+             falcon-mamba-7b (after phase 7): max_batch 8 -> 4 with 8 live
+             (held, shrunk after the drain) and back, held the same way.
 
 Prints one JSON ``kernels`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -921,8 +941,10 @@ def ssm_path(torch, card):
            by.get("decode.draft", 0)) == 0:
         fail(f"the ssm spec arm did not verify, replay and draft through "
              f"the scan: {by}")
-    same_tokens(torch, cfg, params, "falcon-mamba", sdone, done, tol)
+    same_tokens(torch, cfg, params, "spec[falcon-mamba]", sdone, done,
+                tol)
     time_snapshot(torch, cfg)
+    ssm_relayout(torch, cfg, params, {r.rid: r for r in done}, tol)
     return launches["selective_scan"] + sl["selective_scan"]
 
 
@@ -949,15 +971,17 @@ def time_snapshot(torch, cfg):
           f"write)", flush=True)
 
 
-def same_tokens(torch, cfg, params, label, got, ref, tol):
-    """The speculative arm's tokens against the spec_k = 0 arm's on the
-    same trace; a request that differs is held to the prefill path tie-
-    aware (``check_tokens``): the verify step's S = k+1 matmuls round in
-    other orders than S = 1."""
+def same_tokens(torch, cfg, params, label, got, ref, tol,
+                ref_name="spec_k=0"):
+    """The tokens of one arm (speculative, or reconfigured mid-serve)
+    against a reference arm's (``ref_name``: spec_k = 0, or no
+    reconfiguration) on the same requests; a request that differs is held
+    to the prefill path tie-aware (``check_tokens``): other query widths
+    and batch sizes round the matmuls in other orders."""
     want = {r.rid: r.tokens_out for r in ref}
     differ = [r for r in got if r.tokens_out != want[r.rid]]
-    print(f"spec[{label}]: {len(got) - len(differ)}/{len(got)} requests "
-          f"served exactly the spec_k=0 arm's tokens", flush=True)
+    print(f"{label}: {len(got) - len(differ)}/{len(got)} requests "
+          f"served exactly the {ref_name} arm's tokens", flush=True)
     if differ:
         check_tokens(torch, cfg, params, differ, tol)
 
@@ -1197,7 +1221,8 @@ def dense_path(torch, card):
     if sstats["speculation"]["accepted"] == 0:
         fail(f"the n-gram drafter had no draft accepted: "
              f"{sstats['speculation']}")
-    same_tokens(torch, cfg, params, "starcoder2-3b", sdone, done, tol)
+    same_tokens(torch, cfg, params, "spec[starcoder2-3b]", sdone, done,
+                tol)
     launches = {k: la[k] + lb[k] + lc[k] for k in DENSE_KERNELS}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
@@ -1205,7 +1230,351 @@ def dense_path(torch, card):
     print(f"serve: {stats['tokens_per_s']:.1f} tok/s, ttft p50 "
           f"{stats['p50_ttft_s']:.4f}s on {card}; peak device memory in the "
           f"prefix_share serve {peak:.2f} GiB", flush=True)
+    forced_reconfigs(torch, cfg, params, tol)
+    ld = selftuned_serve(torch, cfg, params, card)
+    return {k: launches[k] + ld[k] for k in DENSE_KERNELS}
+
+
+# ------------------------------------------------------------ phase 8
+def drive(eng, reqs, hooks=None, max_ticks=2000):
+    """Submit ``reqs`` at once and tick until drained; ``hooks[tick](eng)``
+    runs after that tick (a forced reconfiguration with live requests).
+    Returns the finished requests of this drive."""
+    from repro_torch.serving import Request
+    fin0 = len(eng.finished)
+    for r in reqs:
+        eng.submit(Request(rid=r.rid, prompt=r.prompt.copy(),
+                           max_new=r.max_new))
+    tick = 0
+    while eng.has_work():
+        eng.step()
+        tick += 1
+        if hooks and tick in hooks:
+            hooks[tick](eng)
+        if tick > max_ticks:
+            fail(f"drive: {len(reqs)} requests not served in {tick} ticks")
+    done = eng.finished[fin0:]
+    short = [r.rid for r in done if len(r.tokens_out) != r.max_new]
+    if len(done) != len(reqs) or short:
+        fail(f"drive: {len(done)}/{len(reqs)} requests completed, {short} "
+             f"short of max_new")
+    return done
+
+
+def replay_check(torch, eng, label):
+    """The live slots' decode step, replayed as its graph and run eagerly
+    from the same pool state: the live slots' logits and every pool
+    tensor bit for bit — all but a paged pool's trash block, where every
+    idle slot writes its row at position 0 and the last writer is
+    arbitrary; the pool is left as it was.  Returns the step."""
+    pool = eng.pool
+    state = pool.kv if pool.kind == "paged" else pool.state
+    live = 1 if pool.kind == "paged" else 0      # first compared block
+    active = [i for i, r in enumerate(eng.slot_req) if r is not None]
+    if not active:
+        fail(f"reconfig[{label}]: no live slot to check the step on")
+    entry = eng._decode_exec(eng._ctx_cols(int(eng.slot_pos[active].max())))
+    if not hasattr(entry, "graph"):
+        fail(f"reconfig[{label}]: the decode step is not a captured graph")
+    dev = eng.device
+    args = (eng.params, pool.decode_cache(),
+            torch.as_tensor(eng.slot_tok[:, None], dtype=torch.long,
+                            device=dev),
+            torch.as_tensor(eng.slot_pos, dtype=torch.int32, device=dev))
+    before = {k: v.clone() for k, v in state.items()}
+    got = entry(*args)[0][active].clone()
+    after = {k: v.clone() for k, v in state.items()}
+    for k, v in state.items():
+        v.copy_(before[k])
+    want = entry.eager(*args)[0][active]
+    torch.cuda.synchronize()
+    bad = [k for k, v in state.items()
+           if not torch.equal(after[k][:, live:], v[:, live:])]
+    if not torch.equal(got, want) or bad:
+        fail(f"reconfig[{label}]: the decode graph's replay differs from "
+             f"its eager step (logits equal: {torch.equal(got, want)}, "
+             f"pool tensors that differ: {bad})")
+    for k, v in state.items():
+        v.copy_(before[k])
+    del before, after
+    return entry
+
+
+def check_pool(eng, label):
+    pool = eng.pool
+    if pool.kind == "paged":
+        pool.check_invariants()
+    live = sum(r is not None for r in eng.slot_req)
+    if pool.n_active != live or len(pool.slot_live) != eng.n_slots:
+        fail(f"reconfig[{label}]: pool holds {pool.n_active} live slots, "
+             f"the engine {live}")
+
+
+def reconfig_plan(eng, **new):
+    from repro_torch.core.reconfig import plan
+    from repro_torch.serving import SERVING_RELAYOUT_KNOBS
+    return plan(eng.setting, {**eng.setting, **new},
+                mesh_knobs=SERVING_RELAYOUT_KNOBS)
+
+
+def logical_rows(torch, eng):
+    """{rid: {k, v: rows [0, written)}} read through the block tables."""
+    out = {}
+    for s, r in enumerate(eng.slot_req):
+        if r is None:
+            continue
+        bt = torch.as_tensor(eng.pool.tables[s], dtype=torch.long,
+                             device=eng.device)
+        out[r.rid] = {k: v[:, bt].flatten(1, 2)[:, :int(eng.slot_pos[s])]
+                      .clone() for k, v in eng.pool.kv.items()}
+    return out
+
+
+def forced_reconfigs(torch, cfg, params, tol):
+    """Phase 8a, full-width starcoder2-3b: forced reconfigurations with live
+    requests — a staged grow max_batch 4 -> 8 (begin_reconfig; a twin
+    engine takes the same switch stop-the-world through apply_plan), a
+    re-block block_size 16 -> 8 -> 16 through apply_plan (A -> B -> A: the
+    last geometry has the first one's step keys and new tensors), then,
+    on a second wave, a cache_dtype bf16 -> f32 relayout.  After each: the
+    pool's invariants, the decode graph's replay equal to its eager step
+    bit for bit; the dtype-preserving arm serves the tokens of an engine
+    that never reconfigured (tie-aware), and the dtype switch moves every
+    row to exactly its f32 value."""
+    from repro_torch.serving import DEFAULT_SERVING_SETTING, ServingEngine
+    from repro_torch.serving.workload import make_trace
+    dev = torch.device("cuda")
+    base = dict(DEFAULT_SERVING_SETTING, max_batch=4, block_size=16,
+                cache_dtype="bf16", prefix_share=True)
+    reqs = make_trace("poisson", 100.0, 0.1, vocab=cfg.vocab_size, seed=11,
+                      prompt_lens=(48, 192), max_news=(48, 48))
+
+    def engine():
+        eng = ServingEngine(params, cfg, base, max_seq=1024, device=dev)
+        eng.warm_start(max_prompt=192)
+        return eng
+
+    ref = {r.rid: r for r in drive(engine(), reqs)}
+    costs = {}
+
+    def stop_grow(e):
+        costs["grow_stw"] = e.apply_plan(reconfig_plan(e, max_batch=8))
+        check_pool(e, "grow stop-the-world")
+        replay_check(torch, e, "grow stop-the-world")
+
+    twin = drive(engine(), reqs, {4: stop_grow})
+    eng = engine()
+    seen = {}
+
+    def stage(e):
+        e.begin_reconfig(reconfig_plan(e, max_batch=8))
+        seen["st"] = e._staged
+
+    def committed(e):
+        if e._staged is not None or "ev" in seen:
+            return
+        (ev,) = e.take_reconfig_events()
+        seen["ev"] = ev
+        check_pool(e, "staged grow")
+        misses = e._steps.misses
+        entry = replay_check(torch, e, "staged grow")
+        if e._steps.misses != misses or entry not in \
+                seen["st"]["graphs"].values():
+            fail("reconfig[staged grow]: the commit did not adopt the "
+                 "steps captured on the staged buffer")
+        if not ev["staged"] or ev["bg_capture_failures"]:
+            fail(f"reconfig[staged grow]: commit event {ev}")
+        seen["tick"] = e.ticks
+
+    def reblock(bs, key):
+        def hook(e):
+            seen[key + "_before"] = replay_check(torch, e, key + " before")
+            costs[key] = e.apply_plan(reconfig_plan(e, block_size=bs))
+            check_pool(e, key)
+            seen[key] = replay_check(torch, e, key)
+        return hook
+
+    hooks = {t: committed for t in range(5, 40)}
+    hooks[4] = stage
+    hooks[44] = reblock(8, "reblock 16->8")
+    hooks[48] = reblock(16, "reblock 8->16")
+    done = drive(eng, reqs, hooks)
+    ev = seen.get("ev")
+    if ev is None or seen["tick"] >= 44:
+        fail("reconfig[staged grow]: no commit before the re-block")
+    a0, a1 = seen["reblock 16->8_before"], seen["reblock 8->16"]
+    live = [t.data_ptr() for t in eng.pool.decode_cache().values()]
+    if a1 is a0 or a1._bound[1] != live:
+        fail("reconfig[reblock A -> B -> A]: the decode step of the first "
+             "geometry survived the round trip or is not bound to the "
+             "live pool")
+    print(f"reconfig[staged grow 4->8]: stall_s {ev['stall_s']:.4f} (the "
+          f"commit and the work between ticks), commit cost_s "
+          f"{ev['cost_s']:.4f}, "
+          f"bg_migrate_s {ev['bg_migrate_s']:.4f}, bg_precompile_s "
+          f"{ev['bg_precompile_s']:.4f}, bg_blocks {ev['bg_blocks']}, "
+          f"delta_blocks {ev['delta_blocks']}, bg_capture_failures "
+          f"{ev['bg_capture_failures']}, staged over "
+          f"{ev['staged_wall_s']:.3f}s wall; the same switch stop-the-"
+          f"world (apply_plan, twin engine): {costs['grow_stw']:.4f}s",
+          flush=True)
+    print(f"reconfig[reblock 16->8->16]: apply_plan "
+          f"{costs['reblock 16->8']:.4f}s and "
+          f"{costs['reblock 8->16']:.4f}s (stop-the-world, "
+          f"captures included); the returning geometry's decode step is a "
+          f"new capture bound to the new tensors", flush=True)
+    for label, got in (("staged grow + reblock", done),
+                       ("stop-the-world grow", twin)):
+        same_tokens(torch, cfg, params, f"reconfig[{label}]", got,
+                    list(ref.values()), tol, "never-reconfigured")
+
+    # second wave: the dtype switch with live requests
+    wave = make_trace("poisson", 100.0, 0.05, vocab=cfg.vocab_size,
+                      seed=12, prompt_lens=(48, 192), max_news=(24, 24))
+    rows = {}
+
+    def to_f32(e):
+        rows["before"] = logical_rows(torch, e)
+        costs["dtype"] = e.apply_plan(reconfig_plan(e, cache_dtype="f32"))
+        rows["after"] = logical_rows(torch, e)
+        check_pool(e, "dtype")
+        replay_check(torch, e, "dtype")
+
+    done2 = drive(eng, wave, {4: to_f32})
+    if eng.pool.kv["k"].dtype != torch.float32 or not rows["before"]:
+        fail("reconfig[dtype]: the pool is not f32 after the switch")
+    n = 0
+    for rid, kv in rows["before"].items():
+        for k, v in kv.items():
+            if not torch.equal(rows["after"][rid][k], v.to(torch.float32)):
+                fail(f"reconfig[dtype]: request {rid}'s {k} rows are not "
+                     f"the old rows in f32")
+            n += v.numel()
+    check_tokens(torch, cfg, params, done2, tol)
+    print(f"reconfig[dtype bf16->f32]: apply_plan {costs['dtype']:.4f}s; "
+          f"{n} relocated values equal .to(float32) of the old rows bit for "
+          f"bit", flush=True)
+
+
+def selftuned_serve(torch, cfg, params, card):
+    """Phase 8b, full-width starcoder2-3b: the ``launch/serve.py
+    --selftune`` path — ``warm_start(space)``, the launcher's
+    ``selftune_manager`` (TuningManager + ServingObjective) and
+    ``serve_loop`` — over a Poisson trace long enough for the Latin-
+    hypercube init to visit its settings.  Every request completes, every
+    kind of reconfiguration the tuner proposed commits at least once, and
+    no staged capture fails."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import selftune_manager
+    from repro_torch.serving import (DEFAULT_SERVING_SETTING, ServingEngine,
+                                     serve_loop, serving_knob_space)
+    from repro_torch.serving.workload import make_trace
+    dev = torch.device("cuda")
+    space = serving_knob_space(max_batch_ceiling=8, include_batches=(4,),
+                               family=cfg.family)
+    setting = dict(DEFAULT_SERVING_SETTING, max_batch=4)
+    eng = ServingEngine(params, cfg, setting, max_seq=1024, device=dev)
+    gc.collect()                  # the earlier arms' engines and caches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.warm_start(space, max_prompt=128)
+    warm_s = time.perf_counter() - t0
+    trace = make_trace("poisson", 20.0, 6.0, vocab=cfg.vocab_size, seed=0,
+                       prompt_lens=(16, 128), max_news=(16, 32))
+    tuner = selftune_manager(eng, space, setting, window=40,
+                             init_settings=5, seed=0)
+    proposed = []
+    begin = eng.begin_reconfig
+
+    def record(p):
+        proposed.append(p)
+        begin(p)
+
+    eng.begin_reconfig = record
+    reset_launches()
+    stats = serve_loop(eng, trace, tuner, verbose=True, max_wall_s=240.0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_reserved() - reserved0
+    if not launches["paged_attention"] or not launches["flash_attention"]:
+        fail(f"selftune: the serve did not run the attention kernels: "
+             f"{launches}")
+    if stats["completed"] != len(trace):
+        fail(f"selftune: {stats['completed']}/{len(trace)} requests "
+             f"completed")
+    got = {k for r in stats["reconfigs"] for k in r["kinds"]}
+    want = {k for p in proposed for k in p.kinds}
+    if not stats["reconfigs"] or not want <= got:
+        fail(f"selftune: proposed kinds {sorted(want)}, committed "
+             f"{sorted(got)} ({stats['reconfig_count']} commits)")
+    bad = [r for r in stats["reconfigs"] if r["bg_capture_failures"]]
+    if bad:
+        fail(f"selftune: staged captures failed: {bad}")
+    check_pool(eng, "selftune")
+    staged = [r for r in stats["reconfigs"] if r["staged"]]
+    print(f"selftune: {stats['completed']}/{len(trace)} requests, "
+          f"{stats['tokens_per_s']:.1f} tok/s, ttft p50 "
+          f"{stats['p50_ttft_s']:.4f}s, {len(proposed)} plans proposed, "
+          f"{stats['reconfig_count']} committed ({len(staged)} staged) in "
+          f"{stats['reconfig_total_s']:.3f}s of stalls, kinds "
+          f"{sorted(got)}; final setting {stats['final_setting']}", flush=True)
+    print(f"selftune: step cache {stats['exec_cache']}; warm_start(space, "
+          f"max_prompt=128) captured {eng.capture_stats['steps']} steps in {warm_s:.2f}s, "
+          f"holding {eng.capture_stats['graph_bytes'] / 2 ** 20:.1f} MiB; "
+          f"peak memory reserved over the warm-start and the serve (graphs "
+          f"of every geometry visited, pools, staged buffers) "
+          f"{peak / 2 ** 20:.1f} MiB on {card}", flush=True)
+    for r in stats["reconfigs"]:
+        print(f"selftune:   commit {r['kinds']} staged={r['staged']} "
+              f"stall_s {r['stall_s']} cost_s {r['cost_s']} "
+              f"bg_migrate_s {r['bg_migrate_s']} "
+              f"bg_precompile_s {r['bg_precompile_s']} bg_blocks "
+              f"{r['bg_blocks']} delta_blocks {r['delta_blocks']}",
+              flush=True)
+    print(f"selftune: kernel launches in the serve {launches}", flush=True)
     return launches
+
+
+def ssm_relayout(torch, cfg, params, ref, tol):
+    """Phase 8c, full-width falcon-mamba-7b: the short requests of the ssm
+    trace with max_batch 8 -> 4 while 8 are live (the pool holds its slot
+    count until they drain, then shrinks in the tick) and back to 8 with
+    live requests; after each the decode graph's replay equals its eager
+    step, and the tokens are the phase-7 serve's (tie-aware)."""
+    from repro_torch.serving import DEFAULT_SERVING_SETTING, ServingEngine
+    dev = torch.device("cuda")
+    reqs = [r for r in ssm_trace(cfg) if len(r.prompt) <= 96]
+    eng = ServingEngine(params, cfg, dict(DEFAULT_SERVING_SETTING,
+                                          max_batch=8, cache_dtype="bf16"),
+                        max_seq=1024, device=dev)
+    eng.warm_start(max_prompt=96)
+    seen = {}
+
+    def shrink(e):
+        seen["shrink"] = e.apply_plan(reconfig_plan(e, max_batch=4))
+        seen["held"] = e.n_slots
+        replay_check(torch, e, "ssm shrink held")
+
+    def grow(e):
+        if "grow" in seen or e.n_slots != 4 or not e.n_active:
+            return
+        seen["grow"] = e.apply_plan(reconfig_plan(e, max_batch=8))
+        replay_check(torch, e, "ssm grow")
+        seen["slots"] = e.n_slots
+
+    hooks = {t: grow for t in range(3, 200)}
+    hooks[2] = shrink
+    done = drive(eng, reqs, hooks)
+    if seen.get("held") != 8 or seen.get("slots") != 8:
+        fail(f"reconfig[ssm]: slot counts {seen}")
+    same_tokens(torch, cfg, params, "reconfig[ssm]", done,
+                [ref[r.rid] for r in reqs], tol, "phase-7 serve")
+    print(f"reconfig[ssm max_batch 8->4->8]: apply_plan {seen['shrink']:.4f}"
+          f"s with 8 live (held at 8 slots, shrunk after the drain), "
+          f"{seen['grow']:.4f}s back to 8; replays equal their eager steps",
+          flush=True)
 
 
 def main():

@@ -47,8 +47,8 @@ SPAN_NAMES = {
                            "between ticks",
     "reconfig.commit": "atomic adoption of a staged reconfiguration: "
                        "delta copy + block-table swap + warmup barrier",
-    "exec.precompile_bg": "executable built off the tick path by the "
-                          "async precompile thread for a proposed setting",
+    "exec.precompile_bg": "a staged target's step captured between ticks "
+                          "against the double-buffered pool",
     "exec.build": "executable-cache miss: trace + AOT-compile a step",
     "tuner.deliberate": "tuner window close: objective score, GP fit, EI "
                         "suggestion, cost gate",
@@ -129,26 +129,6 @@ class Tracer:
             f"span {name!r} is not in repro_torch.obs.trace.SPAN_NAMES — " \
             f"register it (and its docs/OBSERVABILITY.md row) first"
         return _Span(self, name, args)
-
-    def record(self, name: str, dur_s: float, **args):
-        """Append a pre-measured span-shaped event without touching the
-        nesting stack.  This is how work timed on a *background thread*
-        (the async precompile worker) enters the trace: the worker only
-        measures — it never mutates the single-threaded span stack — and
-        the main thread folds the measurement in when it adopts the
-        result.  The event carries dur == self (no children by
-        construction) and is stamped at fold-in time."""
-        if not self.enabled:
-            return
-        assert name in SPAN_NAMES, \
-            f"span {name!r} is not in repro_torch.obs.trace.SPAN_NAMES — " \
-            f"register it (and its docs/OBSERVABILITY.md row) first"
-        if len(self.events) < self.max_events:
-            d = max(float(dur_s), 0.0)
-            self.events.append({"name": name,
-                                "ts": time.perf_counter() - self.t0,
-                                "dur": d, "self": d,
-                                "depth": len(self._stack), "args": args})
 
     def instant(self, name: str, **args):
         """Point-in-time marker (Chrome 'i' event), e.g. a tuner decision."""

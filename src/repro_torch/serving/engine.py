@@ -1,5 +1,5 @@
-"""Continuous-batching inference engine (fixed setting; dense and ssm
-families).
+"""Continuous-batching inference engine with online-reconfigurable knobs
+(dense and ssm families).
 
 The port of the JAX package's ``serving/engine.py`` main path:
 
@@ -29,19 +29,34 @@ The port of the JAX package's ``serving/engine.py`` main path:
   * ``quant="int8"`` re-quantizes freshly written KV rows through the
     int8 quantize/dequantize kernels.  ``quant`` and ``prefix_share``
     apply to paged pools only and are ignored for ssm pools, as in the
-    JAX engine.
+    JAX engine;
+  * online reconfiguration: Type II = swap the step (bounded LRU) or the
+    admission policy; Type I-b = re-lay the state pool out for a new
+    ``max_batch`` / ``block_size`` / ``cache_dtype``, moving only the live
+    blocks or slots, never quiescing the queue — stop the world
+    (``apply_plan``), or staged (``begin_reconfig``): between ticks the
+    engine captures the target's decode steps against a double-buffered
+    pool and copies held blocks into it, then commits atomically.
 
 Every step is built once per shape key, under the JAX package's keys, by
 ``aot_compile``: on the card a CUDA graph (one dispatch a step, as the JAX
 package's AOT-compiled executables are), on the CPU the eager callable.
 The graphs read the parameters and the pool's tensors by address and take
 their per-step inputs (tokens, positions, a block-table row) through
-pinned host buffers.  The self-tuning loop and online reconfiguration
-(relayout, staged migration) are later slices of the port and raise
-``NotImplementedError``.
+pinned host buffers.  So a relayout, which gives the pool new tensors,
+drops every step that captured the old ones (``POOL_STEPS``); a staged
+commit adopts the staged tensors together with the steps captured on
+them.  Captures run on the tick's thread: the JAX engine compiles on a
+worker thread, but a capture there would race the tick's launches (the
+global capture mode, the launch counters a capture takes back).
+
+``serve_loop(tuner=...)`` is the self-tuning loop: per busy quantum it
+feeds (offered load, tick time) to a ``TuningManager`` and stages every
+plan the tuner emits.
 """
 from __future__ import annotations
 
+import sys
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -50,6 +65,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.lru import LRUCache, aot_compile
+from repro_torch.core.reconfig import ReconfigPlan
+from repro_torch.core.reconfig import classify as rc_classify
+from repro_torch.core.reconfig import plan as rc_plan
 from repro_torch.device import Staging, resolve_device, synchronize
 from repro_torch.kernels import build_all
 from repro_torch.kernels.quant import dequantize, quantize
@@ -57,24 +75,16 @@ from repro_torch.models import lm
 from repro_torch.models.lm import ModelKnobs
 from repro_torch.obs.metrics import NULL_METRICS
 from repro_torch.obs.trace import NOP_TRACER
+from repro_torch.ps.odmr import timed_blocking
 from repro_torch.serving.drafter import make_drafter
-from repro_torch.serving.knobs import DEFAULT_SERVING_SETTING
+from repro_torch.serving.knobs import (DEFAULT_SERVING_SETTING,
+                                       SERVING_RELAYOUT_KNOBS)
 from repro_torch.serving.pool import make_state_pool, pool_dtype
 
-# step keys whose graphs capture the state pool's tensors by address: they
-# go when the pool is replaced
+# step keys whose graphs capture the state pool's tensors by address (the
+# KV or state, the block tables, the ssm snapshot): they go whenever the
+# pool's tensors are replaced
 POOL_STEPS = ("decode", "chunkpf", "replay")
-
-LATER = {
-    "tuner": "the tuning stack (--selftune)",
-    "relayout": "online reconfiguration and relayout",
-}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{LATER[what]} is not ported yet: it comes with a later slice of "
-        f"the port")
 
 
 @dataclass
@@ -149,14 +159,31 @@ class ServingEngine:
         self._drafters: dict = {}          # drafter name -> instance
         self._drafter_seed = 0
         self.capture_stats: dict = {}      # warm_start's captures
+        self.last_reconfig_breakdown = {}  # measured per-kind s, last plan
+        self.last_reconfig_scales = {}     # units migrated, last plan
+        # staged (zero-downtime) reconfiguration — begin_reconfig stages a
+        # plan, ticks capture + migrate in the background, and a commit
+        # event is queued for the driver (serve_loop) to report to the tuner
+        self._staged: dict | None = None
+        self._reconfig_events: list[dict] = []
+        self.async_precompile = True       # False: capture all in
+                                           # begin_reconfig (tests)
+        self.migrate_batch_blocks = 8      # bg blocks copied per tick
+        self.migrate_drain_ticks = 200     # shrink-drain bail-out to the
+                                           # stop-the-world relayout
 
     def _set_pool(self, pool):
-        """Adopt a new state pool.  The graphs captured on the old one read
-        and write its tensors by address — replayed now, they would write
-        freed memory — so they are dropped with it."""
-        self._steps.drop(lambda key: key[0] in POOL_STEPS)
+        """Adopt a new state pool (and drop the steps of the old one)."""
         self.pool = pool
+        self._drop_pool_steps()
         self._reset_slots()
+
+    def _drop_pool_steps(self):
+        """The graphs captured on the pool's previous tensors read and write
+        them by address — replayed now, they would write freed memory — so
+        they are destroyed whenever the tensors are replaced (a new pool, a
+        relayout, a staged commit), inside that window."""
+        self._steps.drop(lambda key: key[0] in POOL_STEPS)
 
     def _reset_slots(self):
         n = self.pool.n_slots
@@ -191,6 +218,16 @@ class ServingEngine:
                                           or 0.0))), 4))
 
     # ----------------------------------------------------------- lifecycle
+    def set_tracer(self, tracer, metrics=None):
+        """Attach (or, with NOP_TRACER, detach) observability sinks.  The
+        step cache shares the tracer so capture time is attributed wherever
+        it fires — inside a reconfiguration window when warmed, inside a
+        tick when a cold step slips through."""
+        self.tr = tracer
+        self._steps.tracer = tracer
+        if metrics is not None:
+            self.metrics = metrics
+
     def submit(self, req: Request, now: float | None = None):
         if req.max_new < 1:
             raise ValueError("max_new must be >= 1")
@@ -219,9 +256,13 @@ class ServingEngine:
         """Context buckets of the paged decode step: numbers of visible
         block-table columns (at most 6 per pool geometry); 0 = the full
         table (the gather path) or no table at all (ssm pools)."""
-        if self.pool.kind != "paged" or self.attn_impl == "gather":
+        if self.pool.kind != "paged":
             return (0,)
-        mb = self.pool.mb
+        return self._ctx_buckets_for(self.pool.mb)
+
+    def _ctx_buckets_for(self, mb: int) -> tuple:
+        if self.attn_impl == "gather":
+            return (0,)
         g = -(-mb // 6)
         return tuple(sorted({min(t * g, mb) for t in range(1, 7)}))
 
@@ -240,23 +281,26 @@ class ServingEngine:
         key = ("decode", self.attn_impl, ctx_cols, s) + self.pool.exec_key()
         return self._steps.get_or_create(
             key, lambda: self._decode_build(ctx_cols, s,
-                                            self.pool.decode_cache()))
+                                            self.pool.decode_cache(),
+                                            self.pool.n_slots))
 
     def _replay_exec(self, s: int):
         """The ssm rollback's step: ``s`` tokens a slot decoded from the
         pool's speculative snapshot (``pool.saved``), written in place."""
         key = ("replay", s) + self.pool.exec_key()
         return self._steps.get_or_create(
-            key, lambda: self._decode_build(0, s, self.pool.saved))
+            key, lambda: self._decode_build(0, s, self.pool.saved,
+                                            self.pool.n_slots))
 
-    def _decode_build(self, ctx_cols: int, s: int, cache: dict):
+    def _decode_build(self, ctx_cols: int, s: int, cache: dict, n: int):
+        """The decode step of ``n`` slots over ``cache`` — the live pool's
+        tensors, its ssm snapshot, or a staged migration's double buffer."""
         cfg = self.cfg
         kn = ModelKnobs(attn_impl=self.attn_impl, attn_ctx=ctx_cols)
 
         def f(params, cache, tok, pos):
             return lm.decode_step(params, cache, tok, pos, cfg, kn)
 
-        n = self.pool.n_slots
         return self._compile(f, self.params, cache, self._zeros((n, s)),
                              self._zeros((n,), torch.int32), inputs=(2, 3),
                              state=(1,))
@@ -322,14 +366,15 @@ class ServingEngine:
         quantize/dequantize kernels.  The rows (L, n, K, hd) are bf16 (the
         model's activations), u is one value expanded (the kernel reads it
         once), and the rows come back in the pool's dtype.  One step per
-        row count."""
-        key = ("quant", n)
+        row count and pool dtype (a ``cache_dtype`` switch must not reuse
+        the step that rounds to the old dtype)."""
+        out_dtype = pool_dtype(self.setting)
+        key = ("quant", n, str(out_dtype).removeprefix("torch."))
 
         def build():
             cfg = self.cfg
             block = max(cfg.n_kv_heads * cfg.hd, 1)
             half = torch.full((1,), 0.5, device=self.device)
-            out_dtype = pool_dtype(self.setting)
 
             def f(kv):                       # (L, n, K, hd)
                 flat = kv.reshape(-1)
@@ -643,6 +688,25 @@ class ServingEngine:
             tokens += (self._spec_decode(active, k) if k > 0
                        else self._decode(active))
 
+        # staged reconfiguration: one capture of the target's steps, one
+        # background-migration batch, commit when captured + copied; all on
+        # this thread, so its seconds are the switch's (``reconfig_s``), not
+        # the incumbent setting's
+        reconfig_s = 0.0
+        if self._staged is not None:
+            r0 = time.perf_counter()
+            self._advance_staged()
+            reconfig_s = time.perf_counter() - r0
+
+        # a shrink that had to wait for live slots (relayout keeps every
+        # in-flight request) completes once the backlog drains; deferred
+        # while a staged reconfiguration is in flight — its commit lands
+        # the pool on the target geometry itself
+        if (self._staged is None
+                and self.pool.n_slots > self.setting["max_batch"]
+                and self.n_active <= self.setting["max_batch"]):
+            self._relayout_pool()
+
         dt = time.perf_counter() - t0
         if self.metrics.enabled:
             self.metrics.histogram("serve.tick_s").observe(dt)
@@ -652,7 +716,8 @@ class ServingEngine:
             if "block_utilization" in snap:       # paged pools only
                 self.metrics.gauge("pool.block_utilization").set(
                     snap["block_utilization"])
-        return {"dt": dt, "tokens": tokens, "active": self.n_active,
+        return {"dt": dt, "reconfig_s": reconfig_s,
+                "tokens": tokens, "active": self.n_active,
                 "queued": self.queue_depth, "load": self.load,
                 "idle": tokens == 0 and not self.has_work()}
 
@@ -682,49 +747,78 @@ class ServingEngine:
                 self._complete(slot)
         return len(active)
 
-    def _max_batch_cap(self) -> int:
-        return max(int(self.setting["max_batch"]), 1)
-
     # ------------------------------------------------------------ startup
     def warm_start(self, space=None, max_prompt: int | None = None):
         """Server startup: build the CUDA kernels (one nvcc per source, in
         parallel; a no-op when they are built or on the CPU) and the steps
-        of the current setting — decode per context bucket (and the S =
-        spec_k + 1 verify step per bucket when speculating), prefill per
-        length bucket, and for a paged pool shared-prefix suffix prefill
-        per length bucket (an ssm pool shares nothing); int8 quantization
-        per bucket.  On the card each is captured as a graph; the time the
-        captures took and the memory they hold (the graph pool, the static
-        buffers) go to ``capture_stats`` and are printed.  Warming a whole
-        knob ``space`` is the self-tuning loop's and comes with that
-        slice."""
+        the knob ``space`` can reach (``None``: the current setting only).
+
+        Steps that hold no pool tensor are built across the space: prefill
+        per (length bucket, k_chunk) over every ``prefill_chunk``'s
+        buckets, and int8 quantization per bucket and pool dtype when
+        ``int8`` is reachable.  Steps that capture the pool by address are
+        built for the live pool only: decode per context bucket (and the S
+        = spec_k + 1 verify step per bucket when speculating), and for a
+        paged pool shared-prefix suffix prefill per bucket when sharing is
+        reachable.  Another geometry's steps would hold tensors that die at
+        once: a relayout captures them in its window, a staged
+        reconfiguration against its double buffer, and a cold verify width
+        or suffix bucket at its first use.  The step cache is sized so
+        that nothing warmed here is evicted.  On the card each step is a
+        graph; the time the captures took and the memory they hold go to
+        ``capture_stats`` and are printed."""
         assert self.n_active == 0, "warm_start before serving, not during"
-        if space is not None:
-            raise _not_ported("tuner")
+        if space is None:
+            values = {k: (v,) for k, v in self.setting.items()}
+        else:
+            # continuous knobs (admit_budget, spec_k, block_overcommit)
+            # never change a step here
+            values = {k.name: (k.values if k.kind != "continuous"
+                               else (self.setting.get(k.name),))
+                      for k in space.knobs}
         cuda = self.device.type == "cuda"
         if cuda:
             build_all()
             synchronize(self.device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
+        paged = self.pool.kind == "paged"
+        chunks = values.get("prefill_chunk", (self.setting["prefill_chunk"],))
         hi = min(max_prompt or self.max_seq, self.max_seq)
-        buckets = sorted({self._bucket(p) for p in range(1, hi + 1)})
+        buckets = sorted({self._bucket(p, c)
+                          for c in chunks for p in range(1, hi + 1)})
+        kcs = values.get("k_chunk", (self.setting["k_chunk"],))
+        cds = values.get("cache_dtype", (self.setting["cache_dtype"],))
+        int8 = paged and "int8" in values.get("quant", ())
+        share = paged and any(values.get("prefix_share", (False,)))
         spec_s = self._spec_k() + 1
+        # verify widths the tuner can reach: the top of spec_k's range
+        spec = [k for k in (space.knobs if space is not None else ())
+                if k.name == "spec_k"]
+        widths = int(spec[0].values[1]) if spec else spec_s - 1
         self._steps.capacity = max(
             self._steps.capacity,
-            6 * (2 if spec_s > 1 else 1) + 3 * len(buckets) + spec_s + 2)
+            len(kcs) * len(buckets) + (len(cds) * len(buckets) if int8 else 0)
+            + 6 * (1 + widths) + (len(buckets) if share else 0) + widths + 2)
         t0 = time.perf_counter()
         built = len(self._steps)
         for cols in self._ctx_buckets():
             self._decode_exec(cols)
             if spec_s > 1:
                 self._decode_exec(cols, spec_s)
-        for b in buckets:
-            self._prefill_exec(b)
-            if self.setting.get("prefix_share") and self.pool.kind == "paged":
+        if share:
+            for b in buckets:
                 self._chunk_prefill_exec(b)
-            if self.setting["quant"] == "int8":
+        save = dict(self.setting)
+        for kc in kcs:
+            self.setting["k_chunk"] = kc
+            for b in buckets:
+                self._prefill_exec(b)
+        for cd in (cds if int8 else ()):
+            self.setting["cache_dtype"] = cd
+            for b in buckets:
                 self._quant_exec(b)
+        self.setting = save
         if cuda:
             synchronize(self.device)
             torch.cuda.empty_cache()
@@ -740,17 +834,337 @@ class ServingEngine:
                   f"{self.capture_stats['graph_bytes'] / 2 ** 20:.1f} MiB",
                   flush=True)
 
-    def reconfigure(self, new_setting: dict):
-        raise _not_ported("relayout")
+    # ------------------------------------------------------------ reconfig
+    def reconfigure(self, new_setting: dict) -> float:
+        """Plan + execute a switch to ``new_setting`` (classifying the
+        engine's pool knobs as Type I-b).  Returns the observed cost."""
+        p = rc_plan(self.setting, dict(new_setting),
+                    mesh_knobs=SERVING_RELAYOUT_KNOBS)
+        return self.apply_plan(p)
+
+    def apply_plan(self, plan: ReconfigPlan) -> float:
+        """Execute a reconfiguration stop-the-world; returns its observed
+        cost (seconds, the device's work included).
+
+        Type I-b: re-lay the pool out (new ``max_batch`` / ``block_size``
+        / ``cache_dtype``) — only live blocks or slots move, the queue
+        keeps filling, nothing is dropped.  Type II: the decode steps of
+        the new setting are captured inside this window (policy-only knobs
+        like ``admit_budget`` and ``prefix_share`` take effect at once).
+        The relayout decision is re-derived with the engine's own knob
+        classes rather than trusted from ``plan.kinds``."""
+        with self.tr.span("reconfig.apply", kinds=",".join(plan.kinds)):
+            t0 = time.perf_counter()
+            kinds = rc_classify(self.setting, plan.new,
+                                mesh_knobs=SERVING_RELAYOUT_KNOBS)
+            self.setting.update(plan.new)
+            relayout_s = 0.0
+            if "I-b" in kinds:
+                r0 = time.perf_counter()
+                self._relayout_pool()
+                relayout_s = time.perf_counter() - r0
+            else:
+                self.pool.update_policy(self.setting)    # policy knobs
+            # every context bucket's decode step, so no tick pays a capture
+            # (a verify width is captured at its first use)
+            for cols in self._ctx_buckets():
+                self._decode_exec(cols)
+            synchronize(self.device)
+            # the measured per-kind breakdown (the I-b portion is the timed
+            # relayout) and the units it moved, for the cost model
+            self.last_reconfig_breakdown = (
+                {"I-b": relayout_s} if "I-b" in kinds else {})
+            self.last_reconfig_scales = (
+                {"I-b": self.pool.last_relayout_blocks}
+                if "I-b" in kinds else {})
+            return time.perf_counter() - t0
+
+    def set_attn_impl(self, impl: str):
+        """Switch the paged-attention implementation ("paged" | "gather").
+        Steps are keyed on it, so this is a plain Type II swap."""
+        assert impl in ("paged", "gather"), impl
+        self.attn_impl = impl
+        for cols in self._ctx_buckets():     # warm before the next tick
+            self._decode_exec(cols)
+
+    # ------------------------------------ staged (zero-downtime) reconfig
+    def _max_batch_cap(self) -> int:
+        """Admission ceiling.  While a staged shrink is in flight the cap
+        is the *target* max_batch, so admissions do not refill the slots
+        the migration waits to drain."""
+        cap = int(self.setting["max_batch"])
+        if self._staged is not None:
+            cap = min(cap, int(self._staged["target"]["max_batch"]))
+        return max(cap, 1)
+
+    def _live_extents(self) -> dict:
+        """{slot: (written, reserved)} for every live request — what both
+        relayout and staged-migration commit preserve."""
+        out = {}
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            written = int(self.slot_pos[slot])    # state valid for [0, w)
+            reserved = min(len(req.prompt) + req.max_new, self.max_seq)
+            out[slot] = (written, reserved)
+        return out
+
+    def _hot_blocks(self) -> set:
+        """Blocks the very next decode tick will write: each live slot's
+        current tail block.  The migration skips them (they would be dirty
+        again one tick later) and they ride the commit-time delta."""
+        hot: set = set()
+        if self.pool.kind != "paged":
+            return hot
+        for s, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            col = min(int(self.slot_pos[s]) // self.pool.bs,
+                      self.pool.mb - 1)
+            hot.add(int(self.pool.tables[s, col]))
+        hot.discard(0)
+        return hot
+
+    def _target_geometry(self, setting: dict) -> dict:
+        """The canonical paged-pool geometry ``make_state_pool(setting)``
+        lands on (n_slots = max_batch, dense-worst-case block count) — what
+        a staged migration double-buffers into, so the committed pool has
+        exactly the keys of the steps captured against the buffer."""
+        bs = int(setting["block_size"])
+        mb = -(-self.max_seq // bs)
+        n_slots = max(int(setting["max_batch"]), 1)
+        return {"bs": bs, "mb": mb, "n_slots": n_slots,
+                "nb": n_slots * mb + 1,
+                "cache_dtype": setting.get("cache_dtype")}
+
+    def begin_reconfig(self, plan: ReconfigPlan):
+        """Stage a zero-downtime switch to ``plan.new``.  The incumbent
+        setting keeps serving; between ticks the engine (1) captures the
+        target geometry's decode steps against the double-buffered pool of
+        ``PagedKVPool.begin_migration`` and (2) copies cold held blocks into
+        it, then commits atomically once both are done
+        (``_advance_staged``), adopting the staged tensors with their
+        steps.  A move that cannot stage (a block-size change, an ssm pool,
+        a Type II-only plan) commits at the next tick, where a Type I-b one
+        pays the stop-the-world relayout and its captures.  The driver
+        learns the outcome through ``take_reconfig_events``.  One staged
+        plan at a time; a newer one supersedes an in-flight one."""
+        if self._staged is not None:
+            self.cancel_staged()
+        target = dict(self.setting)
+        target.update(plan.new)
+        kinds = rc_classify(self.setting, plan.new,
+                            mesh_knobs=SERVING_RELAYOUT_KNOBS)
+        st = {"plan": plan, "target": target, "kinds": kinds,
+              "t0": time.perf_counter(), "incremental": False,
+              "todo": [], "graphs": {}, "drain_ticks": 0,
+              "bg_migrate_s": 0.0, "bg_precompile_s": 0.0,
+              "bg_capture_failures": 0}
+        if self.pool.kind == "paged" and "I-b" in kinds:
+            st["incremental"] = self.pool.begin_migration(target)
+        if st["incremental"]:
+            # only the S = 1 steps gate the commit; a verify width is
+            # captured at its first use after the flip
+            geom = self._target_geometry(target)
+            st["todo"] = [("decode", self.attn_impl, cols, 1, "paged",
+                           geom["n_slots"], geom["nb"], geom["bs"],
+                           geom["cache_dtype"])
+                          for cols in self._ctx_buckets_for(geom["mb"])]
+        self._staged = st
+        if not self.async_precompile:
+            while st["todo"]:
+                self._capture_staged(st)
+
+    def _capture_staged(self, st: dict):
+        """Capture one of the staged target's decode steps against the
+        double buffer, on the tick's thread, between ticks.  A capture that
+        fails is reported and counted (``bg_capture_failures`` in the
+        commit event), and the commit captures that step in its own
+        window."""
+        key = st["todo"].pop(0)
+        t0 = time.perf_counter()
+        with self.tr.span("exec.precompile_bg", key=str(key)):
+            try:
+                st["graphs"][key] = self._decode_build(
+                    key[2], 1, self.pool.staged_cache(), key[5])
+            except Exception as e:  # noqa: BLE001 — counted and reported
+                st["bg_capture_failures"] += 1
+                print(f"staged capture of {key} failed: {e!r}",
+                      file=sys.stderr, flush=True)
+        dur = time.perf_counter() - t0
+        st["bg_precompile_s"] += dur
+        self._steps.build_time_s += dur
+
+    def _advance_staged(self):
+        """One between-ticks quantum of the staged pipeline: one capture,
+        one bounded batch of cold blocks copied, and the commit once every
+        step is captured, every block copied and (for a shrink) the live
+        set drained."""
+        st = self._staged
+        if st["incremental"] and self.pool._mig is None:
+            # relaid out stop-the-world mid-flight: the buffer is gone
+            st.update(incremental=False, todo=[], graphs={})
+        if st["todo"]:
+            self._capture_staged(st)
+        pending = 0
+        if st["incremental"]:
+            skip = self._hot_blocks()
+            if self.pool.migration_pending(skip=skip) > 0:
+                with self.tr.span("reconfig.migrate_bg",
+                                  batch=self.migrate_batch_blocks):
+                    pending, dt = timed_blocking(
+                        self.pool.migration_step, self.migrate_batch_blocks,
+                        skip, device=self.device)
+                    st["bg_migrate_s"] += dt
+        if st["todo"] or pending > 0:
+            return
+        if (st["incremental"]
+                and self.n_active > int(st["target"]["max_batch"])):
+            # shrink: wait for the admission cap to drain the live set
+            # below the target slot count; a backlog that refuses to drain
+            # bails out to the stop-the-world fallback (whose shrink
+            # deferral keeps the old geometry until it can)
+            st["drain_ticks"] += 1
+            if st["drain_ticks"] < self.migrate_drain_ticks:
+                return
+        self._commit_staged()
+
+    def _commit_staged(self):
+        """Atomic adoption of the staged reconfiguration.  The foreground
+        work left is the delta copy (blocks dirtied since their background
+        copy), the table swap and the device barrier — the stall the
+        staged pipeline exists to minimize."""
+        st = self._staged
+        plan = st["plan"]
+        with self.tr.span("reconfig.commit", kinds=",".join(st["kinds"])):
+            t0 = time.perf_counter()
+            self.setting.update(plan.new)
+            relayout_s = 0.0
+            committed = False          # True = incremental commit succeeded
+            if "I-b" in st["kinds"]:
+                r0 = time.perf_counter()
+                if st["incremental"]:
+                    with self.tr.span("reconfig.relayout",
+                                      live=self.n_active, staged=True):
+                        mapping = self.pool.finish_migration(
+                            self._live_extents())
+                    if mapping is not None:
+                        self._adopt_slots(mapping)
+                        # the staged tensors are the pool's now: the old
+                        # steps go, the ones captured on the buffer come
+                        self._drop_pool_steps()
+                        assert all(k[4:] == self.pool.exec_key()
+                                   for k in st["graphs"])
+                        for key, entry in st["graphs"].items():
+                            self._steps.put(key, entry)
+                        self.metrics.counter("pool.relayouts").inc()
+                        committed = True
+                    else:
+                        self.pool.abort_migration()
+                if not committed:          # fallback: stop-the-world
+                    self._relayout_pool()
+                relayout_s = time.perf_counter() - r0
+            else:
+                self.pool.update_policy(self.setting)
+            for cols in self._ctx_buckets():   # captured (staged) or now
+                self._decode_exec(cols)
+            synchronize(self.device)
+            cost = time.perf_counter() - t0
+            # the staged captures and copies ran between ticks on this
+            # thread: they stalled serving as the commit did, so the switch
+            # is charged all three (``stall_s``), the I-b share with the
+            # copies and the captures of the target geometry's steps, and
+            # its scale with every block copied
+            bg_s = st["bg_migrate_s"] + st["bg_precompile_s"]
+            self.last_reconfig_breakdown = (
+                {"I-b": relayout_s + bg_s} if "I-b" in st["kinds"] else {})
+            blocks = (self.pool.last_migration_bg_blocks
+                      + self.pool.last_migration_delta_blocks
+                      if committed else self.pool.last_relayout_blocks)
+            self.last_reconfig_scales = (
+                {"I-b": max(int(blocks), 1)}
+                if "I-b" in st["kinds"] else {})
+            self._reconfig_events.append({
+                "plan": plan, "cost_s": cost, "stall_s": cost + bg_s,
+                "measured": dict(self.last_reconfig_breakdown),
+                "scales": dict(self.last_reconfig_scales),
+                "staged": committed,
+                "bg_migrate_s": st["bg_migrate_s"],
+                "bg_precompile_s": st["bg_precompile_s"],
+                "bg_capture_failures": st["bg_capture_failures"],
+                # blocks copied between ticks and in the commit (0 for a
+                # switch that did not stage)
+                "bg_blocks": (self.pool.last_migration_bg_blocks
+                              if committed else 0),
+                "delta_blocks": (self.pool.last_migration_delta_blocks
+                                 if committed else 0),
+                "staged_wall_s": time.perf_counter() - st["t0"],
+            })
+        self._staged = None
+
+    def take_reconfig_events(self) -> list[dict]:
+        """Drain committed-reconfiguration events (driver → tuner)."""
+        ev, self._reconfig_events = self._reconfig_events, []
+        return ev
+
+    def cancel_staged(self):
+        """Drop an in-flight staged reconfiguration (run teardown, or a
+        newer proposal superseding it) with its buffer and its steps.
+        Returns the abandoned plan so the driver can tell the tuner to
+        reopen its window, or None."""
+        st = self._staged
+        if st is None:
+            return None
+        if st["incremental"] and self.pool._mig is not None:
+            self.pool.abort_migration()
+        self._staged = None
+        return st["plan"]
+
+    def _adopt_slots(self, mapping: dict):
+        """Move the engine's per-slot state along a relayout's
+        {old_slot: new_slot} mapping."""
+        old_req, old_pos, old_tok = self.slot_req, self.slot_pos, self.slot_tok
+        self._reset_slots()
+        for old, new in mapping.items():
+            self.slot_req[new] = old_req[old]
+            self.slot_pos[new] = old_pos[old]
+            self.slot_tok[new] = old_tok[old]
+
+    def _relayout_pool(self):
+        """Stop-the-world Type I-b relayout to ``self.setting``; waits for
+        the device, so the span (and the caller's clock) covers the
+        copies."""
+        with self.tr.span("reconfig.relayout",
+                          live=self.n_active,
+                          block_size=self.setting.get("block_size"),
+                          max_batch=self.setting.get("max_batch")):
+            live_extents = self._live_extents()
+            # a shrink below the live set must not land the pool on a
+            # transient geometry (n_slots = live count) outside the knob
+            # space: keep the current slot count instead; the drain check
+            # in the tick finishes the shrink on the target geometry once
+            # the backlog clears
+            min_slots = (self.pool.n_slots
+                         if len(live_extents) > self.setting["max_batch"]
+                         else 0)
+            mapping = self.pool.relayout(self.setting, live_extents,
+                                         min_slots=min_slots)
+            self._drop_pool_steps()
+            self._adopt_slots(mapping)
+            synchronize(self.device)
+            self.metrics.counter("pool.relayouts").inc()
 
 
 def serve_loop(engine: ServingEngine, trace, tuner=None, *,
-               max_wall_s: float | None = None,
-               idle_sleep_s: float = 0.001) -> dict:
-    """Replay an arrival trace through the engine at a fixed setting.
-    ``tuner`` (the self-tuning loop) comes with a later slice."""
-    if tuner is not None:
-        raise _not_ported("tuner")
+               max_wall_s: float | None = None, idle_sleep_s: float = 0.001,
+               verbose: bool = False) -> dict:
+    """Replay an arrival trace through the engine, optionally self-tuning.
+
+    Per busy quantum the driver records (context value = offered load,
+    tick time) into the tuner and stages any ReconfigPlan it emits
+    (``begin_reconfig``); each commit is reported back with its observed
+    cost.
+    """
     pending = deque(sorted(trace, key=lambda r: r.arrival_s))
     n_req = len(pending)
     tok0 = engine.total_tokens          # deltas: engines may be re-used
@@ -765,8 +1179,42 @@ def serve_loop(engine: ServingEngine, trace, tuner=None, *,
     sa0 = engine.spec_accepted
     st0 = engine.spec_ticks
     t_start = time.perf_counter()
+    reconfigs = []
+    reconfig_total_s = 0.0
     timeline = []                 # (t, total_tokens, load) every ~50 quanta
     busy_ticks = 0
+
+    def _drain_reconfig_events():
+        """Report staged commits to the tuner (confirming its pending
+        plan) and log them; the cost it learns is the switch's whole stall
+        of serving: the commit and the captures and copies that ran
+        between ticks before it."""
+        nonlocal reconfig_total_s
+        for ev in engine.take_reconfig_events():
+            tuner.record_reconfig(
+                ev["plan"], ev["stall_s"], measured=ev["measured"],
+                scales=ev["scales"])
+            reconfig_total_s += ev["stall_s"]
+            reconfigs.append({
+                "t": round(time.perf_counter() - t_start, 3),
+                "kinds": list(ev["plan"].kinds),
+                "staged": ev["staged"],
+                "cost_s": round(ev["cost_s"], 4),
+                "stall_s": round(ev["stall_s"], 4),
+                "bg_migrate_s": round(ev["bg_migrate_s"], 4),
+                "bg_precompile_s": round(ev["bg_precompile_s"], 4),
+                "bg_capture_failures": ev["bg_capture_failures"],
+                "bg_blocks": ev["bg_blocks"],
+                "delta_blocks": ev["delta_blocks"],
+                "staged_wall_s": round(ev["staged_wall_s"], 4),
+                "setting": dict(ev["plan"].new)})
+            if verbose:
+                print(f"[reconfig@{reconfigs[-1]['t']:.1f}s] "
+                      f"{ev['plan'].kinds} -> {ev['plan'].new} "
+                      f"(stall {ev['stall_s']:.3f}s, "
+                      f"commit {ev['cost_s']:.3f}s)",
+                      flush=True)
+
     while pending or engine.has_work():
         now = time.perf_counter() - t_start
         if max_wall_s is not None and now > max_wall_s:
@@ -774,6 +1222,10 @@ def serve_loop(engine: ServingEngine, trace, tuner=None, *,
         while pending and pending[0].arrival_s <= now:
             engine.submit(pending.popleft(), now=now)
         tick = engine.step(now=now)
+        if tuner is not None:
+            # commits can land on any tick (idle ones included) — report
+            # them before deciding whether to skip the tuner bookkeeping
+            _drain_reconfig_events()
         if tick["idle"]:
             if pending:
                 time.sleep(min(idle_sleep_s,
@@ -783,14 +1235,32 @@ def serve_loop(engine: ServingEngine, trace, tuner=None, *,
         if busy_ticks % 50 == 1:
             timeline.append((round(now, 3), engine.total_tokens - tok0,
                              tick["load"]))
+        if tuner is not None:
+            # the incumbent is observed without the staged switch's work,
+            # which the switch's stall_s already carries
+            tuner.record_iteration(float(tick["load"]),
+                                   tick["dt"] - tick["reconfig_s"])
+            plan = tuner.maybe_advance()
+            if plan is not None:
+                # stage, don't stall: the engine keeps serving while the
+                # target's steps are captured and its pool migrates between
+                # ticks; the tuner holds the plan pending until the commit
+                engine.begin_reconfig(plan)
     synchronize(engine.device)
     wall = time.perf_counter() - t_start
+    # a plan still staged at run end never committed: tear it down and let
+    # the tuner reopen the window it froze for the proposal
+    leftover = engine.cancel_staged()
+    if tuner is not None:
+        _drain_reconfig_events()
+        if leftover is not None:
+            tuner.abandon_reconfig(leftover)
     done = engine.finished[fin0:]
     tokens = engine.total_tokens - tok0
     lats = [r.latency_s for r in done]
     ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
     drafted = engine.spec_drafted - sd0
-    return {
+    stats = {
         "requests": n_req,
         "completed": len(done),
         "wall_s": wall,
@@ -799,6 +1269,9 @@ def serve_loop(engine: ServingEngine, trace, tuner=None, *,
         "p50_latency_s": float(np.percentile(lats, 50)) if lats else None,
         "p99_latency_s": float(np.percentile(lats, 99)) if lats else None,
         "p50_ttft_s": float(np.percentile(ttfts, 50)) if ttfts else None,
+        "reconfigs": reconfigs,
+        "reconfig_count": len(reconfigs),
+        "reconfig_total_s": reconfig_total_s,
         "final_setting": dict(engine.setting),
         "timeline": timeline,
         "prefill_tokens_computed": engine.prefill_tokens_computed - pf0,
@@ -822,3 +1295,10 @@ def serve_loop(engine: ServingEngine, trace, tuner=None, *,
             "drafter": engine.setting.get("drafter", "ngram"),
         },
     }
+    if tuner is not None:
+        stats["tuner_init_quanta"] = tuner.init_quanta
+        stats["tuner_init_time_s"] = round(tuner.init_time_s, 4)
+        stats["tuner_horizon_s"] = tuner.effective_horizon()
+        if tuner.warm_start_info is not None:
+            stats["warm_start"] = dict(tuner.warm_start_info)
+    return stats

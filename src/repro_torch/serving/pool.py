@@ -21,20 +21,33 @@ step's scatter or state update — changes them *in place* (the JAX pools
 rebuild arrays).
 
 The engine's captured steps read the pools by address, so every tensor a
-step sees stays where it is for the pool's life: the block tables live in
-one device tensor, refreshed from a pinned host mirror only when the host
-tables changed, and the ssm pool's speculative snapshot is one persistent
-buffer.
+step sees stays where it is until the next relayout: the block tables live
+in one device tensor, refreshed from a pinned host mirror only when the
+host tables changed, and the ssm pool's speculative snapshot is one
+persistent buffer.
 
-Relayout and staged migration (Type I-b reconfiguration) and the hybrid
-family's shared-attention slab come with later slices of the port.
+Type I-b re-layouts (``relayout``) allocate new tensors and move only the
+live rows into them with ``ps.odmr.relocate_rows`` (slots for the ssm
+pool, blocks for the paged pool; a block-size change re-blocks every live
+slot with one gather and one scatter on the device).  The paged pool can
+also migrate in stages (``begin_migration`` ... ``finish_migration``):
+background batches copy held blocks into a double buffer while the old
+geometry keeps serving, and the commit adopts the staged tensors
+themselves, so a step captured against them before the commit is the
+step of the new pool.  Either way the tensors the engine's steps captured
+are replaced, and the engine drops those steps.
+
+The hybrid family's shared-attention slab comes with a later slice of the
+port.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.device import synchronize
 from repro_torch.models import lm
+from repro_torch.ps.odmr import relocate_rows
 
 TRASH_BLOCK = 0     # physical block 0 is reserved: inactive/padded writes
                     # land there so a stale table row can never corrupt a
@@ -71,10 +84,18 @@ class StatePool:
     shared_blocks_hit = 0
     cow_copies = 0
     cache_evictions = 0
+    # units of state the last relayout migrated (paged: KV blocks, ssm:
+    # slot rows) — the ReconfigCostModel's load-aware I-b scale
+    last_relayout_blocks = 0
 
     @property
     def n_active(self) -> int:
         return sum(self.slot_live)
+
+    def update_policy(self, setting: dict):
+        """Adopt Type II policy knobs (no state relocation).  The paged
+        pool also rebalances its overcommit block budget."""
+        self.setting = dict(setting)
 
     def snapshot(self) -> dict:
         """Occupancy/effectiveness counters for the observability layer."""
@@ -99,6 +120,13 @@ class PagedKVPool(StatePool):
         self.shared_blocks_hit = 0
         self.cow_copies = 0
         self.cache_evictions = 0
+        # staged (double-buffered) migration state — see begin_migration
+        self._mig = None
+        self._mig_remap: dict[int, int] = {}
+        self._mig_copied: set[int] = set()
+        self._mig_next = 1
+        self.last_migration_bg_blocks = 0     # copied off the commit path
+        self.last_migration_delta_blocks = 0  # copied inside the commit
         self._alloc(setting["max_batch"])
 
     @property
@@ -110,26 +138,20 @@ class PagedKVPool(StatePool):
         return float(self.setting.get("block_overcommit", 1.0))
 
     # ------------------------------------------------------------ allocation
-    def _alloc(self, n_slots: int):
+    def _alloc(self, n_slots: int, min_blocks: int = 0):
         self.n_slots = n_slots
         self.bs = int(self.setting["block_size"])
         self.mb = -(-self.max_seq // self.bs)           # table width
-        self.nb = max(n_slots * self.mb, self.mb) + 1   # +1: trash block
-        shapes = lm.init_paged_cache_shapes(self.cfg, self.nb, self.bs)
-        self.kv = {k: torch.zeros(s, dtype=pool_dtype(self.setting),
-                                  device=self.device)
-                   for k, s in shapes.items()}
+        worst = n_slots * self.mb                       # dense worst case
+        self.nb = max(worst, self.mb, min_blocks) + 1   # +1: trash block
+        # live data must fit even under a tight overcommit budget
+        self._budget_floor = min_blocks
+        self.kv = self._zeros_kv(self.nb, self.setting)
         self.ref = np.zeros(self.nb, np.int32)
         self.ref[TRASH_BLOCK] = 1                       # pinned
         self.tables = np.zeros((n_slots, self.mb), np.int32)
-        # the device copy the decode step reads (captured by address), and
-        # the pinned host mirror of what it holds
-        cuda = self.device.type == "cuda"
-        self.dev_tables = torch.zeros((n_slots, self.mb), dtype=torch.int32,
-                                      device=self.device)
-        self._host_tables = torch.zeros((n_slots, self.mb),
-                                        dtype=torch.int32, pin_memory=cuda)
-        self._tables_copied = torch.cuda.Event() if cuda else None
+        (self.dev_tables, self._host_tables,
+         self._tables_copied) = self._table_buffers(n_slots)
         self.slot_blocks: list[list[int]] = [[] for _ in range(n_slots)]
         self.slot_live = [False] * n_slots
         self._free: set[int] = set()
@@ -142,10 +164,27 @@ class PagedKVPool(StatePool):
         self._tick = 0
         self._rebalance_budget()
 
+    def _zeros_kv(self, nb: int, setting: dict) -> dict:
+        shapes = lm.init_paged_cache_shapes(self.cfg, nb, self.bs)
+        return {k: torch.zeros(s, dtype=pool_dtype(setting),
+                               device=self.device)
+                for k, s in shapes.items()}
+
+    def _table_buffers(self, n_slots: int):
+        """The device block tables the decode step reads (captured by
+        address), the pinned host mirror of what they hold, and the event
+        of the last copy from it."""
+        cuda = self.device.type == "cuda"
+        return (torch.zeros((n_slots, self.mb), dtype=torch.int32,
+                            device=self.device),
+                torch.zeros((n_slots, self.mb), dtype=torch.int32,
+                            pin_memory=cuda),
+                torch.cuda.Event() if cuda else None)
+
     def usable_blocks(self) -> int:
         """The overcommit budget: blocks admission may hold at once."""
         target = int(np.ceil(self.n_slots * self.mb * self.overcommit))
-        return min(self.nb - 1, target)
+        return min(self.nb - 1, max(target, self._budget_floor))
 
     def _rebalance_budget(self):
         """Move blocks between the free list and the reserved set so that
@@ -156,6 +195,12 @@ class PagedKVPool(StatePool):
             self._free.add(self._reserved.pop())
         while held + len(self._free) > target and self._free:
             self._reserved.add(self._free.pop())
+
+    def update_policy(self, setting: dict):
+        """Adopt policy-only (Type II) knob changes: ``prefix_share`` /
+        ``block_overcommit`` take effect immediately, no re-layout."""
+        self.setting = dict(setting)
+        self._rebalance_budget()
 
     def evictable_blocks(self) -> int:
         return sum(1 for b in self.block_key if self.ref[b] == 0)
@@ -182,9 +227,20 @@ class PagedKVPool(StatePool):
         }
 
     # ------------------------------------------------------- block plumbing
+    def _mig_mark(self, block: int):
+        """A block is about to be (re)written: any staged-migration copy of
+        it is stale.  Every write path calls this before it queues its
+        device write (block reuse in _alloc_block, copy-on-write and the
+        write range in prepare_spec_write, write_kv), so the background
+        copy never misses an update — the block rejoins the to-copy set."""
+        if self._mig is not None:
+            self._mig_copied.discard(block)
+
     def _alloc_block(self) -> int | None:
         if self._free:
-            return self._free.pop()
+            b = self._free.pop()
+            self._mig_mark(b)
+            return b
         # evict the least-recently-touched cached block with refcount 0
         cands = [b for b in self.block_key if self.ref[b] == 0]
         if not cands:
@@ -192,6 +248,7 @@ class PagedKVPool(StatePool):
         victim = min(cands, key=lambda b: self._touch.get(b, 0))
         self._uncache(victim)
         self.cache_evictions += 1
+        self._mig_mark(victim)
         return victim
 
     def _uncache(self, block: int):
@@ -357,6 +414,7 @@ class PagedKVPool(StatePool):
         recs = []
         for lb in range(start // self.bs, -(-end // self.bs)):
             b = int(self.tables[slot, lb])
+            self._mig_mark(b)     # caller writes [start, end) after this
             if self.ref[b] <= 1:
                 continue
             nb = self._alloc_block()
@@ -393,6 +451,8 @@ class PagedKVPool(StatePool):
         starting at logical position ``start`` (in place)."""
         n = next(iter(kv.values())).shape[1]
         pos = np.arange(start, start + n)
+        for b in set(self.tables[slot, pos // self.bs].tolist()):
+            self._mig_mark(b)
         blk = torch.as_tensor(self.tables[slot, pos // self.bs],
                               dtype=torch.long, device=self.device)
         off = torch.as_tensor(pos % self.bs, dtype=torch.long,
@@ -431,6 +491,309 @@ class PagedKVPool(StatePool):
             p = int(positions[s])
             self.prepare_write(s, p, p + 1)
 
+    # -------------------------------------------------------------- relayout
+    def relayout(self, new_setting: dict, live_extents: dict,
+                 min_slots: int = 0) -> dict:
+        """Type I-b re-layout into the geometry of ``new_setting``, into new
+        tensors (the engine drops the steps captured on the old ones).
+
+        ``live_extents``: {slot: (tokens_written, tokens_reserved)} for live
+        slots.  Same block size: only live + (capacity permitting) cached
+        blocks migrate, tables are remapped.  Block-size change: each live
+        slot's logical KV is re-blocked (the prefix cache cannot survive —
+        its keys are per block geometry — so it resets), with one gather
+        from the old pool and one scatter into the new on the device.
+        Returns {old_slot: new_slot}."""
+        if self._mig is not None:      # staged migration superseded
+            self.abort_migration()
+        old_bs = self.bs
+        old_kv, old_tables = self.kv, self.tables
+        old_blocks = {s: list(bl) for s, bl in enumerate(self.slot_blocks)}
+        old_key = dict(self.block_key)
+        old_touch = dict(self._touch)
+        old_ref = self.ref
+        live = sorted(live_extents)
+
+        # live data must fit even in an under-provisioned (overcommitted)
+        # new pool: floor the block count at what the live set needs
+        new_bs = int(new_setting["block_size"])
+        if new_bs == old_bs:
+            min_blocks = len({b for s in live for b in old_blocks[s]})
+        else:
+            min_blocks = sum(
+                -(-max(live_extents[s][1], live_extents[s][0], 1) // new_bs)
+                for s in live)
+        self.setting = dict(new_setting)
+        self._alloc(max(int(new_setting["max_batch"]), len(live), min_slots,
+                        1), min_blocks=min_blocks)
+        mapping = {s: i for i, s in enumerate(live)}
+
+        if self.bs == old_bs:
+            # block-granular migration: live blocks always move; cached
+            # (refcount-0) blocks move while free space remains, LRU first
+            keep = []
+            seen = set()
+            for s in live:
+                for b in old_blocks[s]:
+                    if b not in seen:
+                        seen.add(b)
+                        keep.append(b)
+            cached = sorted((b for b in old_key
+                             if old_ref[b] == 0 and b not in seen),
+                            key=lambda b: -old_touch.get(b, 0))
+            budget = self.usable_blocks() - len(keep)
+            dropped = cached[max(budget, 0):]
+            self.cache_evictions += len(dropped)
+            keep.extend(cached[:max(budget, 0)])
+            remap = {b: i + 1 for i, b in enumerate(keep)}
+            relocate_rows(old_kv, self.kv, keep, [remap[b] for b in keep])
+            for s in live:
+                ns = mapping[s]
+                self.slot_blocks[ns] = [remap[b] for b in old_blocks[s]]
+                self.tables[ns, :len(self.slot_blocks[ns])] = \
+                    self.slot_blocks[ns]
+                self.slot_live[ns] = True
+            for s in live:
+                for b in self.slot_blocks[mapping[s]]:
+                    self.ref[b] += 1
+            for b, key in old_key.items():
+                if b in remap:
+                    nb = remap[b]
+                    self.block_key[nb] = key
+                    self.prefix[key] = nb
+                    self._touch[nb] = old_touch.get(b, 0)
+            self._tick = max(old_touch.values(), default=0)
+            moved = {remap[b] for b in keep}
+            self._free -= moved
+            self._reserved -= moved
+            self._rebalance_budget()
+            self.last_relayout_blocks = len(keep)
+        else:
+            # re-block: reserve new-size blocks for every live slot, then
+            # move each slot's written rows [0, written) from (old block,
+            # offset) to (new block, offset) — one gather and one scatter
+            # a leaf, on the device, over index tensors of every slot
+            self.last_relayout_blocks = 0
+            idx = []                   # (old blk, old off, new blk, new off)
+            for s in live:
+                written, reserved = live_extents[s]
+                ns = mapping[s]
+                n_blocks = -(-max(reserved, written, 1) // self.bs)
+                blocks = []
+                for _ in range(n_blocks):
+                    b = self._alloc_block()
+                    assert b is not None, "shrunk pool cannot hold live data"
+                    self.ref[b] = 1
+                    blocks.append(b)
+                self.slot_blocks[ns] = blocks
+                self.tables[ns, :len(blocks)] = blocks
+                self.slot_live[ns] = True
+                self.last_relayout_blocks += len(blocks)
+                pos = np.arange(written)
+                idx.append((old_tables[s, pos // old_bs], pos % old_bs,
+                            self.tables[ns, pos // self.bs], pos % self.bs))
+            if any(len(i[0]) for i in idx):
+                ob, oo, nb_, no = (
+                    torch.as_tensor(np.concatenate(c), dtype=torch.long,
+                                    device=self.device) for c in zip(*idx))
+                for k, t in self.kv.items():
+                    t[:, nb_, no] = old_kv[k][:, ob, oo].to(t.dtype)
+        # the budget floor only has to hold while live data is being
+        # migrated; once the live set owns its blocks, the configured
+        # overcommit budget governs again
+        self._budget_floor = 0
+        self._rebalance_budget()
+        return mapping
+
+    # ------------------------------------------- staged (overlapped) migration
+    # A Type I-b relayout split into background batches: begin_migration
+    # allocates the target tensors (the double buffer, with its own block
+    # tables and pinned mirror), migration_step copies bounded batches of
+    # held blocks between engine ticks while the old geometry keeps
+    # decoding, and finish_migration copies only the blocks dirtied since
+    # their background copy (the delta), rebuilds the tables and adopts
+    # the staged tensors themselves.  Correctness rests on two invariants:
+    # every write path marks its blocks via _mig_mark *before* it queues
+    # the device write (so a copied block that mutates rejoins the to-copy
+    # set), and the copies only read the old tensors and only write the
+    # staged ones, on the stream the decode steps run on, so each copy
+    # sees every write queued before it.
+
+    def begin_migration(self, new_setting: dict) -> bool:
+        """Stage a migration into ``new_setting``'s canonical geometry
+        (n_slots = max_batch, the geometry the engine captures the staged
+        decode steps for).  Returns False when the move cannot run
+        incrementally — a block-size change re-blocks every row, so the
+        caller falls back to the stop-the-world relayout."""
+        assert self._mig is None, "migration already staged"
+        if int(new_setting["block_size"]) != self.bs:
+            return False
+        n_slots = max(int(new_setting["max_batch"]), 1)
+        nb = n_slots * self.mb + 1
+        setting = dict(new_setting)
+        dev, host, ev = self._table_buffers(n_slots)
+        self._mig = {"setting": setting, "kv": self._zeros_kv(nb, setting),
+                     "nb": nb, "n_slots": n_slots, "dev_tables": dev,
+                     "host_tables": host, "tables_copied": ev}
+        self._mig_remap = {}
+        self._mig_copied = set()
+        self._mig_next = 1
+        self.last_migration_bg_blocks = 0
+        return True
+
+    def staged_cache(self) -> dict:
+        """The staged tensors as a decode step takes them (``decode_cache``
+        of the pool the commit will adopt)."""
+        mig = self._mig
+        return {"k": mig["kv"]["k"], "v": mig["kv"]["v"],
+                "block_tables": mig["dev_tables"]}
+
+    def _held_blocks(self) -> list[int]:
+        """Blocks the pool is responsible for migrating: referenced by a
+        live slot or registered in the prefix cache."""
+        refd = (np.nonzero(self.ref[1:] > 0)[0] + 1).tolist()
+        return sorted(set(refd) | set(self.block_key))
+
+    def migration_pending(self, skip=()) -> int:
+        """Held blocks still awaiting a clean background copy (excluding
+        ``skip`` — the caller's hot set, which would be dirtied again next
+        tick and is deferred to the commit delta)."""
+        mig = self._mig
+        return sum(1 for b in self._held_blocks()
+                   if b not in self._mig_copied and b not in skip
+                   and (b in self._mig_remap or self._mig_next < mig["nb"]))
+
+    def migration_step(self, max_blocks: int = 8, skip=()) -> int:
+        """Copy up to ``max_blocks`` cold held blocks into the staged
+        tensors and wait for the copy; returns how many assignable blocks
+        remain uncopied.  Blocks the target has no row for (a shrink
+        holding more cache than the new budget) are left to
+        finish_migration, which drops or delta-copies them under the final
+        budget."""
+        assert self._mig is not None
+        mig = self._mig
+        todo = [b for b in self._held_blocks()
+                if b not in self._mig_copied and b not in skip]
+        batch = []
+        for b in todo:
+            if len(batch) >= max_blocks:
+                break
+            if b not in self._mig_remap:
+                if self._mig_next >= mig["nb"]:
+                    continue          # no target row yet: commit-time work
+                self._mig_remap[b] = self._mig_next
+                self._mig_next += 1
+            batch.append(b)
+        if batch:
+            relocate_rows(self.kv, mig["kv"], batch,
+                          [self._mig_remap[b] for b in batch])
+            synchronize(self.device)
+            self._mig_copied.update(batch)
+            self.last_migration_bg_blocks += len(batch)
+        return self.migration_pending(skip=skip)
+
+    def finish_migration(self, live_extents: dict) -> dict | None:
+        """Atomic swap: delta-copy every kept block whose background copy
+        is missing or stale, rebuild tables/refcounts/prefix keys against
+        the staged tensors, and adopt them (the KV, the device tables and
+        their pinned mirror).  Returns {old_slot: new_slot}, or None when
+        the live set no longer fits the staged geometry (the caller aborts
+        and falls back to the stop-the-world relayout)."""
+        assert self._mig is not None
+        mig = self._mig
+        live = sorted(live_extents)
+        if len(live) > mig["n_slots"]:
+            return None
+
+        # keep list, exactly as the stop-the-world relayout orders it:
+        # live blocks in slot order, then cached blocks by recency within
+        # the new overcommit budget
+        keep, seen = [], set()
+        for s in live:
+            for b in self.slot_blocks[s]:
+                if b not in seen:
+                    seen.add(b)
+                    keep.append(b)
+        cached = sorted((b for b in self.block_key
+                         if self.ref[b] == 0 and b not in seen),
+                        key=lambda b: -self._touch.get(b, 0))
+        oc = float(mig["setting"].get("block_overcommit", 1.0))
+        usable = min(mig["nb"] - 1,
+                     max(int(np.ceil(mig["n_slots"] * self.mb * oc)),
+                         len(keep)))
+        budget = usable - len(keep)
+        dropped = cached[max(budget, 0):]
+        self.cache_evictions += len(dropped)
+        keep.extend(cached[:max(budget, 0)])
+
+        # final id assignment: clean background copies keep their row,
+        # everything else takes a row not used by a kept clean copy
+        used = {self._mig_remap[b] for b in keep
+                if b in self._mig_remap and b in self._mig_copied}
+        free_ids = (i for i in range(1, mig["nb"]) if i not in used)
+        remap, delta = {}, []
+        for b in keep:
+            if b in self._mig_remap and b in self._mig_copied:
+                remap[b] = self._mig_remap[b]
+            else:
+                remap[b] = next(free_ids)
+                delta.append(b)
+        relocate_rows(self.kv, mig["kv"], delta, [remap[b] for b in delta])
+        self.last_migration_delta_blocks = len(delta)
+
+        old_blocks = {s: list(self.slot_blocks[s]) for s in live}
+        old_key = dict(self.block_key)
+        old_touch = dict(self._touch)
+        mapping = {s: i for i, s in enumerate(live)}
+
+        # adopt the staged tensors + geometry
+        self.setting = mig["setting"]
+        self.n_slots = mig["n_slots"]
+        self.nb = mig["nb"]
+        self.kv = mig["kv"]
+        self.dev_tables = mig["dev_tables"]
+        self._host_tables = mig["host_tables"]
+        self._tables_copied = mig["tables_copied"]
+        self.ref = np.zeros(self.nb, np.int32)
+        self.ref[TRASH_BLOCK] = 1
+        self.tables = np.zeros((self.n_slots, self.mb), np.int32)
+        self.slot_blocks = [[] for _ in range(self.n_slots)]
+        self.slot_live = [False] * self.n_slots
+        self.prefix, self.block_key, self._touch = {}, {}, {}
+        for s in live:
+            ns = mapping[s]
+            self.slot_blocks[ns] = [remap[b] for b in old_blocks[s]]
+            self.tables[ns, :len(self.slot_blocks[ns])] = \
+                self.slot_blocks[ns]
+            self.slot_live[ns] = True
+            for b in self.slot_blocks[ns]:
+                self.ref[b] += 1
+        for b, key in old_key.items():
+            if b in remap:
+                nb_ = remap[b]
+                self.block_key[nb_] = key
+                self.prefix[key] = nb_
+                self._touch[nb_] = old_touch.get(b, 0)
+        self._tick = max(old_touch.values(), default=0)
+        held = set(remap.values())
+        self._free = set()
+        self._reserved = set(range(1, self.nb)) - held
+        self._budget_floor = 0
+        self._rebalance_budget()
+        self.last_relayout_blocks = len(keep)
+        self._mig = None
+        self._mig_remap, self._mig_copied = {}, set()
+        return mapping
+
+    def abort_migration(self):
+        """Drop the staged tensors; the old geometry stays authoritative."""
+        self._mig = None
+        self._mig_remap, self._mig_copied = {}, set()
+        self.last_migration_bg_blocks = 0
+
+    def mb_of(self, bs: int) -> int:
+        return -(-self.max_seq // bs)
+
 
 class SSMStatePool(StatePool):
     """Per-slot recurrent state for the ssm family.
@@ -448,13 +811,16 @@ class SSMStatePool(StatePool):
         self.cfg = cfg
         self.device = torch.device(device)
         self.setting = dict(setting)
-        self.n_slots = int(setting["max_batch"])
+        self._alloc(int(setting["max_batch"]))
+
+    def _alloc(self, n_slots: int):
+        self.n_slots = n_slots
         dt = pool_dtype(self.setting)
-        shapes = lm.init_cache_shapes(cfg, self.n_slots)  # raises if not ssm
+        shapes = lm.init_cache_shapes(self.cfg, n_slots)  # raises if not ssm
         self.state = {k: torch.zeros(s, dtype=torch.float32 if k == "h"
                                      else dt, device=self.device)
                       for k, s in shapes.items()}
-        self.slot_live = [False] * self.n_slots
+        self.slot_live = [False] * n_slots
         self.saved = None         # the speculative snapshot (save_state)
 
     def exec_key(self) -> tuple:
@@ -508,6 +874,25 @@ class SSMStatePool(StatePool):
 
     def prepare_step_writes(self, slots, positions):
         pass                                  # recurrent state: no COW
+
+    def relayout(self, new_setting: dict, live_extents: dict,
+                 min_slots: int = 0) -> dict:
+        """Type I-b re-layout: new state tensors for ``new_setting``'s slot
+        count and dtype, the live slots' rows moved into them in slot order
+        (the conv window cast to the new dtype, h stays f32).  The
+        speculative snapshot goes with the old tensors.  Returns
+        {old_slot: new_slot}."""
+        live = sorted(live_extents)
+        old_state = self.state
+        self.setting = dict(new_setting)
+        self._alloc(max(int(new_setting["max_batch"]), len(live), min_slots,
+                        1))
+        mapping = {s: i for i, s in enumerate(live)}
+        relocate_rows(old_state, self.state, live, [mapping[s] for s in live])
+        self.last_relayout_blocks = len(live)
+        for s in live:
+            self.slot_live[mapping[s]] = True
+        return mapping
 
 
 def make_state_pool(cfg, setting: dict, max_seq: int, device):

@@ -186,7 +186,8 @@ def test_pool_replacement_drops_its_steps(models):
     else:
         eng.pool.save_state()
         eng._replay_exec(2)
-    kept = {("prefill", BUCKET, setting["k_chunk"]), ("quant", BUCKET)}
+    kept = {("prefill", BUCKET, setting["k_chunk"]),
+            ("quant", BUCKET, "float32")}
     assert kept < set(eng._steps._d) and len(eng._steps) == 5
     old = eng.pool
     eng._set_pool(make_state_pool(tcfg, eng.setting, 32, "cpu"))

@@ -1,8 +1,11 @@
 """PyTorch port: package rules — no JAX or ``repro`` import anywhere in
 the port or ``chip_smoke.py``, entry points that refuse to fall back to
 the CPU, settings of later slices that raise instead of quietly running
-something else, and speculative decoding, which no longer raises."""
+something else, and speculative decoding and the tuning slice
+(``--selftune``, ``--trace``, ``serve_loop(tuner=...)``,
+``warm_start(space)``, ``reconfigure``), which no longer raise."""
 import ast
+import json
 from pathlib import Path
 
 import numpy as np
@@ -10,9 +13,13 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core.tuner import TunerConfig, TuningManager
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import lm
-from repro_torch.serving import DEFAULT_SERVING_SETTING, ServingEngine
+from repro_torch.serving import (DEFAULT_SERVING_SETTING,
+                                 SERVING_RELAYOUT_KNOBS, Request,
+                                 ServingEngine, ServingObjective,
+                                 serving_knob_space)
 from repro_torch.serving.engine import serve_loop
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -27,6 +34,13 @@ def _port_files():
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = _port_files()
     assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
+    # the numpy copies of the tuning slice are walked too
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("core/gp.py", "core/bo.py", "core/metrics.py",
+                "core/objective.py", "core/progress.py", "core/reconfig.py",
+                "core/tuner.py", "ps/odmr.py", "serving/objective.py",
+                "obs/audit.py", "obs/report.py", "obs/export.py"):
+        assert port / rel in files, rel
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -71,28 +85,93 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
     assert out.rstrip().endswith("OK") and "served" in out
 
 
-@pytest.mark.parametrize("case", ["tuner", "selftune", "store", "family",
-                                  "space", "reconfigure"])
+@pytest.mark.parametrize("case", ["store", "selftune_store", "family"])
 def test_later_slices_raise_not_implemented(case):
+    call = {
+        "store": lambda: launch_serve.main(
+            ["--arch", "starcoder2-3b", "--reduced", "--tuning-store", "x"]),
+        "selftune_store": lambda: launch_serve.main(
+            ["--arch", "starcoder2-3b", "--reduced", "--device", "cpu",
+             "--selftune", "--tuning-store", "x"]),
+        "family": lambda: lm.init_params(
+            get_config("zamba2-1.2b").reduced(), 0, device="cpu"),
+    }[case]
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        call()
+
+
+@pytest.mark.parametrize("case", ["tuner", "selftune", "space",
+                                  "reconfigure"])
+def test_tuning_slice_runs_on_cpu(case, capsys):
+    """What raised until the tuning slice was ported now runs on the CPU:
+    ``serve_loop(tuner=...)``, ``launch/serve.py --selftune``,
+    ``warm_start(space)`` and ``reconfigure``."""
     params = lm.init_params(CFG, 0, device="cpu")
 
     def engine(**setting):
         return ServingEngine(params, CFG, dict(DEFAULT_SERVING_SETTING,
-                                               **setting), device="cpu")
+                                               **setting), max_seq=32,
+                             device="cpu")
 
-    call = {
-        "tuner": lambda: serve_loop(engine(), [], tuner=object()),
-        "selftune": lambda: launch_serve.main(
-            ["--arch", "starcoder2-3b", "--reduced", "--selftune"]),
-        "store": lambda: launch_serve.main(
-            ["--arch", "starcoder2-3b", "--reduced", "--tuning-store", "x"]),
-        "family": lambda: lm.init_params(
-            get_config("zamba2-1.2b").reduced(), 0, device="cpu"),
-        "space": lambda: engine().warm_start(space=object()),
-        "reconfigure": lambda: engine().reconfigure({"max_batch": 2}),
-    }[case]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        call()
+    reqs = [Request(rid=i, prompt=np.arange(1, 6 + i, dtype=np.int32),
+                    max_new=4) for i in range(6)]
+    if case == "tuner":
+        eng = engine(max_batch=2)
+        tuner = TuningManager(
+            serving_knob_space(), dict(eng.setting),
+            TunerConfig(eps=1e-6, a=2, b=2, seed=0),
+            objective=ServingObjective(eng),
+            reconfig_knob_classes={"mesh_knobs": SERVING_RELAYOUT_KNOBS})
+        stats = serve_loop(eng, reqs, tuner)
+        assert stats["completed"] == 6 and stats["reconfig_count"] >= 1
+        assert stats["tuner_init_quanta"] > 0
+    elif case == "selftune":
+        launch_serve.main(["--arch", "starcoder2-3b", "--reduced",
+                           "--device", "cpu", "--selftune", "--duration",
+                           "1.0", "--window", "8", "--init-settings", "2"])
+        out = capsys.readouterr().out
+        assert "[reconfig@" in out and "final setting" in out
+        assert out.rstrip().endswith("OK")
+    elif case == "space":
+        eng = engine(max_batch=2, quant="int8")
+        eng.warm_start(serving_knob_space(), max_prompt=20)
+        assert ("prefill", 32, 256) in eng._steps          # other chunks
+        for dt in ("float32", "bfloat16"):                 # every dtype
+            assert ("quant", 32, dt) in eng._steps
+        eng.reconfigure(dict(eng.setting, cache_dtype="bf16"))
+        rows = torch.zeros((CFG.n_layers, 32, CFG.n_kv_heads, CFG.hd),
+                           dtype=torch.bfloat16)
+        assert eng._quant_exec(32)(rows).dtype == torch.bfloat16   # C10
+        assert stats_ok(serve_loop(eng, reqs))
+    else:
+        eng = engine(max_batch=1)
+        assert eng.reconfigure(dict(eng.setting, max_batch=2)) >= 0.0
+        assert eng.pool.n_slots == 2 and eng.setting["max_batch"] == 2
+        assert stats_ok(serve_loop(eng, reqs))
+
+
+def stats_ok(stats):
+    return stats["completed"] == stats["requests"] and stats["tokens"] > 0
+
+
+def test_selftune_trace_writes_a_trace_and_an_audit(tmp_path, capsys):
+    """``--selftune --trace PATH``: ``[reconfig@`` lines, the attribution
+    panel, ``OK``, and a Chrome trace and an audit JSONL that load back."""
+    path = tmp_path / "serve.trace.json"
+    launch_serve.main(["--arch", "starcoder2-3b", "--reduced", "--device",
+                       "cpu", "--selftune", "--duration", "1.0", "--window",
+                       "8", "--init-settings", "2", "--trace", str(path)])
+    out = capsys.readouterr().out
+    assert "[reconfig@" in out and "attributed:" in out
+    assert out.rstrip().endswith("OK")
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {e["name"] for e in events}
+    assert {"serve.tick", "serve.decode", "reconfig.commit"} <= names
+    audit = [json.loads(line) for line in
+             (tmp_path / "serve.trace.json.audit.jsonl").read_text()
+             .splitlines()]
+    types = {r["type"] for r in audit}
+    assert {"decision", "reconfig"} <= types
 
 
 @pytest.mark.parametrize("family", ["starcoder2-3b", "falcon-mamba-7b"])
