@@ -32,7 +32,15 @@ Phases, in order; any failure exits non-zero before the result line:
              beside SDPA, the scan at a decode tick and at the 16, 96, 256
              and 512-token prefill buckets, quantize and dequantize at the
              table's shape (f32) and the engine's (bf16 x, one-value u, bf16
-             out), dequantize beside torch.mul.
+             out), dequantize beside torch.mul.  The training path's
+             kernels: the flash forward's log-sum-exp against the plain
+             logsumexp; the flash backward (three launches: delta, dk/dv,
+             dq) against autograd through the plain version at the
+             training shape (B=4, S=512, H=24, K=2, hd 128), at S=1024, hd
+             64, a ragged S and not causal, timed beside SDPA's backward;
+             quantize and dequantize at one block the size of
+             layers/mlp/wi (1,132,462,080 bf16 values, the grid-wide path)
+             and at ragged odd n, bit for bit, and timed.
 4. parity  — full-width starcoder2-3b decode step: paged kernel against
              the plain dense gather path on one f32 pool, one layer deep
              and all 30 layers (against a measured rounding-noise floor).
@@ -94,8 +102,25 @@ Phases, in order; any failure exits non-zero before the result line:
              falcon-mamba-7b (after phase 7): max_batch 8 -> 4 with 8 live
              (held, shrunk after the drain) and back, held the same way.
 
-Prints one JSON ``kernels`` line, the card's name and power limit, and as
-the last line ``{"ok": true, "device": {...}}``.
+9. train  — falcon-mamba is freed; full-width starcoder2-3b training
+             through ``repro_torch.ps`` (the launcher's path): one step's
+             loss and gradients, the kernel path against the plain path,
+             one layer deep and all 30 layers against a measured
+             rounding-noise floor; a fixed run (DEFAULT_LM_SETTING, 30
+             layers, 4 x 512 tokens, 30 steps): the loss falls, step time,
+             tokens/s, busy share, FLOP share, flash launches a step (30
+             each), peak memory; a checkpoint saved at step 10 of a
+             2-layer full-width run and restored into a fresh state gives
+             step 11's loss (bit for bit, or the gap printed); the depth at
+             which the knob space's worst corner fits, from the measured
+             peak; every value of every knob stepped there (int8: one
+             quantize and dequantize a leaf; the staleness queue as deep
+             as asked); a self-tuned run (TuningManager + SelfTuningLoop,
+             160 iterations) in which every plan executes.
+
+Prints one JSON ``kernels`` line (launches: the serve arms' and the
+training runs'), the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -103,10 +128,13 @@ import contextlib
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -122,6 +150,19 @@ F32_TOL = 2e-5                     # summation order only
 # K * hd of every registry configuration, the reduced ones' 32 and 64, and
 # a ragged block (a multiple of 4 f32 but not of 8 bf16)
 QUANT_BLOCKS = (32, 64, 256, 512, 1024, 1280, 2048, 3072, 36)
+LSE_TOL = 1e-4                     # flash lse: f32 exp2/log2 vs logsumexp,
+                                   # relative to max(1, |lse|)
+BWD_RTOL = 2e-2                    # flash backward vs autograd through the
+                                   # plain version, relative to the largest
+                                   # |gradient|: P and dS rounded to bf16 for
+                                   # the tensor-core products, bf16 results
+TRAIN_GRAD_TOL = 5e-2              # train parity: gradients (relative to a
+TRAIN_LOSS_TOL = 2e-2              # leaf's largest |value|) and the loss,
+                                   # kernel vs plain path, plus 1.5 x the
+                                   # rounding-noise floor measured in the run
+TRAIN_STEPS = 30                   # the fixed run at full width and depth
+CKPT_DEPTH = 2                     # checkpoint resume: full width, 2 layers
+SELFTUNE_ITERS = 160               # the self-tuned run
 SCAN_TOL = 1e-4                    # f32 rounding of the exponential (the
                                    # kernel's ex2.approx, the plain version's
                                    # exp), the state update and the <h, C>
@@ -1577,6 +1618,609 @@ def ssm_relayout(torch, cfg, params, ref, tol):
           flush=True)
 
 
+# ------------------------------------------------------------ phase 3 (training shapes)
+def check_train_kernels(torch, rows):
+    """The training path's kernels against their plain versions: the flash
+    forward's log-sum-exp; the flash backward at the training shape (B=4,
+    S=512, H=24, K=2, hd=128), at S=1024, at hd 64, at a ragged S and
+    not causal; quantize and dequantize at one block the size of
+    ``layers/mlp/wi`` (1,132,462,080 bf16 values, the gradient push's
+    largest leaf) and at a ragged odd n, bit for bit.  Then their times
+    beside the plain versions, the library's and the bounds.  Adds the
+    ``flash_attention_bwd`` row to ``rows`` and the training shapes to the
+    other rows' ``extra``."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.quant import (dequantize, dequantize_ref,
+                                           quantize, quantize_ref)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf16 = torch.bfloat16
+
+    def inputs(B, S, h, hd):
+        r = [torch.randn(shape, generator=g, device=dev).to(bf16)
+             for shape in ((B, S, h, hd), (B, S, K, hd), (B, S, K, hd),
+                           (B, S, h, hd))]
+        return r + [torch.arange(S, device=dev)[None].expand(B, S)]
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    err, lse_err = 0.0, 0.0
+    for B, S, h, hd, causal in [(4, 512, H, HD, True), (1, 1024, H, HD, True),
+                                (2, 512, H, 64, True), (2, 333, H, HD, True),
+                                (1, 320, H, HD, False)]:
+        q, k, v, do, pos = inputs(B, S, h, hd)
+        out, lse = flash_attention(q, k, v, pos, pos, causal=causal,
+                                   return_lse=True)
+        if not torch.equal(out, flash_attention(q, k, v, pos, pos,
+                                                causal=causal)):
+            fail(f"flash forward with lse differs from without (S={S})")
+        ref = attention_lse_ref(q, k, pos, pos, causal=causal)
+        lse_err = max(lse_err, float((lse - ref).abs().max()))
+        if lse_err > LSE_TOL * max(1.0, float(ref.abs().max())):
+            fail(f"flash lse B={B} S={S} hd={hd}: max abs err {lse_err}")
+        got = flash_attention_bwd(q, k, v, out, do, lse, pos, pos,
+                                  causal=causal)
+        torch.cuda.synchronize()
+        want = attention_bwd_ref(q, k, v, do, pos, pos, causal=causal)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            e = rel(a, b)
+            if not torch.isfinite(a.float()).all() or e > BWD_RTOL:
+                fail(f"flash_attention_bwd {name} B={B} S={S} hd={hd} "
+                     f"causal={causal}: max err {e} of the largest |value| "
+                     f"(bound {BWD_RTOL})")
+            err = max(err, float((a.float() - b.float()).abs().max()))
+    print(f"flash training: lse max abs err {lse_err:.3g} (bound "
+          f"{LSE_TOL} x max(1, |lse|)); backward within {BWD_RTOL} of the "
+          f"largest |gradient| at B=4 S=512, S=1024, hd 64, ragged S=333, "
+          f"not causal (max abs err {err:.3g})", flush=True)
+
+    # times at the training shape: 4 x 512 tokens, the model's heads
+    B, S = 4, 512
+    q, k, v, do, pos = inputs(B, S, H, HD)
+    out, lse = flash_attention(q, k, v, pos, pos, return_lse=True)
+    ms = timed_ms(torch, lambda: flash_attention_bwd(q, k, v, out, do, lse,
+                                                     pos, pos))
+    plain = timed_ms(torch, lambda: attention_bwd_ref(q, k, v, do, pos, pos))
+    fwd_lse = timed_ms(torch, lambda: flash_attention(
+        q, k, v, pos, pos, return_lse=True))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib = timed_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True))
+
+    def lib_fb():
+        o = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    def ker_fb():
+        o, l_ = flash_attention(q, k, v, pos, pos, return_lse=True)
+        return flash_attention_bwd(q, k, v, o, do, l_, pos, pos)
+
+    lib_fb_ms, ker_fb_ms = timed_ms(torch, lib_fb), timed_ms(torch, ker_fb)
+    pairs = B * H * S * (S + 1) / 2
+    big, small = B * S * H * HD * 2, B * S * K * HD * 2
+    b = bound(4 * big + 4 * small + B * H * S * 4, 10 * HD * pairs,
+              BF16_FLOPS)
+    rows["flash_attention_bwd"] = dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:79",
+        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=b,
+        shape=f"training B={B} S={S} H={H} K={K} hd={HD} causal bf16 "
+              f"(delta pre-pass + dk/dv + dq launches)",
+        extra=f" fwd+bwd: kernels_ms={ker_fb_ms:.4f} sdpa_ms={lib_fb_ms:.4f}")
+    rows["flash_attention"]["extra"] += (
+        f" training(B=4 S=512, with lse)_ms={fwd_lse:.4f}")
+
+    # quantize / dequantize at one block per tensor
+    n = 30 * 3072 * 12288                       # layers/mlp/wi
+    x = (torch.randn(n, generator=g, device=dev) * 1e-3).to(bf16)
+    u = torch.rand(n, generator=g, device=dev)
+    qq, ss = quantize(x, u, block=n)
+    rq, rs = quantize_ref(x, u, block=n)
+    if not (torch.equal(qq, rq) and torch.equal(ss, rs)):
+        fail(f"quantize at one block of n={n}: {int((qq != rq).sum())} "
+             f"values differ, scale {float(ss)} vs {float(rs)}")
+    del rq
+    dq_ref = dequantize_ref(qq, ss, block=n, out_dtype=bf16)
+    if not torch.equal(dequantize(qq, ss, block=n, out_dtype=bf16), dq_ref):
+        fail(f"dequantize at one block of n={n} not bit-exact")
+    del dq_ref
+    for m in (3_000_017, 1_000_001):           # ragged odd n, f32 and bf16
+        for x_dt in (torch.float32, bf16):
+            xs = torch.randn(m, generator=g, device=dev).to(x_dt)
+            us = torch.rand(m, generator=g, device=dev)
+            a, s1 = quantize(xs, us, block=m)
+            r, s2 = quantize_ref(xs, us, block=m)
+            if not (torch.equal(a, r) and torch.equal(s1, s2)):
+                fail(f"quantize at one ragged block n={m} {x_dt}")
+            if not torch.equal(dequantize(a, s1, block=m, out_dtype=x_dt),
+                               dequantize_ref(r, s2, block=m,
+                                              out_dtype=x_dt)):
+                fail(f"dequantize at one ragged block n={m} {x_dt}")
+    qt_ms = timed_ms(torch, lambda: quantize(x, u, block=n), iters=10)
+    dq_ms = timed_ms(torch, lambda: dequantize(qq, ss, block=n,
+                                               out_dtype=bf16), iters=10)
+    qb = bound(n * 2 + n * 4 + n + 4, 6 * n, F32_FLOPS)
+    q2 = (n * 2 * 2 + n * 4 + n + 4) / HBM_BYTES_PER_S * 1e3
+    dqb = bound(n + 4 + n * 2, n, F32_FLOPS)
+    print(f"quant per tensor: n={n} bf16 (layers/mlp/wi) and ragged odd "
+          f"n=3000017, 1000001 bit-exact", flush=True)
+    del x, u, qq
+    rows["quantize"]["extra"] += (
+        f" per_tensor(n={n} bf16 x, f32 u, one block)_ms={qt_ms:.4f} "
+        f"bound_ms={qb[0]:.4f} (inputs once; the two-pass floor, x read "
+        f"twice, {q2:.4f})")
+    rows["dequantize"]["extra"] += (
+        f" per_tensor(n={n}, bf16 out)_ms={dq_ms:.4f} "
+        f"bound_ms={dqb[0]:.4f}")
+    r = rows["flash_attention_bwd"]
+    print(f"kernel flash_attention_bwd: max_abs_err={r['max_abs_err']:.3g} "
+          f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+          f"library_ms={r['library_ms']:.4f} (SDPA backward) bound_ms="
+          f"{r['bound'][0]:.4f} ({r['bound'][1]}){r['extra']} "
+          f"[{r['shape']}]", flush=True)
+    for name in ("flash_attention", "quantize", "dequantize"):
+        print(f"kernel {name} (training shapes):{rows[name]['extra']}",
+              flush=True)
+
+
+# ------------------------------------------------------------ phase 9
+TRAIN_B, TRAIN_S = 4, 512          # tokens a step: 2,048
+
+
+def _train_cfg(depth=None):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("starcoder2-3b")
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+@contextlib.contextmanager
+def plain_attention(torch, eps=0.0):
+    """The training attention of ``lm`` replaced by a plain masked softmax
+    in f32 (autograd through it), its scores scaled by (1 + eps): the
+    parity run's reference and its rounding-noise floor."""
+    from repro_torch.models import lm
+
+    def attn(q, k, v, *, causal, q_positions, kv_positions, k_chunk=0):
+        G = q.shape[2] // k.shape[2]
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                         k.repeat_interleave(G, dim=2).float())
+        s = s * (q.shape[-1] ** -0.5 * (1 + eps))
+        mask = q_positions[:, :, None] >= kv_positions[:, None, :]
+        s = torch.where(mask[:, None], s, -1e30)
+        out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                           v.repeat_interleave(G, dim=2).float())
+        return out.to(q.dtype)
+
+    real = lm.chunked_attention
+    lm.chunked_attention = attn
+    try:
+        yield
+    finally:
+        lm.chunked_attention = real
+
+
+def train_parity(torch):
+    """One train step's loss and gradients of full-width starcoder2-3b, the
+    kernel path (flash forward and backward) against the plain path on
+    the same parameters and batch: one layer deep, and all 30 layers
+    against a rounding-noise floor measured in the run (the plain path
+    against itself with its scores scaled by 1 + 2^-20)."""
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.models.lm import ModelKnobs
+    from repro_torch.ps.stepfn import _grads
+    cfg = _train_cfg()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    batch = next(lm_batch_iterator(cfg, TRAIN_B, TRAIN_S, seed=0))
+    out = {}
+    for depth in (1, cfg.n_layers):
+        c = _train_cfg(depth)
+        p = dict(params, layers=_slice(params["layers"], depth))
+
+        def run():
+            loss, _, g = _grads(p, batch, c, ModelKnobs())
+            return float(loss), list(_leaves(g))
+
+        before = LAUNCHES["flash_attention_bwd"]
+        k_loss, k_g = run()
+        if LAUNCHES["flash_attention_bwd"] - before != depth:
+            fail(f"train parity: {LAUNCHES['flash_attention_bwd'] - before}"
+                 f" flash backward launches for {depth} layers")
+        with plain_attention(torch):
+            p_loss, p_g = run()
+        with plain_attention(torch, eps=2.0 ** -20):
+            n_loss, n_g = run()
+
+        def worst(a, b):
+            return max(float((x.float() - y.float()).abs().max()
+                             / y.float().abs().max().clamp_min(1e-30))
+                       for x, y in zip(a, b))
+
+        err, noise = worst(k_g, p_g), worst(n_g, p_g)
+        tol = TRAIN_GRAD_TOL + 1.5 * noise
+        lerr, lnoise = abs(k_loss - p_loss), abs(n_loss - p_loss)
+        ltol = TRAIN_LOSS_TOL + 1.5 * lnoise
+        print(f"parity[train {depth} layer(s)]: loss kernel {k_loss:.6f} "
+              f"plain {p_loss:.6f} (|diff| {lerr:.3g}, floor {lnoise:.3g}, "
+              f"bound {ltol:.3g}); gradients: worst leaf max err "
+              f"{err:.4g} of its largest |value| against a rounding-noise "
+              f"floor of {noise:.4g} (bound {tol:.4g})", flush=True)
+        if not (err <= tol and lerr <= ltol) or any(
+                not torch.isfinite(x.float()).all() for x in k_g):
+            fail(f"train parity at {depth} layers")
+        out[depth] = (err, noise)
+        del k_g, p_g, n_g
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_steps(torch, step, state, batches, steps=3):
+    """The card's kernel time against the wall time over ``steps`` steps
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, next(batches))
+            float(m["loss"])
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    kernels = [e for e in prof.key_averages()
+               if "CUDA" in str(e.device_type)]
+    busy = sum(dev_us(e) for e in kernels) / steps / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    groups = {}                          # ms a step and kernels a step
+    for e in kernels:
+        g = next((name for name, pat in TRAIN_KERNEL_GROUPS
+                  if re.search(pat, e.key)), "other")
+        ms, n = groups.get(g, (0.0, 0))
+        groups[g] = (ms + dev_us(e) / steps / 1e3, n + e.count // steps)
+    return state, wall, busy, [(e.key[:70], dev_us(e) / steps / 1e3,
+                                e.count // steps) for e in top], groups
+
+
+# kernel name -> kind, for the training step's breakdown (the first match)
+TRAIN_KERNEL_GROUPS = (
+    ("gemm", r"nvjet|gemm|cutlass|sm90_xmma|ampere|Kernel2"),
+    ("flash", r"flash_bwd|flash_attention"),
+    ("copy", r"direct_copy|Memcpy|Memset|CatArrayBatched"),
+    ("fill", r"FillFunctor|fill_kernel"),
+    ("reduce", r"reduce_kernel|softmax|logsumexp|Reduce"),
+    ("index", r"index|gather|scatter|embedding"),
+    ("elementwise", r"elementwise"),
+)
+
+
+def time_optimizer(torch, job, state, reps=3):
+    """One Adam update of the whole state on its own (gradients of zeros,
+    the parameters' shapes and dtype), median of ``reps`` between CUDA
+    events.  It moves the state on: call it last on a state."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.optim import make_optimizer
+    _, update = make_optimizer(job.tc)
+    grads = tree_map(torch.zeros_like, state["params"])
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        update(state["params"], grads, state["opt"])
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del grads
+    return sorted(times)[len(times) // 2]
+
+
+def fixed_run(torch, job_cls, setting):
+    """DEFAULT_LM_SETTING at full width and depth, 4 x 512 tokens, 30 steps:
+    the loss falls; step time (wall and CUDA events), tokens/s, busy share,
+    the model FLOP share, flash launches a step, peak memory."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    cfg = _train_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    job = job_cls(cfg, batch=TRAIN_B, seq=TRAIN_S)
+    state = job.init_state(setting, seed=0)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    step = job.step_builder(setting)
+    batches = job.batches(0)
+    losses, walls, evs = [], [], []
+    reset_launches()
+    for it in range(TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, m = step(state, next(batches))
+        b.record()
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        evs.append(a.elapsed_time(b))
+        if it == 0:
+            per_step = dict(LAUNCHES)
+    launches = dict(LAUNCHES)
+    if not (per_step["flash_attention"] == per_step["flash_attention_bwd"]
+            == cfg.n_layers):
+        fail(f"fixed run: flash launches a step {per_step}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not np.isfinite(losses).all() or not last < first:
+        fail(f"fixed run: the loss did not fall ({first} -> {last})")
+    state, pwall, busy, top, groups = _profile_steps(torch, step, state,
+                                                     batches)
+    opt_ms = time_optimizer(torch, job, state)
+    wall = float(np.median(walls[5:]))
+    ev = float(np.median(evs[5:]))
+    n = cfg.n_params()
+    tokens = TRAIN_B * TRAIN_S
+    pairs = TRAIN_B * cfg.n_heads * TRAIN_S * (TRAIN_S + 1) / 2
+    flops = (6 * (n - cfg.vocab_size * cfg.d_model) * tokens
+             + 12 * cfg.hd * pairs * cfg.n_layers)
+    print(f"train[fixed]: {cfg.name} full width and depth ({cfg.n_layers} "
+          f"layers, {n / 1e9:.3f} B params), {TRAIN_B} x {TRAIN_S} tokens, "
+          f"{TRAIN_STEPS} steps of {setting}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of the first 5 {first:.4f}, of the last "
+          f"5 {last:.4f})", flush=True)
+    print(f"train[fixed]: step {wall:.2f} ms wall, {ev:.2f} ms between CUDA "
+          f"events (medians of steps 6-{TRAIN_STEPS}), {tokens / wall * 1e3:.0f}"
+          f" tokens/s; under torch.profiler {pwall:.2f} ms wall, {busy:.2f} "
+          f"ms of kernels = busy share {busy / pwall:.3f}; model FLOPs "
+          f"{flops:.4g} a step = {flops / (ev * 1e-3) / BF16_FLOPS:.3f} of "
+          f"989 TFLOP/s; flash launches a step: {per_step['flash_attention']}"
+          f" forward, {per_step['flash_attention_bwd']} backward; state "
+          f"{state_gb:.2f} GB, peak {peak:.2f} GB allocated", flush=True)
+    for key, ms, cnt in top:
+        print(f"train[fixed] profile: {ms:8.3f} ms/step {cnt:5d} x  {key}",
+              flush=True)
+    print("train[fixed] by kind: " + ", ".join(
+        f"{g} {ms:.2f} ms ({n} kernels)" for g, (ms, n) in
+        sorted(groups.items(), key=lambda kv: -kv[1][0]))
+        + f"; the Adam pass alone {opt_ms:.2f} ms between CUDA events (22 "
+          f"bytes a parameter would take {22 * cfg.n_params() / HBM_BYTES_PER_S * 1e3:.1f}"
+          f" ms at 3.35 TB/s)", flush=True)
+    print(f"train[fixed] losses: {' '.join(f'{x:.4f}' for x in losses)}",
+          flush=True)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak, state_gb, launches
+
+
+def checkpoint_resume(torch, job_cls, setting, depth):
+    """Save at step 10, restore into a fresh state (another seed), run step
+    11: its loss against the uninterrupted run's, bit for bit (the gap is
+    printed if cuBLAS or an atomic breaks that)."""
+    from repro_torch.checkpoint import CheckpointManager, restore_pytree
+    cfg = _train_cfg(depth)
+    d = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    job = job_cls(cfg, batch=TRAIN_B, seq=TRAIN_S)
+    state = job.init_state(setting, seed=0)
+    step = job.step_builder(setting)
+    batches = job.batches(0)
+    mgr = CheckpointManager(str(d), every=10, keep=1)
+    t_save = 0.0
+    for it in range(1, 12):
+        state, m = step(state, next(batches))
+        loss = float(m["loss"])
+        t0 = time.perf_counter()
+        if mgr.maybe_save(state, it, {"loss": loss}):
+            t_save = time.perf_counter() - t0
+    del state
+    gc.collect()
+    fresh = job.init_state(setting, seed=1)
+    t0 = time.perf_counter()
+    fresh, meta = restore_pytree(fresh, str(d))
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    batches = job.batches(0)
+    for _ in range(10):
+        next(batches)
+    fresh, m = step(fresh, next(batches))
+    resumed = float(m["loss"])
+    size = sum(f.stat().st_size for f in d.rglob("*")) / 1e9
+    shutil.rmtree(d, ignore_errors=True)
+    same = resumed == loss
+    print(f"train[checkpoint]: {cfg.n_layers} layers at full width, "
+          f"{size:.2f} GB on disk (save {t_save:.1f}s, restore "
+          f"{t_restore:.1f}s, from step {meta['step']}): step 11 loss "
+          f"{resumed!r} resumed vs {loss!r} uninterrupted: "
+          + ("bit for bit" if same else f"GAP {abs(resumed - loss):.3g}"),
+          flush=True)
+    if not np.isfinite(resumed) or abs(resumed - loss) > 1e-2:
+        fail("checkpoint resume: the resumed step's loss is off")
+    del fresh, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sweep_depth(torch, peak_gb, state_gb):
+    """The largest depth at which the knob space's worst corner fits: the
+    fixed run's measured peak scaled to D layers, plus an f32 microbatch
+    accumulator and a 2-deep bf16 staleness queue (8 bytes a parameter)
+    and the int8 push's transient for the largest leaf (7 bytes a
+    value), within 90% of the card."""
+    cfg = _train_cfg()
+    L = cfg.n_layers
+    per_layer_params = (cfg.n_params() - 2 * cfg.vocab_size * cfg.d_model) / L
+    edge_params = 2 * cfg.vocab_size * cfg.d_model
+    edge_gb = edge_params * 12 / 1e9             # params, grads, m, v
+    per_layer_gb = (peak_gb - edge_gb) / L       # state and activations
+    extra_gb = 8 * per_layer_params / 1e9        # acc f32 + queue 2 x bf16
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    wi = cfg.d_model * cfg.d_ff
+    depth = 1
+    while depth < L:
+        d = depth + 1
+        need = (edge_gb + 8 * edge_params / 1e9 + d * (per_layer_gb
+                                                       + extra_gb)
+                + 7 * d * wi / 1e9)
+        if need > 0.9 * total:
+            break
+        depth = d
+    print(f"train[depth]: fixed-run peak {peak_gb:.2f} GB (state "
+          f"{state_gb:.2f} GB) -> {per_layer_gb:.3f} GB a layer; the worst "
+          f"corner (microbatches 4 with an f32 accumulator, staleness 2, "
+          f"int8) adds {extra_gb:.3f} GB a layer: {depth} layers fit in 90% "
+          f"of {total:.1f} GB", flush=True)
+    return depth
+
+
+def knob_sweep(torch, job_cls, space, default, depth):
+    """Every value of every knob of ``lm_knob_space(1)`` takes steps at
+    ``depth`` layers: a finite loss, int8 launches quantize and dequantize
+    once a leaf, the staleness queue as deep as the setting asks."""
+    from repro_torch.core import reconfig as rc
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import LAUNCHES
+    cfg = _train_cfg(depth)
+    job = job_cls(cfg, batch=TRAIN_B, seq=TRAIN_S)
+    state = job.init_state(default, seed=0)
+    batches = job.batches(0)
+    n_leaves = len(leaves(state["params"]))
+    settings = [dict(default)] + [dict(default, **{kn.name: v})
+                                  for kn in space.knobs for v in kn.values
+                                  if v != default[kn.name]]
+    torch.cuda.reset_peak_memory_stats()
+    launches = dict.fromkeys(LAUNCHES, 0)
+    cur = dict(default)
+    for s in settings:
+        state = job.state_adapter(state, rc.plan(cur, s))
+        cur = s
+        step = job.step_builder(s)
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        state, m = step(state, next(batches))
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        d = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        for k in d:
+            launches[k] += d[k]
+        if not np.isfinite(loss):
+            fail(f"sweep {s}: loss {loss}")
+        if s["compression"] == "int8" and not (
+                d["quantize"] == d["dequantize"] == n_leaves):
+            fail(f"sweep {s}: {d['quantize']} quantize / {d['dequantize']} "
+                 f"dequantize launches for {n_leaves} leaves")
+        q = state.get("grad_queue")
+        depth_q = leaves(q)[0].shape[0] if q else 0
+        if depth_q != s["staleness"]:
+            fail(f"sweep {s}: queue depth {depth_q}")
+        print(f"train[sweep] {s}: loss {loss:.4f}, {dt * 1e3:.0f} ms "
+              f"(first step of the setting), flash {d['flash_attention']}/"
+              f"{d['flash_attention_bwd']} fwd/bwd, quantize "
+              f"{d['quantize']}, queue depth {depth_q}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train[sweep]: {len(settings)} settings at {depth} layers, every "
+          f"value of every knob stepped; peak {peak:.2f} GB allocated",
+          flush=True)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def selftuned_run(torch, job_cls, space, default, depth):
+    """The --self-tune path: TuningManager over lm_knob_space(1) driving
+    SelfTuningLoop for SELFTUNE_ITERS iterations at ``depth`` layers.
+    Every plan the tuner proposes executes (the adapter runs once for each
+    and the tuner commits it)."""
+    from repro_torch.core.tuner import TunerConfig, TuningManager
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.ps.trainer import SelfTuningLoop
+    cfg = _train_cfg(depth)
+    job = job_cls(cfg, batch=TRAIN_B, seq=TRAIN_S)
+    state = job.init_state(default, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    tuner = TuningManager(space, default, TunerConfig(eps=0.05, a=8, b=6,
+                                                      seed=0))
+    applied = []
+
+    def adapter(st, plan):
+        applied.append(plan)
+        return job.state_adapter(st, plan)
+
+    losses = []
+    real_record = tuner.record_iteration
+
+    def record(loss, dt):
+        losses.append(loss)
+        real_record(loss, dt)
+
+    tuner.record_iteration = record
+    loop = SelfTuningLoop(tuner, job.step_builder, adapter)
+    before = dict(LAUNCHES)
+    res, state = loop.run(state, job.batches(0), max_iters=SELFTUNE_ITERS)
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_rec = len(tuner.audit.of_type("reconfig"))
+    if tuner._pending is not None or n_rec != len(applied) or not applied:
+        fail(f"self-tuned run: {len(applied)} plans applied, {n_rec} "
+             f"recorded, pending {tuner._pending}")
+    rep = tuner.progress_report()
+    print(f"train[selftune]: {res.iterations} iterations at {depth} layers "
+          f"in {res.wall_time_s:.1f}s, {len(applied)} plans proposed and "
+          f"executed ({', '.join(sorted({'+'.join(p.kinds) for p in applied}))}"
+          f"), reconfiguration {res.reconfig_total_s:.3f}s in all, final "
+          f"setting {tuner.current}, final loss {res.final_loss:.4f}, "
+          f"converged {res.converged}; progress: remaining ~"
+          f"{rep['remaining_iters']:.0f} iters / {rep['remaining_time_s']:.1f}"
+          f"s; step cache {loop._steps.stats()}; peak {peak:.2f} GB "
+          f"allocated", flush=True)
+    print(f"train[selftune] losses every 10: "
+          f"{' '.join(f'{x:.3f}' for x in losses[::10])}", flush=True)
+    if not np.isfinite(losses).all():
+        fail("self-tuned run: a loss is not finite")
+    del state, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_path(torch):
+    """Phase 9 on full-width starcoder2-3b.  Returns the launch counts of
+    the training runs (fixed, sweep, self-tuned)."""
+    from repro_torch.ps.lm_job import (DEFAULT_LM_SETTING, LMJob,
+                                       lm_knob_space)
+    t0 = time.perf_counter()
+    train_parity(torch)
+    peak, state_gb, launches = fixed_run(torch, LMJob, DEFAULT_LM_SETTING)
+    checkpoint_resume(torch, LMJob, DEFAULT_LM_SETTING, CKPT_DEPTH)
+    depth = sweep_depth(torch, peak, state_gb)
+    space = lm_knob_space(1)
+    for counts in (knob_sweep(torch, LMJob, space, DEFAULT_LM_SETTING, depth),
+                   selftuned_run(torch, LMJob, space, DEFAULT_LM_SETTING,
+                                 depth)):
+        for k, n in counts.items():
+            launches[k] += n
+    print(f"train: phase 9 in {time.perf_counter() - t0:.1f}s, launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -1606,6 +2250,7 @@ def main():
               f"{spill} bytes of spill stores+loads", flush=True)
 
     rows = check_kernels(torch)
+    check_train_kernels(torch, rows)
     rows["selective_scan"] = check_scan(torch)
     launches = dense_path(torch, card)
     # free the dense model (and its engines' pools) before falcon-mamba
@@ -1614,6 +2259,13 @@ def main():
     print(f"freed the dense model: {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
           f" GiB still allocated", flush=True)
     launches["selective_scan"] = ssm_path(torch, card)
+    # free falcon-mamba before the training runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve launches {launches}", flush=True)
+    trained = train_path(torch)
+    for name in rows:
+        launches[name] = launches.get(name, 0) + trained.get(name, 0)
 
     line = {"kernels": [
         {"name": name, "route": r["route"], "source": r["source"],

@@ -157,3 +157,16 @@ class ModelConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Knob-independent training hyperparameters (not tuned: the paper's
+    §I keeps the learning problem fixed and tunes only the system)."""
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    optimizer: str = "adam"  # adam | sgd | momentum
+    seed: int = 0

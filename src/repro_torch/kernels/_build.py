@@ -28,12 +28,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention", "flash_attention", "quant", "mamba_scan")
+SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd", "quant",
+           "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"paged_attention": 0, "flash_attention": 0, "quantize": 0,
-            "dequantize": 0, "selective_scan": 0}
+LAUNCHES = {"paged_attention": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0, "quantize": 0, "dequantize": 0,
+            "selective_scan": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _N_SMS: dict = {}

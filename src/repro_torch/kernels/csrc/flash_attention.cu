@@ -46,6 +46,12 @@
 // keys of the tiles its CTA computes, as the JAX kernel does at
 // block_q = block_k = 64.
 //
+// With `lse` given (training), each row also writes its log-sum-exp of the
+// scaled, masked scores, in natural-log units: (m + log2 l) * ln 2, where m
+// is the row's running max and l its row sum in base 2.  The backward
+// (flash_attention_bwd.cu) recomputes P from it.  Serving passes null and
+// writes nothing more.
+//
 // The k_chunk knob (`block_k`) no longer changes the kernel: the tile is 64
 // keys whatever it is, so the result does not depend on it.
 //
@@ -73,41 +79,13 @@ template <int HD> size_t smem_bytes(int n_tiles) {
          (size_t)2 * n_tiles * sizeof(int);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                              uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// d += a . b for one m16n8k16 tile: bf16 operands, f32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos,
-                       const int* __restrict__ kv_pos, __nv_bfloat16* __restrict__ out, int Sq,
-                       int Skv, int H, int K, int causal, float scale) {
+                       const int* __restrict__ kv_pos, __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Skv, int H, int K, int causal,
+                       float scale) {
   constexpr int LD = HD + kPad;                // smem row stride, in bf16
   constexpr int LINES = HD / 8;                // 16-byte lines per row
   constexpr int KSTEPS = HD / 16;              // k16 steps of Q.K^T
@@ -235,11 +213,11 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 #pragma unroll
       for (int np = 0; np < NT_S / 2; ++np) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4(port::smem_addr(kt + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
+        port::ldsm_x4(port::smem_addr(kt + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
                                 ((lane / 8) % 2) * 8),
                 b0, b1, b2, b3);
-        mma_bf16(s[2 * np], qf[kk], b0, b1);
-        mma_bf16(s[2 * np + 1], qf[kk], b2, b3);
+        port::mma_bf16(s[2 * np], qf[kk], b0, b1);
+        port::mma_bf16(s[2 * np + 1], qf[kk], b2, b3);
       }
     }
 
@@ -301,18 +279,18 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     // O += P . V, P from the score registers, rounded to bf16
 #pragma unroll
     for (int kt16 = 0; kt16 < kBlockK / 16; ++kt16) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kt16][0], s[2 * kt16][1]),
-                             pack_bf16(s[2 * kt16][2], s[2 * kt16][3]),
-                             pack_bf16(s[2 * kt16 + 1][0], s[2 * kt16 + 1][1]),
-                             pack_bf16(s[2 * kt16 + 1][2], s[2 * kt16 + 1][3])};
+      const uint32_t a[4] = {port::pack_bf16(s[2 * kt16][0], s[2 * kt16][1]),
+                             port::pack_bf16(s[2 * kt16][2], s[2 * kt16][3]),
+                             port::pack_bf16(s[2 * kt16 + 1][0], s[2 * kt16 + 1][1]),
+                             port::pack_bf16(s[2 * kt16 + 1][2], s[2 * kt16 + 1][3])};
 #pragma unroll
       for (int np = 0; np < NT_O / 2; ++np) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4_trans(port::smem_addr(vt + (kt16 * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
+        port::ldsm_x4_trans(port::smem_addr(vt + (kt16 * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
                                       np * 16 + (lane / 16) * 8),
                       b0, b1, b2, b3);
-        mma_bf16(o[2 * np], a, b0, b1);
-        mma_bf16(o[2 * np + 1], a, b2, b3);
+        port::mma_bf16(o[2 * np], a, b0, b1);
+        port::mma_bf16(o[2 * np + 1], a, b2, b3);
       }
     }
   }
@@ -323,6 +301,11 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && tig == 0) {            // one lane of the four a row
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (live0) lse[((size_t)b * H + h) * Sq + row0] = (m0 + log2f(l0)) * kLn2;
+    if (live1) lse[((size_t)b * H + h) * Sq + row1] = (m1 + log2f(l1)) * kLn2;
+  }
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) {
     const int col = n * 8 + tig * 2;
@@ -337,8 +320,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* q_pos,
-                   const void* kv_pos, void* out, int B, int Sq, int Skv, int H, int K,
-                   int causal, float scale, cudaStream_t stream) {
+                   const void* kv_pos, void* out, float* lse, int B, int Sq, int Skv, int H,
+                   int K, int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>((Skv + kBlockK - 1) / kBlockK);
   if (smem > 232448) return cudaErrorInvalidValue;   // the most a block may opt into
   cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<HD>,
@@ -348,23 +331,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_po
   flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_pos),
-      static_cast<const int*>(kv_pos), static_cast<__nv_bfloat16*>(out), Sq, Skv, H, K, causal,
-      scale);
+      static_cast<const int*>(kv_pos), static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, K,
+      causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, out: (B, Sq, H, hd) bf16; k, v: (B, Skv, K, hd) bf16; q_pos: (B, Sq) int32;
-// kv_pos: (B, Skv) int32.
+// kv_pos: (B, Skv) int32; lse: (B, H, Sq) f32, or null.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, const void* q_pos,
-                               const void* kv_pos, void* out, int B, int Sq, int Skv, int H,
-                               int K, int hd, int causal, float scale, void* stream) {
+                               const void* kv_pos, void* out, void* lse, int B, int Sq, int Skv,
+                               int H, int K, int hd, int causal, float scale, void* stream) {
   if (B == 0 || Sq == 0) return cudaSuccess;
   if (Skv < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch<64>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, K, causal, scale, st);
+  float* l = static_cast<float*>(lse);
+  if (hd == 64)
+    return launch<64>(q, k, v, q_pos, kv_pos, out, l, B, Sq, Skv, H, K, causal, scale, st);
   if (hd == 128)
-    return launch<128>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, K, causal, scale, st);
+    return launch<128>(q, k, v, q_pos, kv_pos, out, l, B, Sq, Skv, H, K, causal, scale, st);
   return cudaErrorInvalidValue;
 }

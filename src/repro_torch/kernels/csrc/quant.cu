@@ -29,10 +29,21 @@
 //   the caller, the occupancy from the runtime), not the data: teams stride
 //   over the blocks, and each starts the next block's loads before it
 //   reduces the current one, so two trips to memory are in flight a team.
-// - quantize_scalar_kernel takes what the vector kernel cannot: a block
-//   that is not a multiple of the vector width, a pointer that is not
-//   16-byte aligned (a view at an odd offset) or a block beyond the
-//   registers' reach; a warp per block, two passes over it.
+// - A block beyond a CTA team's registers (more than kGridBlockMin values:
+//   the gradient push quantizes a whole tensor as one block, up to 1.13e9
+//   values) takes the grid-wide path: `parts` CTAs a block.  First
+//   quantize_amax_kernel writes each CTA's max |x| over its share; then
+//   quantize_grid_kernel, with the same CTAs, folds its block's partial
+//   maxima into the scale (CTA 0 of the block stores it) and rounds its
+//   share, each value with its own u.  So x is read twice (the honest
+//   floor of a one-block quantizer: the scale depends on every value
+//   before any value can be rounded), u once, q written once; no atomics.
+//   Both kernels load 16 bytes a thread where the block allows it, one
+//   value a thread where it does not (a ragged or misaligned block).
+// - quantize_scalar_kernel takes what the vector kernel cannot below that
+//   size: a block that is not a multiple of the vector width or a pointer
+//   that is not 16-byte aligned (a view at an odd offset); a warp per
+//   block, two passes over it.
 // - dequantize_kernel: 16 int8 a thread (one 16-byte load), one scale, no
 //   division per value, then 4 float4 stores (f32) or 2 16-byte stores
 //   (bf16), each contiguous across the warp: a store instruction that left
@@ -49,6 +60,8 @@ constexpr int kCtaThreads = 256;     // threads of every CTA
 constexpr int kWarpBlockMax = 1024;  // a warp per block up to this many values, a CTA above
 constexpr int kCtaMaxVpl = 4;        // vectors of x a thread of a CTA team holds at most
 constexpr int kDqVals = 16;          // int8 values a dequantize thread takes
+constexpr int kGridBlockMin = 4096;  // blocks above this many values go grid-wide (above a
+                                     // CTA team's kCtaMaxVpl f32 vectors a thread)
 
 template <typename XT> struct XVec;  // kVecBytes of x
 template <> struct XVec<float> {
@@ -190,6 +203,90 @@ quantize_kernel(const XT* __restrict__ x, const float* __restrict__ u, int8_t* _
   }
 }
 
+// The grid-wide path: CTA c works on block c / parts, share c % parts.
+// VEC: 16-byte vectors of x (and u); otherwise one value at a time.
+template <typename XT, bool VEC>
+__global__ void __launch_bounds__(kCtaThreads)
+quantize_amax_kernel(const XT* __restrict__ x, float* __restrict__ partial, int block,
+                     int parts) {
+  using Vec = typename XVec<XT>::T;
+  constexpr int V = VEC ? XVec<XT>::V : 1;
+  __shared__ float red[kCtaThreads / 32];
+  const int blk = blockIdx.x / parts, part = blockIdx.x % parts;
+  const XT* xb = x + (size_t)blk * block;
+  const int n = block / V;
+  float amax = 0.f;
+  for (long long i = part * kCtaThreads + threadIdx.x; i < n; i += (long long)parts * kCtaThreads) {
+    if constexpr (VEC) {
+      float f[XVec<XT>::V];
+      unpack(reinterpret_cast<const Vec*>(xb)[i], f);
+#pragma unroll
+      for (int k = 0; k < V; ++k) amax = fmaxf(amax, fabsf(f[k]));
+    } else {
+      amax = fmaxf(amax, fabsf(port::to_f32(xb[i])));
+    }
+  }
+  // -- quantize (grid): loaded
+  amax = port::warp_max(amax);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = amax;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 0; w < kCtaThreads / 32; ++w) amax = fmaxf(amax, red[w]);
+    partial[blockIdx.x] = amax;
+  }
+}
+
+template <typename XT, bool U_ONE, bool VEC>
+__global__ void __launch_bounds__(kCtaThreads)
+quantize_grid_kernel(const XT* __restrict__ x, const float* __restrict__ u,
+                     int8_t* __restrict__ q, float* __restrict__ scales,
+                     const float* __restrict__ partial, int block, int parts) {
+  using Vec = typename XVec<XT>::T;
+  constexpr int V = VEC ? XVec<XT>::V : 1;
+  __shared__ float red[kCtaThreads / 32];
+  const int blk = blockIdx.x / parts, part = blockIdx.x % parts;
+  float amax = 0.f;                                   // the block's max, from the partials
+  for (int i = threadIdx.x; i < parts; i += kCtaThreads)
+    amax = fmaxf(amax, partial[(size_t)blk * parts + i]);
+  amax = port::warp_max(amax);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = amax;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kCtaThreads / 32; ++w) amax = fmaxf(amax, red[w]);
+  const float scale = __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
+  if (part == 0 && threadIdx.x == 0) scales[blk] = scale;
+
+  const size_t base = (size_t)blk * block;
+  const float u_one = U_ONE ? u[0] : 0.f;
+  const int n = block / V;
+  for (long long i = part * kCtaThreads + threadIdx.x; i < n; i += (long long)parts * kCtaThreads) {
+    if constexpr (VEC) {
+      float f[V], uf[V];
+      int qv[V];
+      unpack(reinterpret_cast<const Vec*>(x + base)[i], f);
+#pragma unroll
+      for (int k = 0; k < V / 4; ++k) {
+        if constexpr (U_ONE) {
+          uf[4 * k] = uf[4 * k + 1] = uf[4 * k + 2] = uf[4 * k + 3] = u_one;
+        } else {
+          unpack(reinterpret_cast<const float4*>(u + base)[i * (V / 4) + k], uf + 4 * k);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) qv[k] = quant1(f[k], uf[k], scale);
+      if constexpr (V == 4) {
+        reinterpret_cast<uint32_t*>(q + base)[i] = pack4(qv);
+      } else {
+        reinterpret_cast<uint2*>(q + base)[i] = make_uint2(pack4(qv), pack4(qv + 4));
+      }
+    } else {
+      q[base + i] = static_cast<int8_t>(
+          quant1(port::to_f32(x[base + i]), U_ONE ? u_one : u[base + i], scale));
+    }
+  }
+}
+
 template <typename XT, bool U_ONE>
 __global__ void __launch_bounds__(kCtaThreads)
 quantize_scalar_kernel(const XT* __restrict__ x, const float* __restrict__ u,
@@ -305,20 +402,46 @@ int launch_vector(const XT* x, const float* u, int8_t* q, float* scales, int n_b
   return cudaGetLastError();
 }
 
+// The grid-wide path's two launches; `partial` holds n_partial floats.
+template <typename XT, bool U_ONE, bool VEC>
+int launch_grid(const XT* x, const float* u, int8_t* q, float* scales, float* partial,
+                int n_partial, int n_blocks, int block, int n_sms, cudaStream_t st) {
+  const auto amax_kernel = quantize_amax_kernel<XT, VEC>;
+  const long long cap = card_grid(amax_kernel, n_sms, 1LL << 30);   // CTAs the card holds
+  const int n = block / (VEC ? XVec<XT>::V : 1);
+  long long parts = cap / n_blocks;
+  parts = parts < (n + kCtaThreads - 1) / kCtaThreads ? parts : (n + kCtaThreads - 1) / kCtaThreads;
+  parts = parts < n_partial / n_blocks ? parts : n_partial / n_blocks;
+  if (parts < 1) parts = 1;
+  if (parts * n_blocks > n_partial) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(parts * n_blocks);
+  amax_kernel<<<grid, kCtaThreads, 0, st>>>(x, partial, block, (int)parts);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  quantize_grid_kernel<XT, U_ONE, VEC><<<grid, kCtaThreads, 0, st>>>(x, u, q, scales, partial,
+                                                                     block, (int)parts);
+  return cudaGetLastError();
+}
+
 template <typename XT, bool U_ONE>
-int launch_quantize(const void* xp, const float* u, int8_t* q, float* scales, int n_blocks,
-                    int block, int n_sms, cudaStream_t st) {
+int launch_quantize(const void* xp, const float* u, int8_t* q, float* scales, float* partial,
+                    int n_partial, int n_blocks, int block, int n_sms, cudaStream_t st) {
   constexpr int V = XVec<XT>::V;
   const XT* x = static_cast<const XT*>(xp);
   const int team = block <= kWarpBlockMax ? 32 : kCtaThreads;
   const int vpl = (block / V + team - 1) / team;
-  if (block % V == 0 && (team == 32 || vpl <= kCtaMaxVpl) && aligned16(x) && aligned16(q) &&
-      (U_ONE || aligned16(u))) {
+  const bool vec = block % V == 0 && aligned16(x) && aligned16(q) && (U_ONE || aligned16(u));
+  if (vec && (team == 32 || vpl <= kCtaMaxVpl)) {
     return team == 32
                ? launch_vector<XT, U_ONE, 32, 1>(x, u, q, scales, n_blocks, block, vpl, n_sms, st)
                : launch_vector<XT, U_ONE, kCtaThreads, 1>(x, u, q, scales, n_blocks, block, vpl,
                                                           n_sms, st);
   }
+  if (block > kGridBlockMin)
+    return vec ? launch_grid<XT, U_ONE, true>(x, u, q, scales, partial, n_partial, n_blocks,
+                                               block, n_sms, st)
+               : launch_grid<XT, U_ONE, false>(x, u, q, scales, partial, n_partial, n_blocks,
+                                                block, n_sms, st);
   const auto kernel = quantize_scalar_kernel<XT, U_ONE>;
   constexpr int kWarps = kCtaThreads / 32;
   const int grid = card_grid(kernel, n_sms, (n_blocks + kWarps - 1) / kWarps);
@@ -347,21 +470,26 @@ int launch_dequantize(const int8_t* q, const float* scales, void* xp, int n, int
 
 // x: (n,) f32 or bf16 (x_bf16); u: (n,) f32, or one f32 for every element
 // (u_one); q: (n,) int8; scales: (n / block,) f32; n % block == 0; n_sms:
-// the card's SM count.
-extern "C" int quantize(const void* x, const void* u, void* q, void* scales, int n, int block,
-                        int x_bf16, int u_one, int n_sms, void* stream) {
+// the card's SM count; partial: n_partial f32 of scratch for the grid-wide
+// path (at least n / block, the more the wider its grid).
+extern "C" int quantize(const void* x, const void* u, void* q, void* scales, void* partial,
+                        int n, int block, int x_bf16, int u_one, int n_sms, int n_partial,
+                        void* stream) {
   if (n == 0) return cudaSuccess;
-  if (block < 1 || n % block || n_sms < 1) return cudaErrorInvalidValue;
+  if (block < 1 || n % block || n_sms < 1 || n_partial < n / block) return cudaErrorInvalidValue;
   const float* uf = static_cast<const float*>(u);
   int8_t* qq = static_cast<int8_t*>(q);
   float* sc = static_cast<float*>(scales);
+  float* pp = static_cast<float*>(partial);
   const int nb = n / block;
   const auto st = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    return u_one ? launch_quantize<__nv_bfloat16, true>(x, uf, qq, sc, nb, block, n_sms, st)
-                 : launch_quantize<__nv_bfloat16, false>(x, uf, qq, sc, nb, block, n_sms, st);
-  return u_one ? launch_quantize<float, true>(x, uf, qq, sc, nb, block, n_sms, st)
-               : launch_quantize<float, false>(x, uf, qq, sc, nb, block, n_sms, st);
+    return u_one ? launch_quantize<__nv_bfloat16, true>(x, uf, qq, sc, pp, n_partial, nb, block,
+                                                        n_sms, st)
+                 : launch_quantize<__nv_bfloat16, false>(x, uf, qq, sc, pp, n_partial, nb, block,
+                                                         n_sms, st);
+  return u_one ? launch_quantize<float, true>(x, uf, qq, sc, pp, n_partial, nb, block, n_sms, st)
+               : launch_quantize<float, false>(x, uf, qq, sc, pp, n_partial, nb, block, n_sms, st);
 }
 
 // q: (n,) int8; scales: (n / block,) f32; x: (n,) f32, or bf16 (out_bf16).

@@ -1,4 +1,6 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the CUDA flash-attention kernels: the forward
+(``csrc/flash_attention.cu``), optionally with the row log-sum-exp, and the
+backward (``csrc/flash_attention_bwd.cu``).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version in ``ref.py``.
@@ -8,24 +10,47 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import (attention_ref,
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref,
                                                      default_positions)
 
 HEAD_DIMS = (64, 128)
 
 
+def _check(what, q, k, v, qp, kp):
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    _build.check_cuda(what, q, k, v, qp, kp)
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise ValueError(f"{what}: bf16 only, got q={q.dtype} "
+                         f"k={k.dtype} v={v.dtype}")
+    if (H % K or hd not in HEAD_DIMS or v.shape != k.shape
+            or k.shape[0] != B or k.shape[3] != hd or Skv < 1
+            or qp.shape != (B, Sq) or kp.shape != (B, Skv)):
+        raise ValueError(f"{what}: unsupported shapes "
+                         f"q={tuple(q.shape)} k={tuple(k.shape)}")
+
+
 def flash_attention(q, k, v, q_positions=None, kv_positions=None, *,
-                    causal: bool = True, block_k: int = 128):
+                    causal: bool = True, block_k: int = 128,
+                    return_lse: bool = False):
     """q: (B, Sq, H, hd) bf16; k, v: (B, Skv, K, hd) bf16 with H % K == 0.
 
     ``*_positions``: (S,) or (B, S) positions for the causal mask (default:
     q aligned to the end of kv).  ``block_k`` is the k_chunk knob; the
     kernel takes its own KV tile of 64 keys, so the result does not depend
-    on it (nor does the plain version's).  Returns (B, Sq, H, hd) bf16.
+    on it (nor does the plain version's).  Returns (B, Sq, H, hd) bf16,
+    and with ``return_lse`` also the rows' log-sum-exp of the scaled,
+    masked scores, (B, H, Sq) f32 (the backward's input).
     """
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, q_positions, kv_positions,
-                             causal=causal)
+        out = attention_ref(q, k, v, q_positions, kv_positions,
+                            causal=causal)
+        if not return_lse:
+            return out
+        return out, attention_lse_ref(q, k, q_positions, kv_positions,
+                                      causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, H, hd = q.shape
@@ -33,22 +58,63 @@ def flash_attention(q, k, v, q_positions=None, kv_positions=None, *,
     qp, kp = default_positions(q, k, q_positions, kv_positions)
     qp = qp.to(torch.int32).contiguous()
     kp = kp.to(torch.int32).contiguous()
-    _build.check_cuda("flash_attention", q, k, v, qp, kp)
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(f"flash_attention: bf16 only, got q={q.dtype} "
-                         f"k={k.dtype} v={v.dtype}")
-    if (H % K or hd not in HEAD_DIMS or v.shape != k.shape
-            or k.shape[0] != B or k.shape[3] != hd or Skv < 1
-            or qp.shape != (B, Sq) or kp.shape != (B, Skv)):
-        raise ValueError(f"flash_attention: unsupported shapes "
-                         f"q={tuple(q.shape)} k={tuple(k.shape)}")
+    _check("flash_attention", q, k, v, qp, kp)
     if block_k < 1:
         raise ValueError(f"flash_attention: block_k={block_k}")
     out = torch.empty_like(q)
-    fn = _build.bind("flash_attention", "flash_attention", 6, 7, 1)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    fn = _build.bind("flash_attention", "flash_attention", 7, 7, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
-             kp.data_ptr(), out.data_ptr(), B, Sq, Skv, H, K, hd,
+             kp.data_ptr(), out.data_ptr(),
+             0 if lse is None else lse.data_ptr(), B, Sq, Skv, H, K, hd,
              int(causal), hd ** -0.5, _build.stream_of(q))
     _build.check_launch(err, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, q_positions=None,
+                        kv_positions=None, *, causal: bool = True):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)``
+    given its output ``out``, the output's gradient ``dout`` (both (B, Sq,
+    H, hd) bf16) and the forward's ``lse`` ((B, H, Sq) f32).  dq is (B,
+    Sq, H, hd), dk and dv (B, Skv, K, hd), all bf16.
+
+    One call is three kernel launches (the delta pre-pass, dk/dv, dq) and
+    counts once.  A CPU tensor runs the plain version: autograd through
+    ``attention_ref`` (``out`` and ``lse`` are not read)."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, dout, q_positions, kv_positions,
+                                 causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    qp, kp = default_positions(q, k, q_positions, kv_positions)
+    qp = qp.to(torch.int32).contiguous()
+    kp = kp.to(torch.int32).contiguous()
+    _check("flash_attention_bwd", q, k, v, qp, kp)
+    _build.check_cuda("flash_attention_bwd", q, out, dout, lse)
+    if (out.shape != q.shape or dout.shape != q.shape
+            or out.dtype != torch.bfloat16 or dout.dtype != torch.bfloat16
+            or lse.shape != (B, H, Sq) or lse.dtype != torch.float32):
+        raise ValueError(f"flash_attention_bwd: need out and dout like q "
+                         f"in bf16 and lse (B, H, Sq) f32, got "
+                         f"{out.dtype}{tuple(out.shape)}, "
+                         f"{dout.dtype}{tuple(dout.shape)}, "
+                         f"{lse.dtype}{tuple(lse.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if B == 0 or Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = _build.bind("flash_attention_bwd", "flash_attention_bwd", 12, 7, 1)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+             B, Sq, Skv, H, K, hd, int(causal), hd ** -0.5,
+             _build.stream_of(q))
+    _build.check_launch(err, "flash_attention_bwd")
+    _build.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

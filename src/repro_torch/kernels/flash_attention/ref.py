@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the flash-attention kernel: masked attention
+"""Plain PyTorch versions of the flash-attention kernels: masked attention
 with an f32 softmax (the JAX package's ``flash_attention/ref.py``, with the
-kernel's GQA and position arguments)."""
+kernel's GQA and position arguments), its rows' log-sum-exp, and its
+gradient by autograd."""
 from __future__ import annotations
 
 import torch
@@ -24,20 +25,46 @@ def default_positions(q, k, q_positions=None, kv_positions=None):
             else kv_positions)
 
 
+def _scores(q, k, q_positions, kv_positions, causal):
+    """(B, H, Sq, Skv) f32 scores q.k * hd^-0.5, masked to -1e30."""
+    B, Sq, H, hd = q.shape
+    G = H // k.shape[2]
+    qp, kp = default_positions(q, k, q_positions, kv_positions)
+    kh = k.repeat_interleave(G, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kh) * (hd ** -0.5)
+    if causal:
+        mask = qp[:, :, None] >= kp[:, None, :]               # (B, Sq, Skv)
+        s = torch.where(mask[:, None], s, NEG_INF)
+    return s
+
+
+def attention_lse_ref(q, k, q_positions=None, kv_positions=None, *,
+                      causal: bool = True):
+    """The rows' log-sum-exp of the scaled, masked scores: (B, H, Sq) f32,
+    what the forward kernel writes with ``return_lse``."""
+    return torch.logsumexp(_scores(q, k, q_positions, kv_positions, causal),
+                           dim=-1)
+
+
+def attention_bwd_ref(q, k, v, dout, q_positions=None, kv_positions=None,
+                      *, causal: bool = True):
+    """(dq, dk, dv) of ``attention_ref`` at ``dout``, by autograd, in the
+    inputs' dtypes: the backward kernel's plain version."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_ref(*leaves, q_positions, kv_positions,
+                            causal=causal)
+        return torch.autograd.grad(out, leaves, dout)
+
+
 def attention_ref(q, k, v, q_positions=None, kv_positions=None, *,
                   causal: bool = True):
     """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) with H % K == 0 (query head
     h reads kv head h // (H/K)).  Causal masks kv position > q position.
     f32 softmax and P.V; returns (B, Sq, H, hd) in q.dtype."""
-    B, Sq, H, hd = q.shape
-    G = H // k.shape[2]
-    qp, kp = default_positions(q, k, q_positions, kv_positions)
-    kh = k.repeat_interleave(G, dim=2).float()
+    G = q.shape[2] // k.shape[2]
     vh = v.repeat_interleave(G, dim=2).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kh) * (hd ** -0.5)
-    if causal:
-        mask = qp[:, :, None] >= kp[:, None, :]               # (B, Sq, Skv)
-        s = torch.where(mask[:, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_scores(q, k, q_positions, kv_positions, causal),
+                      dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vh)
     return out.to(q.dtype)

@@ -5,7 +5,10 @@ version in ``ref.py``.  Inputs are read where they lie: x in f32 or bf16,
 u as an (n,) array or one value expanded to (n,) (stride 0, read once), and
 the dequantizer writes f32 or bf16.  Ragged blocks and views at an odd
 offset go through the kernel file's scalar kernels, never the plain
-version.
+version.  A block of more than 4,096 values (the gradient push quantizes a
+whole tensor as one block) goes through the kernel file's grid-wide path,
+which needs a few KB of scratch for its partial maxima.  The C interface
+takes n as an int, so n >= 2**31 is refused.
 """
 from __future__ import annotations
 
@@ -15,6 +18,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.quant.ref import dequantize_ref, quantize_ref
 
 X_DTYPES = (torch.float32, torch.bfloat16)
+
+
+N_MAX = 2 ** 31 - 1               # the C interface's int n
+PARTIALS_PER_SM = 8               # scratch of the grid-wide path, per SM
+
+
+def _check_n(n: int, what: str):
+    if n > N_MAX:
+        raise ValueError(f"{what}: n={n} values; the kernel takes at most "
+                         f"2**31 - 1")
 
 
 def _check_block(n: int, block: int, what: str):
@@ -35,6 +48,7 @@ def quantize(x, rand_u01, *, block: int = 256):
         return quantize_ref(x, rand_u01, block=block)
     if x.device.type != "cuda":
         raise ValueError(f"quantize: unsupported device {x.device}")
+    _check_n(x.numel(), "quantize")
     one_u = is_one_value(rand_u01)
     # an expanded u is checked as its one element; any other
     # non-contiguous u is refused
@@ -50,10 +64,14 @@ def quantize(x, rand_u01, *, block: int = 256):
     scales = torch.empty(n // block, dtype=torch.float32, device=x.device)
     if n == 0:
         return q, scales
-    fn = _build.bind("quant", "quantize", 4, 5)
+    n_sms = _build.n_sms(x.device)
+    n_partial = max(n // block, PARTIALS_PER_SM * n_sms)
+    partial = torch.empty(n_partial, dtype=torch.float32, device=x.device)
+    fn = _build.bind("quant", "quantize", 5, 6)
     err = fn(x.data_ptr(), rand_u01.data_ptr(), q.data_ptr(),
-             scales.data_ptr(), n, block, int(x.dtype == torch.bfloat16),
-             int(one_u), _build.n_sms(x.device), _build.stream_of(x))
+             scales.data_ptr(), partial.data_ptr(), n, block,
+             int(x.dtype == torch.bfloat16), int(one_u), n_sms, n_partial,
+             _build.stream_of(x))
     _build.check_launch(err, "quantize")
     _build.LAUNCHES["quantize"] += 1
     return q, scales
@@ -66,6 +84,7 @@ def dequantize(q, scales, *, block: int = 256, out_dtype=torch.float32):
         return dequantize_ref(q, scales, block=block, out_dtype=out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"dequantize: unsupported device {q.device}")
+    _check_n(q.numel(), "dequantize")
     _build.check_cuda("dequantize", q, scales)
     n = q.shape[0]
     if q.dtype != torch.int8 or scales.dtype != torch.float32 \

@@ -1,8 +1,12 @@
-"""GQA attention: the prefill path, the paged decode path and the plain
-dense decode path.
+"""GQA attention: the prefill and training path, the paged decode path and
+the plain dense decode path.
 
 CUDA tensors go to the hand-written kernels (``repro_torch.kernels``);
-CPU tensors run plain PyTorch versions.  The plain paged and dense decode
+CPU tensors run plain PyTorch versions.  In training (autograd on) the
+prefill path is differentiable: on CUDA an ``autograd.Function`` whose
+forward is the flash kernel (with the rows' log-sum-exp) and whose
+backward is the flash backward kernel; on the CPU autograd runs through
+the plain version.  The plain paged and dense decode
 paths keep the JAX package's numerics: q is cast to bf16, scores and
 accumulation run in f32, and p is rounded to the cache dtype before P.V.
 The prefill path's plain version keeps p in f32, so on the CPU its outputs
@@ -14,7 +18,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.paged_attention import paged_attention
 
 NEG_INF = -1e30
@@ -26,15 +32,44 @@ def _repeat_kv(k, n_heads: int):
     return k if G == 1 else k.repeat_interleave(G, dim=2)
 
 
+class FlashAttention(torch.autograd.Function):
+    """The flash kernels as one differentiable op: the forward saves its
+    inputs, output and rows' log-sum-exp; the backward recomputes P from
+    them in the backward kernel.  It keeps no state of its own, so it runs
+    again as it ran the first time under ``torch.utils.checkpoint``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, causal):
+        out, lse = flash_attention(q, k, v, q_positions, kv_positions,
+                                   causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_positions, kv_positions)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, qp, kp = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         lse, qp, kp, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
 def chunked_attention(q, k, v, *, causal: bool, q_positions, kv_positions,
                       k_chunk: int = 1024):
-    """Prefill attention.  q: (B, Sq, H, hd); k, v: (B, Skv, K, hd);
-    positions (B, S).  Returns (B, Sq, H, hd) in q.dtype.
+    """Prefill and training attention.  q: (B, Sq, H, hd); k, v: (B, Skv,
+    K, hd); positions (B, S).  Returns (B, Sq, H, hd) in q.dtype.
 
     On CUDA this is the flash kernel (``k_chunk`` is passed as its
-    ``block_k``, which the kernel's fixed 64-key tile does not need); on
-    the CPU the kernel's plain version (f32 softmax and P.V)."""
+    ``block_k``, which the kernel's fixed 64-key tile does not need), and
+    with autograd on, ``FlashAttention`` (forward and backward kernels);
+    on the CPU the kernel's plain version (f32 softmax and P.V), through
+    which autograd runs."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), q_positions,
+                                        kv_positions, causal)
         return flash_attention(q, k, v, q_positions, kv_positions,
                                causal=causal, block_k=k_chunk)
     return attention_ref(q, k, v, q_positions, kv_positions, causal=causal)

@@ -1,6 +1,6 @@
-"""Decoder LM: parameters, prefill and decode, for the dense family
-(attention + SwiGLU MLP, paged KV decode) and the ssm family (mamba1
-blocks, recurrent-state decode).
+"""Decoder LM: parameters, prefill, decode and training (the loss), for
+the dense family (attention + SwiGLU MLP, paged KV decode) and the ssm
+family (mamba1 blocks, recurrent-state decode; training raises).
 
 The port of the JAX package's ``models/lm.py``.  Parameters are a nested
 dict of tensors with the JAX tree's keys: layer weights are stacked on a
@@ -14,15 +14,22 @@ returns rebuilt arrays): the dense family's KV rows into the paged pool's
 into ``cache["conv"]``/``cache["h"]``; ``decode_step`` returns the same
 dict it was given.
 
+Training (``mode="train"``, ``loss_fn``) keeps no KV and writes nothing
+in place; autograd runs through it, with each layer optionally
+recomputed in the backward (``ModelKnobs.remat``).
+
 Other families (hybrid, moe, vlm, encoder) are served by later slices of
 the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -46,6 +53,11 @@ class ModelKnobs:
                                # cache and runs plain attention
     attn_ctx: int = 0          # paged decode: visible block-table columns
                                # (0 = all), chosen per context bucket
+    remat: str = "none"        # training: none | dots | full (recompute
+                               # each layer in the backward, saving the
+                               # projections' and MLP's products or nothing)
+    ce_chunk: int = 0          # training: cross entropy over chunks of
+                               # this many positions (0 = at once)
 
 
 def check_family(cfg: ModelConfig):
@@ -199,6 +211,34 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs of
+    the projections' and the MLP's matrix products (``aten.mm``, what
+    ``x @ w`` becomes) and recompute the rest.  The attention products
+    have batch dims, so JAX's ``checkpoint_dots_with_no_batch_dims`` does
+    not keep them: the flash forward runs again in the backward, as in
+    JAX."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, knobs: ModelKnobs):
+    """``fn`` run as it is (``none``), or recomputed in the backward: all
+    of it (``full``, nothing saved) or all but its matrix products
+    (``dots``)."""
+    if knobs.remat == "none":
+        return fn
+    if knobs.remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_products)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    if knobs.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"remat {knobs.remat!r}: none | dots | full")
+
+
 # ===========================================================================
 # Forward
 # ===========================================================================
@@ -214,16 +254,24 @@ def forward(params, tokens, cfg: ModelConfig,
     (L, B, Di, N) f32), or the decode cache written in place (``pos`` is
     not read).
 
+    ``mode="train"`` (dense only): no cache (None), nothing written in
+    place, each layer under ``knobs.remat``; the ssm family raises.
+
     ``valid_len`` (int or (1,) int64 tensor, prefill only): non-pad tokens
     of a right-padded batch.  Attention ignores it (the causal mask and the
     caller's slicing isolate pads); the ssm family returns the state *after
     token valid_len*, not after the pads.  A tensor stays on the device, so
     a captured prefill serves every valid_len of its bucket."""
     check_family(cfg)
-    x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "decode", "train"):
+        raise ValueError(f"mode {mode!r}: prefill | decode | train")
+    if mode == "train" and cfg.family != "ssm":
+        return _forward_train(params, tokens, cfg, knobs), None
+    if mode == "train":
         raise NotImplementedError(
-            f"mode {mode!r}: training comes with the training slice")
+            "ssm training is not ported yet: it needs a backward of the "
+            "selective scan (a later slice)")
+    x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
     if cfg.family == "ssm":
         if mode != "prefill" or valid_len is None:
             valid_len = None
@@ -261,6 +309,28 @@ def forward(params, tokens, cfg: ModelConfig,
     return x, new_cache
 
 
+def _forward_train(params, tokens, cfg: ModelConfig, knobs: ModelKnobs):
+    """The dense family's training forward: no KV kept, nothing written in
+    place; each layer goes through ``_maybe_remat``."""
+    x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
+    B, S, D = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
+
+    def body(x, lp):
+        h, _ = _attn_apply(common.rms_norm(x, lp["ln1"]["scale"],
+                                           cfg.norm_eps),
+                           lp["attn"], cfg, knobs, positions, rope)
+        x = x + h
+        return x + _mlp_apply(common.rms_norm(x, lp["ln2"]["scale"],
+                                              cfg.norm_eps), lp["mlp"])
+
+    body = _maybe_remat(body, knobs)
+    for i in range(cfg.n_layers):
+        x = body(x, _layer(params["layers"], i))
+    return common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+
+
 def _forward_ssm(params, x, cfg: ModelConfig, mode: str, cache,
                  valid_len=None):
     """[mamba1] x L.  Decode hands each layer views of ``cache["conv"]``
@@ -287,6 +357,33 @@ def logits_fn(params, hidden, cfg: ModelConfig):
     w = (params["embed"]["tokens"].T if cfg.tie_embeddings
          else params["lm_head"]["w"])
     return hidden @ w.to(hidden.dtype)
+
+
+def loss_fn(params, batch, cfg: ModelConfig,
+            knobs: ModelKnobs = ModelKnobs()):
+    """Mean cross entropy of ``batch["tokens"]`` against ``batch["labels"]``
+    (pre-shifted by the data pipeline), with f32 logits.  Returns (loss,
+    {"ce", "aux"}) as 0-dim f32 tensors; ``knobs.ce_chunk`` splits the
+    positions into chunks when it divides S."""
+    hidden, _ = forward(params, batch["tokens"], cfg, knobs, mode="train")
+    labels = batch["labels"]
+    B, S = labels.shape
+
+    def ce(h, y):
+        lg = logits_fn(params, h, cfg).float()
+        tgt = torch.gather(lg, -1, y[..., None].long())[..., 0]
+        return (torch.logsumexp(lg, dim=-1) - tgt).sum()
+
+    c = knobs.ce_chunk
+    if c and S > c and S % c == 0:
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for j in range(0, S, c):
+            total = total + ce(hidden[:, j:j + c], labels[:, j:j + c])
+    else:
+        total = ce(hidden, labels)
+    loss = total / (B * S)
+    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    return loss + cfg.router_aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 # ===========================================================================

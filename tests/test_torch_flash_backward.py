@@ -1,0 +1,226 @@
+"""PyTorch port: the flash-attention backward on the CPU.
+
+The plain backward (autograd through ``attention_ref``, what
+``flash_attention_bwd`` runs for CPU tensors and the training path's CPU
+attention) against XLA's autodiff of the JAX package's
+``chunked_attention`` (whose kv block is ``jax.checkpoint``-ed), at group
+sizes G = 1, 2 and 12, causal and not, ragged lengths.
+
+Then the backward kernel's schedule (``csrc/flash_attention_bwd.cu``)
+emulated in plain torch and held to the plain version: the delta pre-pass;
+dK / dV of each 64-key tile summed in f32 over the G query heads of its kv
+head and the query tiles that see its keys, 32 queries at a time, with P
+recomputed from the forward's log-sum-exp and rounded to bf16 for dV, and
+dS rounded to bf16 for dK; dQ of each 64-query tile over the kv tiles that
+its rows see, 32 keys at a time.  The tile constants are read from the
+kernel's source.  The CUDA kernel runs only on the card
+(``test_torch_cuda_train.py`` and ``chip_smoke.py`` hold it to the same
+plain version there)."""
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.attention import chunked_attention as j_chunked_attention
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                 attention_lse_ref,
+                                                 attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_bwd)
+
+from _torch_port import f32
+
+CU = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+
+
+def _cu_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", CU).group(1))
+
+
+BLOCK_Q, BLOCK_K, HALF = (_cu_const("kBlockQ"), _cu_const("kBlockK"),
+                          _cu_const("kHalf"))
+NEG_INF = -1e30
+# A gradient, port against XLA or the schedule against the plain version,
+# relative to its largest |value|: the JAX attention rounds P to bf16 for
+# P.V where the plain version keeps f32; the schedule rounds P (dV) and dS
+# (dQ, dK) to bf16 for its products; every gradient is rounded to bf16.
+GRAD_RTOL = 2e-2
+
+
+def _inputs(B, Sq, Skv, H, K, hd, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).bfloat16()
+
+    return r(B, Sq, H, hd), r(B, Skv, K, hd), r(B, Skv, K, hd), r(B, Sq, H,
+                                                                  hd)
+
+
+def _rel(got, want):
+    got, want = f32(got), f32(want)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _jax_grads(q, k, v, do, qp, kp, causal, k_chunk):
+    def loss(q, k, v):
+        out = j_chunked_attention(q, k, v, causal=causal, q_positions=qp,
+                                  kv_positions=kp, k_chunk=k_chunk)
+        return (out.astype(jnp.float32) * dout).sum()
+
+    j = [jnp.asarray(f32(t), jnp.bfloat16) for t in (q, k, v)]
+    dout = jnp.asarray(f32(do), jnp.float32)
+    return jax.grad(loss, argnums=(0, 1, 2))(*j)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,causal,k_chunk", [
+    (1, 96, 2, 2, 16, True, 32),       # G = 1
+    (2, 77, 4, 2, 16, True, 64),       # G = 2, ragged (k_chunk halves to 7)
+    (1, 128, 12, 1, 32, True, 64),     # G = 12, the model's group size
+    (1, 64, 24, 2, 16, True, 1024),    # G = 12 at the model's head counts
+    (2, 50, 4, 2, 16, False, 32),      # not causal
+    (1, 100, 12, 1, 16, False, 64),    # G = 12, not causal, ragged
+])
+def test_plain_backward_matches_xla_autodiff(B, S, H, K, hd, causal,
+                                             k_chunk):
+    q, k, v, do = _inputs(B, S, S, H, K, hd, seed=S)
+    pos = torch.arange(S)[None].expand(B, S)
+    jpos = jnp.broadcast_to(jnp.arange(S)[None], (B, S))
+    want = _jax_grads(q, k, v, do, jpos, jpos, causal, k_chunk)
+    got = attention_bwd_ref(q, k, v, do, pos, pos, causal=causal)
+    via_wrapper = flash_attention_bwd(q, k, v, attention_ref(q, k, v, pos,
+                                                             pos),
+                                      do, None, pos, pos, causal=causal)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, via_wrapper):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, c), name            # the wrapper's CPU path
+        assert _rel(a, b) <= GRAD_RTOL, (name, _rel(a, b))
+
+
+def test_cpu_forward_returns_the_plain_lse():
+    q, k, v, _ = _inputs(2, 40, 40, 4, 2, 16)
+    pos = torch.arange(40)[None].expand(2, 40)
+    out, lse = flash_attention(q, k, v, pos, pos, return_lse=True)
+    assert torch.equal(out, attention_ref(q, k, v, pos, pos))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.repeat_interleave(2, dim=2).float()) * 16 ** -0.5
+    s = torch.where(pos[:, None, :, None] >= pos[:, None, None, :], s,
+                    NEG_INF)
+    np.testing.assert_allclose(f32(lse), f32(torch.logsumexp(s, -1)),
+                               rtol=1e-6)
+    assert lse.shape == (2, 4, 40)
+
+
+# ------------------------------------------------------------- the schedule
+def _bounds(pos, n, tile):
+    """Each tile's min and max position (the kernel's tile_bounds)."""
+    return ([int(pos[t:t + tile].min()) for t in range(0, n, tile)],
+            [int(pos[t:t + tile].max()) for t in range(0, n, tile)])
+
+
+def bwd_schedule(q, k, v, do, qpos, kpos, *, causal=True):
+    """dq, dk, dv as the three kernels compute them (plain torch, f32
+    accumulators, bf16 operands of the tensor-core products)."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = hd ** -0.5
+    out = attention_ref(q, k, v, qpos, kpos, causal=causal)
+    lse = attention_lse_ref(q, k, qpos, kpos, causal=causal)    # (B, H, Sq)
+    # the pre-pass: delta = rowsum(dO * O) in f32
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)  # (B, H, Sq)
+    dq = torch.zeros((B, Sq, H, hd))
+    dk = torch.zeros((B, Skv, K, hd))
+    dv = torch.zeros((B, Skv, K, hd))
+
+    def p_and_ds(qs, ks, vs, dos, ls, dl, qp, kp):
+        """P (f32) and dS over a (queries x keys) block, masked by position
+        and by the sequence ends (qp / kp of None rows are past the end)."""
+        s = qs.float() @ ks.float().T
+        p = torch.exp(s * scale - ls[:, None])
+        mask = torch.ones_like(p, dtype=torch.bool)
+        if causal:
+            mask = kp[None, :] <= qp[:, None]
+        p = torch.where(mask, p, 0.0)
+        dp = dos.float() @ vs.float().T
+        return p, p * (dp - dl[:, None])
+
+    for b in range(B):
+        qtmin, qtmax = _bounds(qpos[b], Sq, BLOCK_Q)
+        ktmin, ktmax = _bounds(kpos[b], Skv, BLOCK_K)
+        # dK / dV: one CTA per (kv head, 64-key tile)
+        for kh in range(K):
+            for k0 in range(0, Skv, BLOCK_K):
+                ks, vs = k[b, k0:k0 + BLOCK_K, kh], v[b, k0:k0 + BLOCK_K, kh]
+                kp = kpos[b, k0:k0 + BLOCK_K]
+                vis = [t for t in range(len(qtmax))
+                       if not (causal and qtmax[t] < int(kp.min()))]
+                dka = torch.zeros((ks.shape[0], hd))
+                dva = torch.zeros((ks.shape[0], hd))
+                for h in range(kh * G, kh * G + G):
+                    for t in vis:
+                        for h0 in range(t * BLOCK_Q,
+                                        min(t * BLOCK_Q + BLOCK_Q, Sq), HALF):
+                            sl = slice(h0, min(h0 + HALF, Sq))
+                            p, ds = p_and_ds(q[b, sl, h], ks, vs, do[b, sl, h],
+                                             lse[b, h, sl], delta[b, h, sl],
+                                             qpos[b, sl], kp)
+                            dva += p.T.bfloat16().float() @ do[b, sl, h].float()
+                            dka += ds.T.bfloat16().float() @ q[b, sl, h].float()
+                dk[b, k0:k0 + BLOCK_K, kh] = dka * scale
+                dv[b, k0:k0 + BLOCK_K, kh] = dva
+        # dQ: one CTA per (head, 64-query tile), over the kv tiles its rows
+        # see (a tile no row sees is skipped)
+        for h in range(H):
+            kh = h // G
+            for t, q0 in enumerate(range(0, Sq, BLOCK_Q)):
+                sl = slice(q0, min(q0 + BLOCK_Q, Sq))
+                acc = torch.zeros((sl.stop - sl.start, hd))
+                for j, k0 in enumerate(range(0, Skv, BLOCK_K)):
+                    if causal and ktmin[j] > qtmax[t]:
+                        continue
+                    for c0 in range(k0, min(k0 + BLOCK_K, Skv), HALF):
+                        ksl = slice(c0, min(c0 + HALF, Skv))
+                        p, ds = p_and_ds(q[b, sl, h], k[b, ksl, kh],
+                                         v[b, ksl, kh], do[b, sl, h],
+                                         lse[b, h, sl], delta[b, h, sl],
+                                         qpos[b, sl], kpos[b, ksl])
+                        acc += ds.bfloat16().float() @ k[b, ksl, kh].float()
+                dq[b, sl, h] = acc * scale
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,shift", [
+    (1, 77, 77, 4, 2, 16, True, 0),      # ragged tails, G = 2
+    (1, 130, 130, 12, 1, 16, True, 0),   # G = 12, three tiles
+    (1, 50, 130, 4, 2, 16, False, 0),    # not causal, Sq != Skv
+    (2, 150, 150, 2, 2, 16, True, 70),   # G = 1, per-request positions
+    (2, 40, 300, 4, 2, 16, True, 0),     # suffix queries over a longer kv
+])
+def test_backward_schedule_matches_plain(B, Sq, Skv, H, K, hd, causal, shift):
+    q, k, v, do = _inputs(B, Sq, Skv, H, K, hd, seed=Sq + Skv)
+    qp = torch.arange(Sq) + (Skv - Sq)
+    qp = torch.stack([qp - shift * b for b in range(B)]).clamp_min(0)
+    kp = torch.arange(Skv).expand(B, Skv)
+    got = bwd_schedule(q, k, v, do, qp, kp, causal=causal)
+    want = attention_bwd_ref(q, k, v, do, qp, kp, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(a, b) <= GRAD_RTOL, (name, _rel(a, b))
+    if causal:
+        # a key no query sees gets exactly nothing
+        unseen = kp[0] > qp.max()
+        assert not got[1][:, unseen].any() and not got[2][:, unseen].any()
+
+
+def test_schedule_constants_are_the_kernels():
+    """The tiles the kernels use and the bound that makes 64-key CTAs and
+    32-wide halves fit: two n8 tiles per k16 step."""
+    assert BLOCK_Q == BLOCK_K == 64 and HALF == 32
+    assert BLOCK_K % HALF == 0 and HALF % 16 == 0
+    assert re.search(r"constexpr int kWarps = 4;", CU)
+    assert "atomicAdd" not in CU            # no float atomics: deterministic

@@ -1,9 +1,11 @@
 """PyTorch port: package rules — no JAX or ``repro`` import anywhere in
 the port or ``chip_smoke.py``, entry points that refuse to fall back to
 the CPU, settings of later slices that raise instead of quietly running
-something else, and speculative decoding and the tuning slice
+something else, and speculative decoding, the tuning slice
 (``--selftune``, ``--trace``, ``serve_loop(tuner=...)``,
-``warm_start(space)``, ``reconfigure``), which no longer raise."""
+``warm_start(space)``, ``reconfigure``) and training
+(``launch/train.py``, with and without ``--self-tune``), which no longer
+raise."""
 import ast
 import json
 from pathlib import Path
@@ -12,10 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import restore_pytree
 from repro_torch.configs.registry import get_config
+from repro_torch.core import reconfig
 from repro_torch.core.tuner import TunerConfig, TuningManager
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
+from repro_torch.ps.lm_job import DEFAULT_LM_SETTING, LMJob
 from repro_torch.serving import (DEFAULT_SERVING_SETTING,
                                  SERVING_RELAYOUT_KNOBS, Request,
                                  ServingEngine, ServingObjective,
@@ -39,7 +45,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for rel in ("core/gp.py", "core/bo.py", "core/metrics.py",
                 "core/objective.py", "core/progress.py", "core/reconfig.py",
                 "core/tuner.py", "ps/odmr.py", "serving/objective.py",
-                "obs/audit.py", "obs/report.py", "obs/export.py"):
+                "obs/audit.py", "obs/report.py", "obs/export.py",
+                # the training slice
+                "core/tree.py", "data/synthetic.py", "optim/optimizers.py",
+                "ps/compression.py", "ps/stepfn.py", "ps/trainer.py",
+                "ps/lm_job.py", "checkpoint/ckpt.py", "launch/train.py",
+                "kernels/flash_attention/kernel.py"):
         assert port / rel in files, rel
     bad = []
     for f in files:
@@ -63,18 +74,43 @@ def no_cuda(monkeypatch):
 CFG = get_config("starcoder2-3b").reduced()
 
 
-@pytest.mark.parametrize("entry", ["init_params", "engine", "launcher"])
+@pytest.mark.parametrize("entry", ["init_params", "engine", "launcher",
+                                   "train_launcher", "lm_job"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, entry):
     params = lm.init_params(CFG, 0, device="cpu")
     assert params["embed"]["tokens"].device.type == "cpu"
+    assert LMJob(CFG, device="cpu").device.type == "cpu"
     call = {
         "init_params": lambda: lm.init_params(CFG, 0),
         "engine": lambda: ServingEngine(params, CFG),
         "launcher": lambda: launch_serve.main(
             ["--arch", "starcoder2-3b", "--reduced", "--duration", "0.1"]),
+        "train_launcher": lambda: launch_train.main(
+            ["--arch", "starcoder2-3b", "--reduced", "--steps", "1"]),
+        "lm_job": lambda: LMJob(CFG),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+@pytest.mark.parametrize("selftune", [False, True])
+def test_train_launcher_runs_on_cpu_when_asked(selftune, capsys, tmp_path):
+    """``python -m repro_torch.launch.train --arch starcoder2-3b --reduced
+    --device cpu --steps 5`` (and with ``--self-tune``) ends in OK; with
+    ``--trace`` it writes the trace and the attribution panel."""
+    args = ["--arch", "starcoder2-3b", "--reduced", "--device", "cpu",
+            "--steps", "5", "--batch", "2", "--seq", "16"]
+    if selftune:
+        args += ["--self-tune", "--tuner-a", "2", "--tuner-b", "1",
+                 "--trace", str(tmp_path / "train.trace.json")]
+    launch_train.main(args)
+    out = capsys.readouterr().out
+    assert out.rstrip().endswith("OK") and "done: iters=5" in out
+    if selftune:
+        assert "final setting" in out and "train_step" in out
+        names = {e["name"] for e in json.loads(
+            (tmp_path / "train.trace.json").read_text())["traceEvents"]}
+        assert "train.step" in names
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):
@@ -85,8 +121,12 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
     assert out.rstrip().endswith("OK") and "served" in out
 
 
-@pytest.mark.parametrize("case", ["store", "selftune_store", "family"])
-def test_later_slices_raise_not_implemented(case):
+@pytest.mark.parametrize("case", ["store", "selftune_store", "family",
+                                  "ssm_train", "mesh_plan", "remesh_restore"])
+def test_later_slices_raise_not_implemented(case, tmp_path):
+    ssm = get_config("falcon-mamba-7b").reduced()
+    mesh_plan = reconfig.plan(dict(DEFAULT_LM_SETTING, mesh_split="2x1"),
+                              dict(DEFAULT_LM_SETTING, mesh_split="1x2"))
     call = {
         "store": lambda: launch_serve.main(
             ["--arch", "starcoder2-3b", "--reduced", "--tuning-store", "x"]),
@@ -95,6 +135,14 @@ def test_later_slices_raise_not_implemented(case):
              "--selftune", "--tuning-store", "x"]),
         "family": lambda: lm.init_params(
             get_config("zamba2-1.2b").reduced(), 0, device="cpu"),
+        "ssm_train": lambda: lm.loss_fn(
+            lm.init_params(ssm, 0, device="cpu"),
+            {"tokens": torch.zeros((1, 4), dtype=torch.int64),
+             "labels": torch.zeros((1, 4), dtype=torch.int64)}, ssm),
+        "mesh_plan": lambda: LMJob(CFG, device="cpu", n_devices=2)
+        .state_adapter({}, mesh_plan),
+        "remesh_restore": lambda: restore_pytree({}, str(tmp_path),
+                                                 ms=object()),
     }[case]
     with pytest.raises(NotImplementedError, match="not ported yet"):
         call()
