@@ -34,10 +34,13 @@ Phases, in order; any failure exits non-zero before the result line:
              table's shape (f32) and the engine's (bf16 x, one-value u, bf16
              out), dequantize beside torch.mul.  The training path's
              kernels: the flash forward's log-sum-exp against the plain
-             logsumexp; the flash backward (three launches: delta, dk/dv,
-             dq) against autograd through the plain version at the
-             training shape (B=4, S=512, H=24, K=2, hd 128), at S=1024, hd
-             64, a ragged S and not causal, timed beside SDPA's backward;
+             logsumexp; the flash backward (two launches: dq with delta,
+             then dk/dv in clusters that split a group's heads) against
+             autograd through the plain version at the training shape
+             (B=4, S=512, H=24, K=2, hd 128), at S=1024, hd 64, a ragged S,
+             not causal and G = 3, bit for bit across two calls; timed
+             whole and by launch beside SDPA's backward, the flash forward
+             beside SDPA's forward;
              quantize and dequantize at one block the size of
              layers/mlp/wi (1,132,462,080 bf16 values, the grid-wide path)
              and at ragged odd n, bit for bit, and timed.
@@ -215,6 +218,30 @@ def timed_ms(torch, fn, iters: int = 20) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def launch_ms(torch, fn, pattern: str, iters: int = 20) -> dict:
+    """Mean device time of each kernel whose name matches ``pattern`` in
+    one call of ``fn`` (torch.profiler), with the L2 flushed before every
+    call as ``timed_ms`` flushes it: {kernel name: ms a launch}."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(pattern, e.key)
+        if m and "CUDA" in str(e.device_type):
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            out[m.group(0)] = us / e.count / 1e3
+    return out
 
 
 def max_err(torch, out, ref) -> float:
@@ -1622,8 +1649,8 @@ def ssm_relayout(torch, cfg, params, ref, tol):
 def check_train_kernels(torch, rows):
     """The training path's kernels against their plain versions: the flash
     forward's log-sum-exp; the flash backward at the training shape (B=4,
-    S=512, H=24, K=2, hd=128), at S=1024, at hd 64, at a ragged S and
-    not causal; quantize and dequantize at one block the size of
+    S=512, H=24, K=2, hd=128), at S=1024, at hd 64, at a ragged S, not
+    causal and at G = 3 (H=6), each twice, bit for bit; quantize and dequantize at one block the size of
     ``layers/mlp/wi`` (1,132,462,080 bf16 values, the gradient push's
     largest leaf) and at a ragged odd n, bit for bit.  Then their times
     beside the plain versions, the library's and the bounds.  Adds the
@@ -1653,7 +1680,7 @@ def check_train_kernels(torch, rows):
     err, lse_err = 0.0, 0.0
     for B, S, h, hd, causal in [(4, 512, H, HD, True), (1, 1024, H, HD, True),
                                 (2, 512, H, 64, True), (2, 333, H, HD, True),
-                                (1, 320, H, HD, False)]:
+                                (1, 320, H, HD, False), (1, 190, 6, HD, True)]:
         q, k, v, do, pos = inputs(B, S, h, hd)
         out, lse = flash_attention(q, k, v, pos, pos, causal=causal,
                                    return_lse=True)
@@ -1666,7 +1693,12 @@ def check_train_kernels(torch, rows):
             fail(f"flash lse B={B} S={S} hd={hd}: max abs err {lse_err}")
         got = flash_attention_bwd(q, k, v, out, do, lse, pos, pos,
                                   causal=causal)
+        again = flash_attention_bwd(q, k, v, out, do, lse, pos, pos,
+                                    causal=causal)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_bwd B={B} S={S} H={h} hd={hd}: two calls "
+                 f"differ (the kernel must be deterministic)")
         want = attention_bwd_ref(q, k, v, do, pos, pos, causal=causal)
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             e = rel(a, b)
@@ -1678,7 +1710,8 @@ def check_train_kernels(torch, rows):
     print(f"flash training: lse max abs err {lse_err:.3g} (bound "
           f"{LSE_TOL} x max(1, |lse|)); backward within {BWD_RTOL} of the "
           f"largest |gradient| at B=4 S=512, S=1024, hd 64, ragged S=333, "
-          f"not causal (max abs err {err:.3g})", flush=True)
+          f"not causal, G=3, bit for bit across two calls (max abs err "
+          f"{err:.3g})", flush=True)
 
     # times at the training shape: 4 x 512 tokens, the model's heads
     B, S = 4, 512
@@ -1706,6 +1739,13 @@ def check_train_kernels(torch, rows):
         return flash_attention_bwd(q, k, v, o, do, l_, pos, pos)
 
     lib_fb_ms, ker_fb_ms = timed_ms(torch, lib_fb), timed_ms(torch, ker_fb)
+    # SDPA's forward with grad on (so it keeps its log-sum-exp for the
+    # backward), beside the flash forward with lse
+    with torch.enable_grad():
+        lib_fwd = timed_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True))
+    per = launch_ms(torch, lambda: flash_attention_bwd(
+        q, k, v, out, do, lse, pos, pos), r"flash_bwd_(dq|dkdv)_kernel")
     pairs = B * H * S * (S + 1) / 2
     big, small = B * S * H * HD * 2, B * S * K * HD * 2
     b = bound(4 * big + 4 * small + B * H * S * 4, 10 * HD * pairs,
@@ -1716,10 +1756,16 @@ def check_train_kernels(torch, rows):
         replaces="src/repro/kernels/flash_attention/kernel.py:79",
         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=b,
         shape=f"training B={B} S={S} H={H} K={K} hd={HD} causal bf16 "
-              f"(delta pre-pass + dk/dv + dq launches)",
-        extra=f" fwd+bwd: kernels_ms={ker_fb_ms:.4f} sdpa_ms={lib_fb_ms:.4f}")
+              f"(dq with delta + dk/dv launches)",
+        extra="".join(f" {name}_ms={t:.4f}" for name, t in sorted(
+            per.items())) + f" fwd+bwd: kernels_ms={ker_fb_ms:.4f} "
+                            f"sdpa_ms={lib_fb_ms:.4f}")
+    if set(per) != {"flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"}:
+        print(f"flash_attention_bwd: the profiler saw {per}: per-launch "
+              f"times not measured", flush=True)
     rows["flash_attention"]["extra"] += (
-        f" training(B=4 S=512, with lse)_ms={fwd_lse:.4f}")
+        f" training(B=4 S=512, with lse)_ms={fwd_lse:.4f} "
+        f"sdpa_training_fwd_ms={lib_fwd:.4f}")
 
     # quantize / dequantize at one block per tensor
     n = 30 * 3072 * 12288                       # layers/mlp/wi

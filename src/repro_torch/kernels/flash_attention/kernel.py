@@ -81,8 +81,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, q_positions=None,
     H, hd) bf16) and the forward's ``lse`` ((B, H, Sq) f32).  dq is (B,
     Sq, H, hd), dk and dv (B, Skv, K, hd), all bf16.
 
-    One call is three kernel launches (the delta pre-pass, dk/dv, dq) and
-    counts once.  A CPU tensor runs the plain version: autograd through
+    One call is two kernel launches (dq, whose prologue writes delta =
+    rowsum(dout * out), then dk/dv in thread-block clusters that split a
+    kv head's query heads) and counts once.  q, k, v, out and dout must
+    start at 16-byte aligned addresses (the kernel loads them by TMA and
+    16-byte accesses); the launch raises otherwise.  A CPU tensor runs the plain version: autograd through
     ``attention_ref`` (``out`` and ``lse`` are not read)."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, dout, q_positions, kv_positions,

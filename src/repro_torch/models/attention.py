@@ -6,20 +6,19 @@ CPU tensors run plain PyTorch versions.  In training (autograd on) the
 prefill path is differentiable: on CUDA an ``autograd.Function`` whose
 forward is the flash kernel (with the rows' log-sum-exp) and whose
 backward is the flash backward kernel; on the CPU autograd runs through
-the plain version.  The plain paged and dense decode
-paths keep the JAX package's numerics: q is cast to bf16, scores and
-accumulation run in f32, and p is rounded to the cache dtype before P.V.
-The prefill path's plain version keeps p in f32, so on the CPU its outputs
-differ from the JAX package's ``chunked_attention`` by that one bf16
-rounding; the flash kernel on the card rounds p to bf16 for its
-tensor-core P.V, as ``chunked_attention`` does.
+the plain version.  The plain versions keep the JAX package's numerics:
+q is cast to bf16, scores and accumulation run in f32, and p is rounded to
+the cache's (or v's) dtype before P.V.  On the CPU the prefill path is
+``blocked_attention``, the JAX package's ``chunked_attention`` block by
+block (online softmax over kv blocks of ``k_chunk``); the flash kernel on
+the card rounds p to bf16 for its tensor-core P.V in the same way, over
+its own 64-key tiles.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import (attention_ref,
-                                                 flash_attention,
+from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.paged_attention import paged_attention
 
@@ -54,6 +53,46 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def blocked_attention(q, k, v, *, causal: bool, q_positions, kv_positions,
+                      k_chunk: int = 1024):
+    """The JAX package's ``chunked_attention`` in plain PyTorch: kv blocks
+    of ``k_chunk`` keys (halved until it divides Skv), a running max and sum
+    in f32, P = exp(s - m) rounded to v's dtype for P.V, masked scores at
+    -1e30 (without ``causal``, keys at negative positions are masked).
+    q: (B, Sq, H, hd); k, v: (B, Skv, K, hd); positions (B, S).  Returns
+    (B, Sq, H, hd) in q.dtype; autograd runs through it."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    k_chunk = min(k_chunk, Skv)
+    while Skv % k_chunk:
+        k_chunk //= 2
+    f32 = torch.float32
+    qf = q.to(torch.bfloat16).to(f32)
+    m = torch.full((B, H, Sq), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=f32, device=q.device)
+    acc = torch.zeros((B, H, Sq, hd), dtype=f32, device=q.device)
+    for c0 in range(0, Skv, k_chunk):
+        kb = _repeat_kv(k[:, c0:c0 + k_chunk], H)
+        vb = _repeat_kv(v[:, c0:c0 + k_chunk], H)
+        kp = kv_positions[:, c0:c0 + k_chunk]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.to(f32)) * hd ** -0.5
+        if causal:
+            mask = q_positions[:, None, :, None] >= kp[:, None, None, :]
+        else:
+            mask = (kp >= 0)[:, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(vb.dtype).to(f32),
+                          vb.to(f32))
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
 def chunked_attention(q, k, v, *, causal: bool, q_positions, kv_positions,
                       k_chunk: int = 1024):
     """Prefill and training attention.  q: (B, Sq, H, hd); k, v: (B, Skv,
@@ -62,7 +101,7 @@ def chunked_attention(q, k, v, *, causal: bool, q_positions, kv_positions,
     On CUDA this is the flash kernel (``k_chunk`` is passed as its
     ``block_k``, which the kernel's fixed 64-key tile does not need), and
     with autograd on, ``FlashAttention`` (forward and backward kernels);
-    on the CPU the kernel's plain version (f32 softmax and P.V), through
+    on the CPU ``blocked_attention`` (the JAX package's numerics), through
     which autograd runs."""
     if q.is_cuda:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -72,7 +111,8 @@ def chunked_attention(q, k, v, *, causal: bool, q_positions, kv_positions,
                                         kv_positions, causal)
         return flash_attention(q, k, v, q_positions, kv_positions,
                                causal=causal, block_k=k_chunk)
-    return attention_ref(q, k, v, q_positions, kv_positions, causal=causal)
+    return blocked_attention(q, k, v, causal=causal, q_positions=q_positions,
+                             kv_positions=kv_positions, k_chunk=k_chunk)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, *, pos,

@@ -61,6 +61,8 @@ def _rel_err(got, want):
     (2, 320, 24, 2, 128, True),      # G = 12, the model's geometry
     (1, 77, 24, 2, 128, False),      # not causal, ragged
     (1, 64, 8, 4, 64, False),
+    (4, 512, 24, 2, 128, True),      # the training shape
+    (1, 190, 6, 2, 128, True),       # G = 3: a cluster of 3, ragged
 ])
 def test_flash_backward_matches_plain(dev, B, S, H, K, hd, causal):
     q, k, v, do = _attn_inputs(dev, B, S, S, H, K, hd)

@@ -1,19 +1,22 @@
 """PyTorch port: the flash-attention backward on the CPU.
 
 The plain backward (autograd through ``attention_ref``, what
-``flash_attention_bwd`` runs for CPU tensors and the training path's CPU
-attention) against XLA's autodiff of the JAX package's
-``chunked_attention`` (whose kv block is ``jax.checkpoint``-ed), at group
-sizes G = 1, 2 and 12, causal and not, ragged lengths.
+``flash_attention_bwd`` runs for CPU tensors) against XLA's autodiff of
+the JAX package's ``chunked_attention`` (whose kv block is
+``jax.checkpoint``-ed), at group sizes G = 1, 2 and 12, causal and not,
+ragged lengths.
 
 Then the backward kernel's schedule (``csrc/flash_attention_bwd.cu``)
-emulated in plain torch and held to the plain version: the delta pre-pass;
-dK / dV of each 64-key tile summed in f32 over the G query heads of its kv
-head and the query tiles that see its keys, 32 queries at a time, with P
-recomputed from the forward's log-sum-exp and rounded to bf16 for dV, and
-dS rounded to bf16 for dK; dQ of each 64-query tile over the kv tiles that
-its rows see, 32 keys at a time.  The tile constants are read from the
-kernel's source.  The CUDA kernel runs only on the card
+emulated in plain torch and held to the plain version.  The dq pass
+first: one 64-query tile of a head at a time, delta = rowsum(dO * O) taken
+from its own rows, dQ summed in f32 over the 64-key tiles its rows see,
+with P recomputed from the forward's log-sum-exp and dS rounded to bf16.  Then the dk/dv pass: the G query
+heads of a kv head split over P CTAs of a cluster (P the largest divisor
+of G up to kMaxSplit), each CTA summing dK / dV of its 64 keys in f32 over
+its own heads and the query tiles that see its keys, kDkvWidth queries at
+a time (P rounded to bf16 for dV, dS for dK), and the P partials added in
+rank order.  The tile sizes, widths and split are read from the kernel's
+source.  The CUDA kernel runs only on the card
 (``test_torch_cuda_train.py`` and ``chip_smoke.py`` hold it to the same
 plain version there)."""
 import re
@@ -41,8 +44,9 @@ def _cu_const(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", CU).group(1))
 
 
-BLOCK_Q, BLOCK_K, HALF = (_cu_const("kBlockQ"), _cu_const("kBlockK"),
-                          _cu_const("kHalf"))
+BLOCK_Q, BLOCK_K = _cu_const("kBlockQ"), _cu_const("kBlockK")
+DKV_WIDTH = _cu_const("kDkvWidth")
+MAX_SPLIT = _cu_const("kMaxSplit")
 NEG_INF = -1e30
 # A gradient, port against XLA or the schedule against the plain version,
 # relative to its largest |value|: the JAX attention rounds P to bf16 for
@@ -123,84 +127,102 @@ def _bounds(pos, n, tile):
             [int(pos[t:t + tile].max()) for t in range(0, n, tile)])
 
 
+def head_split(G):
+    """The kernel's head_split: the CTAs that split a group of G heads."""
+    return max(p for p in range(1, min(G, MAX_SPLIT) + 1) if G % p == 0)
+
+
 def bwd_schedule(q, k, v, do, qpos, kpos, *, causal=True):
-    """dq, dk, dv as the three kernels compute them (plain torch, f32
+    """dq, dk, dv as the two kernels compute them (plain torch, f32
     accumulators, bf16 operands of the tensor-core products)."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
+    P = head_split(G)
     scale = hd ** -0.5
     out = attention_ref(q, k, v, qpos, kpos, causal=causal)
     lse = attention_lse_ref(q, k, qpos, kpos, causal=causal)    # (B, H, Sq)
-    # the pre-pass: delta = rowsum(dO * O) in f32
-    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)  # (B, H, Sq)
+    delta = torch.empty((B, H, Sq))
     dq = torch.zeros((B, Sq, H, hd))
     dk = torch.zeros((B, Skv, K, hd))
     dv = torch.zeros((B, Skv, K, hd))
 
     def p_and_ds(qs, ks, vs, dos, ls, dl, qp, kp):
-        """P (f32) and dS over a (queries x keys) block, masked by position
-        and by the sequence ends (qp / kp of None rows are past the end)."""
+        """P (f32) and dS over a (queries x keys) block, masked by position."""
         s = qs.float() @ ks.float().T
         p = torch.exp(s * scale - ls[:, None])
-        mask = torch.ones_like(p, dtype=torch.bool)
         if causal:
-            mask = kp[None, :] <= qp[:, None]
-        p = torch.where(mask, p, 0.0)
+            p = torch.where(kp[None, :] <= qp[:, None], p, 0.0)
         dp = dos.float() @ vs.float().T
         return p, p * (dp - dl[:, None])
 
     for b in range(B):
         qtmin, qtmax = _bounds(qpos[b], Sq, BLOCK_Q)
         ktmin, ktmax = _bounds(kpos[b], Skv, BLOCK_K)
-        # dK / dV: one CTA per (kv head, 64-key tile)
+        # the dq pass: one CTA per (head, 64-query tile); its prologue takes
+        # delta for its own rows, then it walks the kv tiles its rows see
+        for h in range(H):
+            kh = h // G
+            for t, q0 in enumerate(range(0, Sq, BLOCK_Q)):
+                sl = slice(q0, min(q0 + BLOCK_Q, Sq))
+                delta[b, h, sl] = (do[b, sl, h].float()
+                                   * out[b, sl, h].float()).sum(-1)
+                acc = torch.zeros((sl.stop - sl.start, hd))
+                for j, k0 in enumerate(range(0, Skv, BLOCK_K)):
+                    if causal and ktmin[j] > qtmax[t]:
+                        continue
+                    ksl = slice(k0, min(k0 + BLOCK_K, Skv))
+                    _, ds = p_and_ds(q[b, sl, h], k[b, ksl, kh],
+                                     v[b, ksl, kh], do[b, sl, h],
+                                     lse[b, h, sl], delta[b, h, sl],
+                                     qpos[b, sl], kpos[b, ksl])
+                    acc += ds.bfloat16().float() @ k[b, ksl, kh].float()
+                dq[b, sl, h] = acc * scale
+        # the dk/dv pass: a cluster of P CTAs per (kv head, 64-key tile),
+        # rank r summing heads kh G + r G / P ... over the visible query
+        # tiles; the partials added in rank order
         for kh in range(K):
             for k0 in range(0, Skv, BLOCK_K):
                 ks, vs = k[b, k0:k0 + BLOCK_K, kh], v[b, k0:k0 + BLOCK_K, kh]
                 kp = kpos[b, k0:k0 + BLOCK_K]
                 vis = [t for t in range(len(qtmax))
                        if not (causal and qtmax[t] < int(kp.min()))]
-                dka = torch.zeros((ks.shape[0], hd))
-                dva = torch.zeros((ks.shape[0], hd))
-                for h in range(kh * G, kh * G + G):
-                    for t in vis:
-                        for h0 in range(t * BLOCK_Q,
-                                        min(t * BLOCK_Q + BLOCK_Q, Sq), HALF):
-                            sl = slice(h0, min(h0 + HALF, Sq))
-                            p, ds = p_and_ds(q[b, sl, h], ks, vs, do[b, sl, h],
-                                             lse[b, h, sl], delta[b, h, sl],
-                                             qpos[b, sl], kp)
-                            dva += p.T.bfloat16().float() @ do[b, sl, h].float()
-                            dka += ds.T.bfloat16().float() @ q[b, sl, h].float()
-                dk[b, k0:k0 + BLOCK_K, kh] = dka * scale
-                dv[b, k0:k0 + BLOCK_K, kh] = dva
-        # dQ: one CTA per (head, 64-query tile), over the kv tiles its rows
-        # see (a tile no row sees is skipped)
-        for h in range(H):
-            kh = h // G
-            for t, q0 in enumerate(range(0, Sq, BLOCK_Q)):
-                sl = slice(q0, min(q0 + BLOCK_Q, Sq))
-                acc = torch.zeros((sl.stop - sl.start, hd))
-                for j, k0 in enumerate(range(0, Skv, BLOCK_K)):
-                    if causal and ktmin[j] > qtmax[t]:
-                        continue
-                    for c0 in range(k0, min(k0 + BLOCK_K, Skv), HALF):
-                        ksl = slice(c0, min(c0 + HALF, Skv))
-                        p, ds = p_and_ds(q[b, sl, h], k[b, ksl, kh],
-                                         v[b, ksl, kh], do[b, sl, h],
-                                         lse[b, h, sl], delta[b, h, sl],
-                                         qpos[b, sl], kpos[b, ksl])
-                        acc += ds.bfloat16().float() @ k[b, ksl, kh].float()
-                dq[b, sl, h] = acc * scale
+                sum_k = torch.zeros((ks.shape[0], hd))
+                sum_v = torch.zeros((ks.shape[0], hd))
+                for r in range(P):
+                    dka = torch.zeros((ks.shape[0], hd))
+                    dva = torch.zeros((ks.shape[0], hd))
+                    for h in range(kh * G + r * (G // P),
+                                   kh * G + (r + 1) * (G // P)):
+                        for t in vis:
+                            for c0 in range(t * BLOCK_Q,
+                                            min(t * BLOCK_Q + BLOCK_Q, Sq),
+                                            DKV_WIDTH):
+                                sl = slice(c0, min(c0 + DKV_WIDTH, Sq))
+                                p, ds = p_and_ds(
+                                    q[b, sl, h], ks, vs, do[b, sl, h],
+                                    lse[b, h, sl], delta[b, h, sl],
+                                    qpos[b, sl], kp)
+                                dva += (p.T.bfloat16().float()
+                                        @ do[b, sl, h].float())
+                                dka += (ds.T.bfloat16().float()
+                                        @ q[b, sl, h].float())
+                    sum_k += dka
+                    sum_v += dva
+                dk[b, k0:k0 + BLOCK_K, kh] = sum_k * scale
+                dv[b, k0:k0 + BLOCK_K, kh] = sum_v
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,shift", [
     (1, 77, 77, 4, 2, 16, True, 0),      # ragged tails, G = 2
-    (1, 130, 130, 12, 1, 16, True, 0),   # G = 12, three tiles
+    (1, 130, 130, 12, 1, 16, True, 0),   # G = 12, three tiles; P = 4 < G
     (1, 50, 130, 4, 2, 16, False, 0),    # not causal, Sq != Skv
     (2, 150, 150, 2, 2, 16, True, 70),   # G = 1, per-request positions
     (2, 40, 300, 4, 2, 16, True, 0),     # suffix queries over a longer kv
+    (1, 96, 96, 6, 2, 16, True, 0),      # G = 3: P = 3
+    (2, 70, 70, 12, 2, 16, True, 30),    # G = 6: P = 3 < G, shifted
+    (1, 100, 100, 8, 1, 16, False, 0),   # G = 8: P = 4 < G, not causal
 ])
 def test_backward_schedule_matches_plain(B, Sq, Skv, H, K, hd, causal, shift):
     q, k, v, do = _inputs(B, Sq, Skv, H, K, hd, seed=Sq + Skv)
@@ -218,9 +240,18 @@ def test_backward_schedule_matches_plain(B, Sq, Skv, H, K, hd, causal, shift):
 
 
 def test_schedule_constants_are_the_kernels():
-    """The tiles the kernels use and the bound that makes 64-key CTAs and
-    32-wide halves fit: two n8 tiles per k16 step."""
-    assert BLOCK_Q == BLOCK_K == 64 and HALF == 32
-    assert BLOCK_K % HALF == 0 and HALF % 16 == 0
-    assert re.search(r"constexpr int kWarps = 4;", CU)
-    assert "atomicAdd" not in CU            # no float atomics: deterministic
+    """The tiles, widths and head split the kernels use, and what the
+    design rests on: a consumer warpgroup owns wgmma's 64 rows, the dk/dv
+    width is whole k16 steps of a tile, two launches, no float atomics."""
+    assert BLOCK_Q == BLOCK_K == 64
+    assert DKV_WIDTH % 16 == 0 and BLOCK_Q % DKV_WIDTH == 0
+    assert re.search(r"constexpr int kConsumers = 128;", CU)
+    assert [head_split(G) for G in (1, 2, 3, 6, 8, 12)] == [1, 2, 3, 3, 4, 4]
+    assert MAX_SPLIT <= 8                   # a portable cluster
+    # the dk/dv pass fills the card at the training shape (B=4, S=512, K=2)
+    assert (512 // BLOCK_K) * 2 * 4 * head_split(12) >= 132
+    assert CU.count("<<<") + CU.count("cudaLaunchKernelEx(&") == 2
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    assert "wgmma.mma_async" in hopper and "cp.async.bulk.tensor" in hopper
+    for atomic in ("atomicAdd", "red.global", "atom.global", "cp.reduce"):
+        assert atomic not in CU and atomic not in hopper   # deterministic
