@@ -43,7 +43,12 @@ Phases, in order; any failure exits non-zero before the result line:
              beside SDPA's forward;
              quantize and dequantize at one block the size of
              layers/mlp/wi (1,132,462,080 bf16 values, the grid-wide path)
-             and at ragged odd n, bit for bit, and timed.
+             and at ragged odd n, bit for bit, and timed.  The hybrid
+             path's shapes: the scan at N = 64, D = 4096 on mamba2's f32
+             inputs (prefill 1-512 from zeros and h0, decode B = 8 at S = 1
+             and 3 in place), flash at H = K = 32, hd 64 (G = 1) beside
+             SDPA, paged attention over the shared block's slab viewed as
+             blocks beside SDPA with a mask; each timed beside its bound.
 4. parity  — full-width starcoder2-3b decode step: paged kernel against
              the plain dense gather path on one f32 pool, one layer deep
              and all 30 layers (against a measured rounding-noise floor).
@@ -121,9 +126,33 @@ Phases, in order; any failure exits non-zero before the result line:
              as asked); a self-tuned run (TuningManager + SelfTuningLoop,
              160 iterations) in which every plan executes.
 
-Prints one JSON ``kernels`` line (launches: the serve arms' and the
-training runs'), the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``.
+10. hybrid — the training state is freed; full-width zamba2-1.2b (38
+             mamba2 layers, d_inner 4096 in 64 heads of 64, N 64; one
+             shared attention + MLP block after layers 0, 6, ..., 36, 32
+             heads of hd 64, its KV in a dense per-slot slab): decode from
+             the stored state and slab against one prefill (1 layer and
+             38, against a measured noise floor); a mixed_lengths serve
+             (16 requests of 16-512 tokens, 32 new, 8 slots, max_seq 1024,
+             bf16 pool) in which the scan and flash run in prefill and the
+             scan and paged attention in decode, tokens checked against a
+             full prefill; phase 6's graph checks (the S = 3 verify and the
+             S = 2 replay included) and decode profile on its pool;
+             spec_k = 2 with the truncated drafter, the spec_k = 0 arm's
+             tokens; max_batch 8 -> 4 -> 8 and cache_dtype bf16 -> f32
+             with live requests (every relocated row its old value in
+             f32); the serve and a spec arm again at 7 layers (the shared
+             block twice), where the random-init model's decode-vs-prefill
+             rounding floor is a small part of the logits (at 38 layers it
+             is their own size, in the JAX package too): every served
+             token the prefill path's argmax within it, the spec arm's
+             tokens the plain arm's; two self-tuned serves through
+             ``launch/serve.py --selftune --tuning-store`` on one fresh
+             store under build/smoke/, the second warm-started from the
+             first's golden incumbent and observations.
+
+Prints one JSON ``kernels`` line (launches: the serve arms', the training
+runs' and the hybrid path's), the card's name and power limit, and as the
+last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1079,11 +1108,12 @@ def _flat(out):
     return [out]
 
 
-def step_cases(torch, eng, cfg, g, quant_eng=None):
+def step_cases(torch, eng, cfg, g, quant_eng=None, spec=False):
     """(name, entry, arguments) of the serve arm's steps: the decode step
     of every context bucket, the 320-token prefill at two last_idx, the
-    96-token suffix prefill (paged pools) and ``quant_eng``'s
-    _quant_exec(320)."""
+    96-token suffix prefill (paged pools), ``quant_eng``'s
+    _quant_exec(320), and with ``spec`` (an ssm pool) the S = 3 verify
+    step and the rollback's S = 2 replay step on the pool's snapshot."""
     dev = torch.device("cuda")
     n, bs = eng.pool.n_slots, getattr(eng.pool, "bs", 16)
 
@@ -1111,16 +1141,26 @@ def step_cases(torch, eng, cfg, g, quant_eng=None):
         rows = torch.randn((cfg.n_layers, 320, cfg.n_kv_heads, cfg.hd),
                            generator=g, device=dev).to(torch.bfloat16)
         yield "quant(320)", quant_eng._quant_exec(320), (rows,)
+    if spec:
+        pos = torch.randint(600, 900, (n,), generator=g,
+                            device=dev).to(torch.int32)
+        yield ("verify(S=3)", eng._decode_exec(0, 3),
+               (eng.params, eng.pool.decode_cache(), toks(n, 3), pos))
+        saved = eng.pool.save_state()        # the replay step reads it
+        yield ("replay(S=2)", eng._replay_exec(2),
+               (eng.params, saved, toks(n, 2), pos))
 
 
 def check_graphs(torch, eng, label, cases):
     """Each step replayed as its captured graph, then run by its eager
     callable on a copy of the same pool: outputs and every pool tensor
-    bit for bit."""
+    (the speculative snapshot's included) bit for bit."""
     pool = eng.pool
-    state = pool.kv if pool.kind == "paged" else pool.state
     names = []
     for name, entry, args in cases:
+        state = dict(pool.kv if pool.kind == "paged" else pool.state)
+        if getattr(pool, "saved", None) is not None:
+            state.update({"saved_" + k: v for k, v in pool.saved.items()})
         if not hasattr(entry, "graph"):
             fail(f"graphs[{label}]: {name} is not a captured graph")
         before = {k: v.clone() for k, v in state.items()}
@@ -2267,6 +2307,538 @@ def train_path(torch):
     return launches
 
 
+# ------------------------------------------------------------ phase 3 (hybrid shapes)
+HY_NH, HY_P, HY_N = 64, 64, 64     # zamba2-1.2b: ssm heads, head dim, state
+HY_D = HY_NH * HY_P                # d_inner 4096
+HY_H, HY_HD = 32, 64               # shared block: 32 q = 32 kv heads, hd 64
+HY_POS = [300, 317, 333, 351, 288, 299, 345, 372]   # a decode tick's slots
+
+
+def check_hybrid_kernels(torch, rows):
+    """The three kernels at the hybrid path's shapes, against their plain
+    versions, then timed beside their bounds (printed lines; the kernels
+    line keeps each kernel's first row and adds the hybrid path's
+    launches):
+
+    - the selective scan at N = 64, D = 4096 as ``mamba2_block`` hands it
+      over (x f32, dt a head's value repeated over its 64 channels, Bm and
+      Cm f32 views of one projection, A a head's scalar over (P, N)):
+      prefills of 1-512 tokens from zeros and from h0, decode B = 8 at
+      S = 1 and S = 3 written in place;
+    - flash attention at H = K = 32, hd 64 (G = 1), S = 320 and 512,
+      k_chunk 128 and 256, timed beside SDPA;
+    - paged attention over the shared block's slab (8, 1024, 32, 64) bf16
+      and f32 viewed as blocks of 16 through the identity tables, S = 1
+      and 3, against the dense ``decode_attention``, timed beside SDPA with
+      a boolean mask over the same slab."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.mamba_scan import (selective_scan,
+                                                selective_scan_ref)
+    from repro_torch.models.attention import (decode_attention,
+                                              identity_tables,
+                                              slab_decode_attention)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    bf16, f32 = torch.bfloat16, torch.float32
+    clock = sm_clock_ghz()
+
+    def scan_inputs(B, S, h0):
+        x = torch.randn((B, S, HY_D), generator=g, device=dev)
+        dt = torch.nn.functional.softplus(torch.randn(
+            (B, S, HY_NH), generator=g, device=dev))
+        dt = dt[..., None].expand(B, S, HY_NH, HY_P).reshape(B, S, HY_D)
+        Bm, Cm = torch.randn((B, S, 2 * HY_N), generator=g,
+                             device=dev).split(HY_N, dim=-1)
+        A = -torch.rand((HY_NH,), generator=g, device=dev) * 2 - 0.05
+        A = A[:, None, None].expand(HY_NH, HY_P, HY_N).reshape(HY_D, HY_N)
+        h = (torch.randn((B, HY_D, HY_N), generator=g, device=dev) if h0
+             else None)
+        return x, dt, Bm, Cm, A.contiguous(), h
+
+    err = 0.0
+    for B, S, h0 in [(1, S, h0) for S in (1, 16, 37, 256, 512)
+                     for h0 in (False, True)] + [(8, 1, True), (8, 3, True)]:
+        x, dt, Bm, Cm, A, h = scan_inputs(B, S, h0)
+        ry, rh = selective_scan_ref(x, dt, Bm, Cm, A, h)
+        y, hl = selective_scan(x, dt, Bm, Cm, A, h, h_out=h)
+        torch.cuda.synchronize()
+        what = f"selective_scan N=64 B={B} S={S} h0={h0}"
+        if h is not None and hl.data_ptr() != h.data_ptr():
+            fail(f"{what}: h_out was not written in place")
+        err = max(err, check_close(torch, what + " y", y, ry, SCAN_TOL),
+                  check_close(torch, what + " h", hl, rh, SCAN_TOL))
+    rows["selective_scan"]["max_abs_err"] = max(
+        rows["selective_scan"]["max_abs_err"], err)
+
+    def scan_bound(B, S, h0):
+        """x, dt, Bm, Cm, A read once, y and h written once (h0 read);
+        the B S D N exponentials on the SFU."""
+        n = B * S * HY_D
+        nbytes = (n * 4 * 2 + 2 * B * S * HY_N * 4 + HY_D * HY_N * 4
+                  + n * 4 + B * HY_D * HY_N * 4 * (2 if h0 else 1))
+        t_exp = n * HY_N / (SFU_PER_SM_CLOCK * N_SMS * clock * 1e9) * 1e3
+        return nbytes / HBM_BYTES_PER_S * 1e3, t_exp
+
+    for label, B, S, h0 in [("decode", 8, 1, True), ("verify", 8, 3, True)] + [
+            ("prefill", 1, S, False) for S in (16, 96, 256, 512)]:
+        x, dt, Bm, Cm, A, h = scan_inputs(B, S, h0)
+        ms = timed_ms(torch, lambda: selective_scan(x, dt, Bm, Cm, A, h,
+                                                    h_out=h))
+        plain = timed_ms(torch, lambda: selective_scan_ref(x, dt, Bm, Cm, A,
+                                                           h), iters=5)
+        tb, te = scan_bound(B, S, h0)
+        b = (tb, "bytes") if tb >= te else (te, "operations")
+        print(f"kernel selective_scan[hybrid {label} B={B} S={S} D={HY_D} "
+              f"N={HY_N}, f32 x/dt/Bm/Cm]: kernel_ms={ms:.4f} plain_ms="
+              f"{plain:.4f} library_ms=n/a bound_ms={b[0]:.4f} ({b[1]}; "
+              f"bytes {tb:.4f}, exponentials {te:.4f})", flush=True)
+
+    err = 0.0
+    for S, kc in [(S, kc) for S in (37, 320, 512) for kc in (128, 256)]:
+        q, k, v = (torch.randn((1, S, HY_H, HY_HD), generator=g,
+                               device=dev).to(bf16) for _ in range(3))
+        out = flash_attention(q, k, v, block_k=kc)
+        torch.cuda.synchronize()
+        err = max(err, check_close(torch, f"flash_attention hybrid S={S} "
+                                   f"kc={kc}", out, attention_ref(q, k, v),
+                                   BF16_TOL))
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], err)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for S in (320, 512):
+        q, k, v = (torch.randn((1, S, HY_H, HY_HD), generator=g,
+                               device=dev).to(bf16) for _ in range(3))
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        ms = timed_ms(torch, lambda: flash_attention(q, k, v, pos, pos,
+                                                     block_k=128))
+        plain = timed_ms(torch, lambda: attention_ref(q, k, v, pos, pos))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+        b = bound(4 * q.numel() * 2 + 2 * S * 4,
+                  4 * HY_H * HY_HD * S * (S + 1) / 2, BF16_FLOPS)
+        print(f"kernel flash_attention[hybrid prefill B=1 S={S} H=K="
+              f"{HY_H} hd={HY_HD} bf16, k_chunk=128]: kernel_ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA) "
+              f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
+
+    B, T = 8, 1024
+    tables = identity_tables(B, T, dev)
+    err = 0.0
+    for S, dtype in [(1, bf16), (3, bf16), (1, f32), (3, f32)]:
+        q = torch.randn((B, S, HY_H, HY_HD), generator=g, device=dev).to(
+            bf16)
+        ks, vs = (torch.randn((B, T, HY_H, HY_HD), generator=g,
+                              device=dev).to(dtype) for _ in range(2))
+        pos = torch.tensor([0, 5, 100, 333, 512, 700, T - S - 1, T - S],
+                           dtype=torch.int32, device=dev)
+        for _ in range(2):               # the split counters return to 0
+            out = slab_decode_attention(q, ks, vs, tables, pos=pos)
+            torch.cuda.synchronize()
+            err = max(err, check_close(
+                torch, f"paged_attention over the slab S={S} {dtype}", out,
+                decode_attention(q, ks, vs, pos=pos), BF16_TOL))
+    rows["paged_attention"]["max_abs_err"] = max(
+        rows["paged_attention"]["max_abs_err"], err)
+    for S in (1, 3):
+        q = torch.randn((B, S, HY_H, HY_HD), generator=g, device=dev).to(
+            bf16)
+        ks, vs = (torch.randn((B, T, HY_H, HY_HD), generator=g,
+                              device=dev).to(bf16) for _ in range(2))
+        pos = torch.tensor(HY_POS, dtype=torch.int32, device=dev)
+        ms = timed_ms(torch, lambda: slab_decode_attention(q, ks, vs, tables,
+                                                           pos=pos))
+        plain = timed_ms(torch, lambda: decode_attention(q, ks, vs, pos=pos))
+        qp = pos.long()[:, None] + torch.arange(S, device=dev)
+        mask = (torch.arange(T, device=dev)[None, None, :]
+                <= qp[:, :, None])[:, None]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, ks, vs))
+        lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        seen = sum(p + S for p in HY_POS)
+        pairs = sum(p + j + 1 for p in HY_POS for j in range(S))
+        b = bound(seen * HY_H * HY_HD * 2 * 2 + 2 * q.numel() * 2
+                  + tables.numel() * 4, 4 * pairs * HY_H * HY_HD, BF16_FLOPS)
+        print(f"kernel paged_attention[hybrid slab decode B=8 S={S} H=K="
+              f"{HY_H} hd={HY_HD} G=1, slab (8, {T}) bf16 as blocks of 16, "
+              f"ctx {min(HY_POS) + 1}-{max(HY_POS) + S}]: kernel_ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA, boolean "
+              f"mask over the slab) bound_ms={b[0]:.4f} ({b[1]})",
+              flush=True)
+
+
+# ------------------------------------------------------------ phase 10
+def hybrid_parity(torch, cfg, params):
+    """Token-by-token decode (S = 1 from the stored state and slab: the
+    scan with h0 in place, paged attention over the slab) against one
+    prefill of the same sequence (the scan from zeros, flash), at full
+    width: 12 tokens of 2 sequences one layer deep (within 2e-2 x the
+    logits' scale) and at all 38 layers against a rounding-noise floor
+    measured in the run (the decode path against itself with h scaled by
+    1 + eps before every step, the largest difference over eps = 2^-22,
+    -2^-22 and 2^-21: the random-init model at full depth amplifies a
+    perturbation of one f32 ulp to whole logits, so one draw of it
+    understates the floor); the same at ``SHALLOW`` layers (the shared
+    block twice), where the floor is a small part of the logits; then, at
+    both depths, a 288-token prefill of 8 sequences and 12 decode steps
+    against one 300-token prefill, whose largest logit difference is the
+    served-token check's floor at that depth.  Returns the served-token
+    checks' tolerances at full depth and at ``SHALLOW`` layers."""
+
+    from repro_torch.models import lm
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def model(depth):
+        return _depth(cfg, params, depth)
+
+    def cache_for(c, B, max_seq, pc=None):
+        cache = {k: torch.zeros(s, device=dev, dtype=torch.float32
+                                if k == "h" else torch.bfloat16)
+                 for k, s in lm.init_cache_shapes(c, B, max_seq).items()}
+        if pc is not None:
+            for k, v in pc.items():
+                if k.startswith("shared"):
+                    cache[k][:, :, :v.shape[2]] = v
+                else:
+                    cache[k].copy_(v)
+        return cache
+
+    def decode(c, p, tok, t0, cache, eps=0.0):
+        B, S = tok.shape
+        out = []
+        for t in range(t0, S):
+            cache["h"].mul_(1 + eps)
+            logits, cache = lm.decode_step(
+                p, cache, tok[:, t:t + 1],
+                torch.full((B,), t, dtype=torch.int32, device=dev), c)
+            out.append(logits[:, 0].float())
+        torch.cuda.synchronize()
+        out = torch.stack(out, 1)
+        if not torch.isfinite(out).all():
+            fail("hybrid decode logits not finite")
+        return out
+
+    def near_ties(out, ref, tol, what):
+        miss = out.argmax(-1) != ref.argmax(-1)
+        gap = ref.max(-1).values - ref.gather(
+            -1, out.argmax(-1, keepdim=True))[..., 0]
+        if float((gap * miss).max()) > tol:
+            fail(f"{what}: argmax gap {float((gap * miss).max())} beyond "
+                 f"{tol}")
+        return 1 - float(miss.float().mean())
+
+    tok = torch.randint(0, cfg.vocab_size, (2, 12), generator=g, device=dev)
+    errs = {}
+    for depth in (1, SHALLOW, cfg.n_layers):
+        c, p = model(depth)
+        ref = lm.prefill(p, tok, c)[0][:, -1].float()
+        errs[depth] = (decode(c, p, tok, 0, cache_for(c, 2, 16))[:, -1], ref)
+    out, ref = errs[1]
+    tol1 = BF16_TOL * max(1.0, float(ref.abs().max()))
+    err1 = max_err(torch, out, ref)
+    if err1 > tol1:
+        fail(f"1-layer hybrid decode vs prefill: max abs err {err1} beyond "
+             f"{tol1}")
+    print(f"parity[{cfg.name}]: decode (S=1 from the stored state and slab) "
+          f"vs one prefill of 12 tokens at full width: 1 layer max_abs_err="
+          f"{err1:.4g} (bound {tol1:.4g})", flush=True)
+    noise_at = {}
+    for depth in (SHALLOW, cfg.n_layers):
+        c, p = model(depth)
+        out, ref = errs[depth]
+        noises = [max_err(torch, decode(c, p, tok, 0, cache_for(c, 2, 16),
+                                        eps=eps)[:, -1], out)
+                  for eps in (2.0 ** -22, -2.0 ** -22, 2.0 ** -21)]
+        noise = noise_at[depth] = max(noises)
+        tol = BF16_TOL + 1.5 * noise
+        err = max_err(torch, out, ref)
+        print(f"parity[{cfg.name}]: {depth} layers max_abs_err={err:.4g} "
+              f"against a rounding-noise floor of {noise:.4g} "
+              f"({', '.join(f'{n:.4g}' for n in noises)}; bound {tol:.4g}), "
+              f"|logit| max {float(ref.abs().max()):.3f}", flush=True)
+        if err > tol:
+            fail(f"{depth}-layer hybrid decode vs prefill: max abs err {err} "
+                 f"beyond {tol}")
+        agree = near_ties(out, ref, tol, f"{depth}-layer hybrid decode vs "
+                          f"prefill")
+        print(f"parity[{cfg.name}]: {depth} layers argmax agreement "
+              f"{agree:.3f}", flush=True)
+
+    tok = torch.randint(0, cfg.vocab_size, (8, 300), generator=g,
+                        device=dev)
+    tols = {}
+    for depth in (SHALLOW, cfg.n_layers):
+        c, p = model(depth)
+        ref = lm.logits_fn(p, lm.forward(p, tok, c)[0][:, 288:], c).float()
+
+        def served():
+            pc = lm.forward(p, tok[:, :288], c)[1]
+            return decode(c, p, tok, 288, cache_for(c, 8, 304, pc))
+
+        floor = max_err(torch, served(), ref)
+        tol = tols[depth] = BF16_TOL + 1.5 * max(floor, noise_at[depth])
+        agree = near_ties(served(), ref, tol, f"serve-shaped {depth}-layer "
+                          f"hybrid decode vs prefill")
+        print(f"parity[{cfg.name}]: {depth} layers, 288-token prefill + 12 "
+              f"decode steps of 8 rows vs one 300-token prefill: "
+              f"max_abs_err={floor:.4g} (the served-token check's floor; "
+              f"bound {tol:.4g}), argmax agreement {agree:.3f}", flush=True)
+    return tols[cfg.n_layers], tols[SHALLOW]
+
+
+SHALLOW = 7     # hybrid layers with the shared block twice (after 0 and 6)
+
+
+def _depth(cfg, params, depth):
+    """The model cut to its first ``depth`` layers (the shared block and
+    the embeddings whole)."""
+    import dataclasses
+    return (dataclasses.replace(cfg, n_layers=depth),
+            dict(params, layers=_slice(params["layers"], depth)))
+
+
+def hybrid_shallow(torch, cfg, params, tol):
+    """The serve and its speculative arm at ``SHALLOW`` layers, where the
+    random-init model's decode-vs-prefill floor is a small part of the
+    logits (at 38 layers it is the logits' own size): every served token
+    within ``tol`` of the prefill path's argmax (tie-aware), and the
+    spec_k = 2 arm's tokens those of the spec_k = 0 arm.  Returns the
+    kernel launches of both arms."""
+    from repro_torch.serving import DEFAULT_SERVING_SETTING
+    c, p = _depth(cfg, params, SHALLOW)
+    setting = dict(DEFAULT_SERVING_SETTING, max_batch=8, cache_dtype="bf16")
+    _, done, _, la = serve_arm(torch, c, p, setting, hybrid_trace(c),
+                               f"zamba2 {SHALLOW} layers")
+    check_tokens(torch, c, p, done, tol)
+    _, sdone, sstats, ls = serve_arm(
+        torch, c, p, dict(setting, spec_k=2.0, drafter="truncated"),
+        hybrid_trace(c), f"zamba2 {SHALLOW} layers spec_k=2 truncated")
+    same_tokens(torch, c, p, f"spec[zamba2 {SHALLOW} layers]", sdone, done,
+                tol)
+    return {k: la[k] + ls[k] for k in la}
+
+
+def hybrid_trace(cfg):
+    from repro_torch.serving.workload import make_trace
+    return make_trace("mixed_lengths", 400.0, 0.04, vocab=cfg.vocab_size,
+                      seed=10, short_lens=(16, 96), long_lens=(256, 512),
+                      long_frac=0.25, max_news=(32, 32))
+
+
+def hybrid_relayout(torch, cfg, params, ref, tol):
+    """max_batch 8 -> 4 while 8 are live (held, shrunk after the drain) and
+    back to 8 with live requests, then cache_dtype bf16 -> f32: after each
+    switch the decode graph's replay equals its eager step; every
+    relocated conv row and slab row is its old value in f32 and h is
+    unchanged; the tokens are the plain serve's (tie-aware).  Returns the
+    kernel launches of the drive."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import DEFAULT_SERVING_SETTING, ServingEngine
+    dev = torch.device("cuda")
+    reqs = [r for r in hybrid_trace(cfg) if len(r.prompt) <= 96]
+    eng = ServingEngine(params, cfg, dict(DEFAULT_SERVING_SETTING,
+                                          max_batch=8, cache_dtype="bf16"),
+                        max_seq=1024, device=dev)
+    eng.warm_start(max_prompt=96)
+    seen = {}
+
+    def shrink(e):
+        seen["shrink"] = e.apply_plan(reconfig_plan(e, max_batch=4))
+        seen["held"] = e.n_slots
+        replay_check(torch, e, "hybrid shrink held")
+
+    def grow(e):
+        if "grow" in seen or e.n_slots != 4 or not e.n_active:
+            return
+        seen["grow"] = e.apply_plan(reconfig_plan(e, max_batch=8))
+        replay_check(torch, e, "hybrid grow")
+        seen["slots"] = e.n_slots
+
+    def to_f32(e):
+        if "grow" not in seen or "dtype" in seen or not e.n_active:
+            return
+        live = sorted(i for i, r in enumerate(e.slot_req) if r is not None)
+        before = {k: v[:, live].clone() for k, v in e.pool.state.items()}
+        seen["dtype"] = e.apply_plan(reconfig_plan(e, cache_dtype="f32"))
+        n = 0
+        for k, v in before.items():
+            new = e.pool.state[k][:, :len(live)]
+            if new.dtype != torch.float32 or not torch.equal(
+                    new, v.to(torch.float32)):
+                fail(f"reconfig[hybrid dtype]: the relocated {k} rows are "
+                     f"not the old rows in f32")
+            n += v.numel()
+        seen["values"] = n
+        replay_check(torch, e, "hybrid dtype")
+
+    hooks = {t: (lambda e: (grow(e), to_f32(e))) for t in range(3, 400)}
+    hooks[2] = shrink
+    reset_launches()
+    done = drive(eng, reqs, hooks)
+    launches = dict(LAUNCHES)
+    if seen.get("held") != 8 or seen.get("slots") != 8 or "dtype" not in seen:
+        fail(f"reconfig[hybrid]: switches {seen}")
+    same_tokens(torch, cfg, params, "reconfig[hybrid]", done,
+                [ref[r.rid] for r in reqs], tol, "plain serve")
+    print(f"reconfig[hybrid max_batch 8->4->8, bf16->f32]: apply_plan "
+          f"{seen['shrink']:.4f}s with 8 live (held at 8 slots, shrunk after "
+          f"the drain), {seen['grow']:.4f}s back to 8, {seen['dtype']:.4f}s "
+          f"to f32 ({seen['values']} relocated conv, h and slab values equal "
+          f"their old values in f32); replays equal their eager steps",
+          flush=True)
+    return launches
+
+
+def hybrid_store(torch, cfg, card):
+    """Two self-tuned serves (``launch/serve.py --selftune --tuning-store
+    DIR``, Poisson 20 req/s for 6 s, prompts of 4-128 tokens, 4-32 new) on
+    one fresh store under build/smoke/: the first writes observations,
+    compacts the store and writes GOLDEN.json; the second starts from the
+    golden incumbent (exact tier), absorbs its observations and skips init
+    settings.  Each run's output goes to build/smoke/; its warm start,
+    init quanta and seconds, tok/s and TTFT p50 are printed.  Returns the
+    kernel launches of both runs."""
+    import io
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve as launch_serve
+    out_dir = ROOT / "build" / "smoke"
+    store = out_dir / "hybrid_tuning_store"
+    shutil.rmtree(store, ignore_errors=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    total = dict.fromkeys(LAUNCHES, 0)
+    runs = []
+    for i in (1, 2):
+        stats_path = out_dir / f"hybrid_store_run{i}.json"
+        args = ["--arch", cfg.name, "--selftune", "--tuning-store",
+                str(store), "--scenario", "poisson", "--rate", "20",
+                "--duration", "6", "--max-seq", "1024", "--prompt-len",
+                "128", "--gen", "32", "--json-out", str(stats_path)]
+        buf = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            launch_serve.main(args)
+        wall = time.perf_counter() - t0
+        gc.collect()                     # the run's model and engine
+        torch.cuda.empty_cache()
+        for k, n in LAUNCHES.items():
+            total[k] += n
+        text = buf.getvalue()
+        (out_dir / f"hybrid_store_run{i}.log").write_text(text)
+        stats = json.loads(stats_path.read_text())
+        ws = stats.get("warm_start") or {}
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("tuning-store", "served", "latency"))]
+        for ln in lines:
+            print(f"store[run {i}]: {ln}", flush=True)
+        if stats["completed"] != stats["requests"]:
+            fail(f"store[run {i}]: {stats['completed']}/{stats['requests']} "
+                 f"requests completed")
+        if not text.rstrip().endswith("OK"):
+            fail(f"store[run {i}]: the launcher did not end in OK")
+        runs.append((stats, ws))
+        print(f"store[run {i}]: {stats['completed']}/{stats['requests']} "
+              f"requests, {stats['tokens_per_s']:.1f} tok/s, ttft p50 "
+              f"{stats['p50_ttft_s']:.4f}s, tuner init phase "
+              f"{stats['tuner_init_quanta']} quanta in "
+              f"{stats['tuner_init_time_s']:.4f}s, warm start {ws}, "
+              f"{stats['reconfig_count']} reconfigurations, final setting "
+              f"{stats['final_setting']}; {wall:.1f}s with start-up on "
+              f"{card}", flush=True)
+    first, (second, ws) = runs[0][0], runs[1]
+    if not (store / "GOLDEN.json").exists():
+        fail("store: the first run wrote no GOLDEN.json")
+    text2 = (out_dir / "hybrid_store_run2.log").read_text()
+    if "golden incumbent" not in text2 or "(exact match" not in text2:
+        fail("store: the second run did not start from the golden "
+             "incumbent at the exact tier")
+    if not (ws.get("tier") == "exact" and ws.get("absorbed_obs", 0) > 0
+            and ws.get("init_settings_skipped", 0) > 0):
+        fail(f"store: the second run's warm start {ws}")
+    print(f"store: the warm-started run's init phase "
+          f"{second['tuner_init_quanta']} quanta / "
+          f"{second['tuner_init_time_s']:.4f}s against the first run's "
+          f"{first['tuner_init_quanta']} / {first['tuner_init_time_s']:.4f}s",
+          flush=True)
+    return total
+
+
+def hybrid_path(torch, card):
+    """Phase 10 on full-width zamba2-1.2b.  Returns the launch counts of
+    the hybrid path's kernels (the serve arms, the relayout drive and the
+    two store runs)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.serving import DEFAULT_SERVING_SETTING
+    t0 = time.perf_counter()
+    cfg = get_config("zamba2-1.2b")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"model: {cfg.name} full width, {n_params / 1e9:.3f} B params "
+          f"bf16 ({cfg.n_layers} mamba2 layers, d_inner {cfg.d_inner}, "
+          f"{cfg.n_ssm_heads} heads x {cfg.ssm_head_dim}, N "
+          f"{cfg.ssm_state}; the shared block {lm.n_shared_apps(cfg)} "
+          f"times), init {time.perf_counter() - t0:.1f}s", flush=True)
+    tol, tol_shallow = hybrid_parity(torch, cfg, params)
+    setting = dict(DEFAULT_SERVING_SETTING, max_batch=8, cache_dtype="bf16")
+    spans = LaunchSpans(LAUNCHES)
+    eng, done, stats, la = serve_arm(torch, cfg, params, setting,
+                                     hybrid_trace(cfg), "zamba2 bf16",
+                                     tracer=spans)
+    kernels = ("selective_scan", "flash_attention", "paged_attention")
+    by = {k: {n: v[n] for n in kernels} for k, v in spans.by_span.items()
+          if k in ("serve.prefill", "serve.decode")}
+    print(f"serve[zamba2 bf16]: launches by span {by}", flush=True)
+    pre, dec = by.get("serve.prefill", {}), by.get("serve.decode", {})
+    if not (pre.get("selective_scan") and pre.get("flash_attention")
+            and dec.get("selective_scan") and dec.get("paged_attention")):
+        fail(f"the hybrid serve did not run the scan and flash in prefill "
+             f"and the scan and paged attention in decode: {by}")
+    check_tokens(torch, cfg, params, [done[0], done[1], max(
+        done, key=lambda r: len(r.prompt))], tol)
+    print(f"serve[zamba2 bf16]: {stats['tokens_per_s']:.1f} tok/s, ttft p50 "
+          f"{stats['p50_ttft_s']:.4f}s, decode "
+          f"{stats['decode_tok_per_s']:.1f} tok/s on {card}; peak device "
+          f"memory in the serve "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    g = fill_pool(torch, eng, 17)
+    check_graphs(torch, eng, "zamba2-1.2b",
+                 step_cases(torch, eng, cfg, g, spec=True))
+    profile_decode(torch, eng, cfg, g)
+    del eng
+    spans = LaunchSpans(LAUNCHES)
+    _, sdone, sstats, ls = serve_arm(
+        torch, cfg, params, dict(setting, spec_k=2.0, drafter="truncated"),
+        hybrid_trace(cfg), "zamba2 spec_k=2 truncated", tracer=spans)
+    by = {k: {n: v[n] for n in kernels} for k, v in spans.by_span.items()
+          if k.startswith("decode.")}
+    print(f"spec[zamba2]: launches by span {by} (decode.verify at S = 3, "
+          f"decode.rollback = _ssm_replay from the snapshot of conv and h "
+          f"at S = 1-2, decode.draft = the truncated drafter's prefill: 19 "
+          f"layers, the shared block 4 times)", flush=True)
+    ver, rb = by.get("decode.verify", {}), by.get("decode.rollback", {})
+    dr = by.get("decode.draft", {})
+    if not (ver.get("selective_scan") and ver.get("paged_attention")
+            and rb.get("selective_scan") and dr.get("selective_scan")
+            and dr.get("flash_attention")):
+        fail(f"the hybrid spec arm did not verify, replay and draft through "
+             f"the kernels: {by}")
+    same_tokens(torch, cfg, params, "spec[zamba2]", sdone, done, tol)
+    lr = hybrid_relayout(torch, cfg, params, {r.rid: r for r in done}, tol)
+    lh = hybrid_shallow(torch, cfg, params, tol_shallow)
+    lt = hybrid_store(torch, cfg, card)
+    launches = {k: la[k] + ls[k] + lr[k] + lh[k] + lt[k] for k in kernels}
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"the hybrid path never launched {missing}: {launches}")
+    print(f"hybrid: phase 10 in {time.perf_counter() - t0:.1f}s, launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -2298,7 +2870,9 @@ def main():
     rows = check_kernels(torch)
     check_train_kernels(torch, rows)
     rows["selective_scan"] = check_scan(torch)
-    launches = dense_path(torch, card)
+    check_hybrid_kernels(torch, rows)
+    launches = dict.fromkeys(rows, 0)
+    launches.update(dense_path(torch, card))
     # free the dense model (and its engines' pools) before falcon-mamba
     gc.collect()
     torch.cuda.empty_cache()
@@ -2311,7 +2885,12 @@ def main():
     print(f"serve launches {launches}", flush=True)
     trained = train_path(torch)
     for name in rows:
-        launches[name] = launches.get(name, 0) + trained.get(name, 0)
+        launches[name] += trained.get(name, 0)
+    # free the training state before the hybrid model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in hybrid_path(torch, card).items():
+        launches[name] += n
 
     line = {"kernels": [
         {"name": name, "route": r["route"], "source": r["source"],

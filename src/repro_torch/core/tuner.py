@@ -141,16 +141,14 @@ class TuningManager:
         # shrink these, so the bench reads them per arm
         self.init_quanta = 0
         self.init_time_s = 0.0
-        # fleet knowledge store: warm-start the GP from the nearest
-        # signature's prior observations and flush every new observation /
-        # audited decision back (the store is a later slice of the port)
+        # fleet knowledge store (repro_torch.store): warm-start the GP from
+        # the nearest signature's prior observations and flush every new
+        # observation / audited decision back
         self._session = None
         self.signature = None
         self.warm_start_info: dict | None = None
-        if store is not None:
-            raise NotImplementedError(
-                "the tuning store (--tuning-store) is not ported yet: it "
-                "comes with a later slice of the port")
+        if store is not None and signature is not None:
+            self._attach_store(store, signature, absorb_history)
         # plan proposed but not yet executed: the tuner stays on the
         # incumbent (windows keep scoring the old setting) until the
         # driver reports the reconfiguration done via record_reconfig —
@@ -159,6 +157,35 @@ class TuningManager:
         self._pending: rc.ReconfigPlan | None = None
 
     # --------------------------------------------------------- fleet store
+    def _attach_store(self, store, signature, absorb: bool):
+        """Open a writer session on the knowledge store and (optionally)
+        seed the GP from the nearest signature's history.  With enough
+        absorbed evidence the LHS init queue is skipped outright — the
+        warm GP already covers the space — or halved on thin evidence;
+        provenance lands in the audit as a ``warm_start`` record."""
+        if isinstance(signature, str):
+            from repro_torch.store.signature import TuningSignature
+            signature = TuningSignature.from_key(signature)
+        self.signature = signature
+        self._session = store.session(signature)
+        info = {"store_key": signature.key,
+                "read_only": self._session.read_only,
+                "matched_key": None, "tier": None, "absorbed_obs": 0,
+                "init_settings_skipped": 0}
+        if absorb:
+            obs, matched, tier = store.observations_for(signature)
+            n = self.bo.absorb_history(obs)
+            info.update(matched_key=matched, tier=tier, absorbed_obs=n)
+            if n >= max(4, len(self._init_queue)):
+                info["init_settings_skipped"] = len(self._init_queue)
+                self._init_queue = []
+            elif n >= 2:
+                keep = max(1, len(self._init_queue) // 2)
+                info["init_settings_skipped"] = len(self._init_queue) - keep
+                self._init_queue = self._init_queue[:keep]
+        self.warm_start_info = info
+        self.audit.warm_start(**info)
+
     def close_store(self):
         """Release the store session (segment handle + shared lock); the
         driver calls this when its run ends so a compactor can proceed."""

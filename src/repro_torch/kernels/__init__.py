@@ -4,7 +4,8 @@ the serving path.
 paged_attention — decode / suffix-prefill attention over the paged KV pool
 flash_attention — prefill attention (causal, GQA, online softmax)
 quant           — blockwise int8 quantize / dequantize
-mamba_scan      — selective scan (mamba1 recurrence) from a stored state
+mamba_scan      — selective scan (the mamba1 recurrence, and mamba2's over
+                  channels (head, p)) from a stored state
 
 Each package holds ``kernel.py`` (the wrapper: checks, allocation, launch,
 launch counter; plain version for CPU tensors) and ``ref.py`` (the plain

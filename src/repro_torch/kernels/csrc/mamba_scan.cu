@@ -16,6 +16,10 @@
 // place.  A step with dt = 0 passes the state through (exp2(0) = 1 and the
 // update is 0), which the model's right padding relies on.
 //
+// The mamba2 block (zamba2, N = 64) runs the same recurrence with channel
+// d = (head, p): its dt and A are a head's, repeated over the head's P
+// channels by the caller, and its one B/C group is shared by every d.
+//
 // What the TPU kernel keeps out of HBM, and what this one does instead.
 // The Pallas grid (B, D / block_d, n_chunks) runs its chunk axis in order
 // and carries h from chunk to chunk in VMEM scratch.  Blocks of a CUDA grid
@@ -225,6 +229,18 @@ scan_direct(Inputs in, const float* __restrict__ A, const float* h0, float* __re
   if (live && h_out != nullptr) store_vec<NG>(h_out + bd * N + g * NG, h);
 }
 
+// scan_chunked's ring of two staged chunks, in dynamic shared memory: at
+// N = 64 it is 57 KB, past the 48 KB a static array may take.
+template <int N, int G> struct ChunkRing {
+  static constexpr int kYRow = kDBlock + 32 / G;           // padded: the G lanes of a warp's
+                                                           // d's write G rows without conflict
+  float dt[2][kChunk][kDBlock];
+  float u[2][kChunk][kDBlock];                             // dt * x
+  alignas(16) float b[2][kChunk][N];
+  alignas(16) float c[2][kChunk][N];
+  float y[2][kChunk][kYRow];
+};
+
 template <int N, int NG>
 __global__ void __launch_bounds__(kDBlock * (N / NG))
 scan_chunked(Inputs in, const float* __restrict__ A, const float* h0, float* __restrict__ y,
@@ -233,14 +249,14 @@ scan_chunked(Inputs in, const float* __restrict__ A, const float* h0, float* __r
   constexpr int kT = kDBlock * G;                          // threads
   constexpr int kXPer = kChunk * kDBlock / kT;             // x, dt elements a thread stages
   constexpr int kBCPer = (kChunk * N + kT - 1) / kT;       // B, C elements a thread stages
-  constexpr int kYRow = kDBlock + 32 / G;                  // padded: the G lanes of a warp's
-                                                           // d's write G rows without conflict
   static_assert(G <= kChunk && kChunk % G == 0 && kXPer >= 1, "G lanes must tile a chunk");
-  __shared__ float s_dt[2][kChunk][kDBlock];
-  __shared__ float s_u[2][kChunk][kDBlock];                // dt * x
-  __shared__ __align__(16) float s_b[2][kChunk][N];
-  __shared__ __align__(16) float s_c[2][kChunk][N];
-  __shared__ float s_y[2][kChunk][kYRow];
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& ring = *reinterpret_cast<ChunkRing<N, G>*>(smem);
+  auto& s_dt = ring.dt;
+  auto& s_u = ring.u;
+  auto& s_b = ring.b;
+  auto& s_c = ring.c;
+  auto& s_y = ring.y;
 
   const int tid = threadIdx.x, dl = tid / G, g = tid % G;
   const int b = blockIdx.y, d0 = blockIdx.x * kDBlock, d = d0 + dl;
@@ -342,8 +358,15 @@ cudaError_t launch(const Inputs& in, const float* A, const float* h0, float* y, 
   constexpr int kChunkedNG = N / 8 > 2 ? N / 8 : 2;
   if (ng != (chunked ? kChunkedNG : kDirectNG)) return cudaErrorInvalidValue;
   if (chunked) {
+    constexpr size_t smem = sizeof(ChunkRing<N, N / kChunkedNG>);
+    if constexpr (smem > 48 * 1024) {
+      // once per process, on the first (eager) launch
+      static const cudaError_t opt_in = cudaFuncSetAttribute(
+          scan_chunked<N, kChunkedNG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (opt_in != cudaSuccess) return opt_in;
+    }
     const dim3 grid((D + kDBlock - 1) / kDBlock, B);
-    scan_chunked<N, kChunkedNG><<<grid, kDBlock * (N / kChunkedNG), 0, stream>>>(
+    scan_chunked<N, kChunkedNG><<<grid, kDBlock * (N / kChunkedNG), smem, stream>>>(
         in, A, h0, y, h_out, S, D);
   } else {
     const size_t threads = (size_t)B * D * (N / kDirectNG);
@@ -360,7 +383,7 @@ cudaError_t launch(const Inputs& in, const float* A, const float* h0, float* y, 
 // (b, t, n) at b * b_sb + t * b_st + n (c_sb, c_st for Cm);
 // A: (D, N) f32; h0: (B, D, N) f32 or null; y: (B, S, D) f32; h_out:
 // (B, D, N) f32 (may be h0).  A, h0 and h_out 16-byte aligned.  N in
-// {4, 8, 16, 32}; ng (states a thread) and chunked (which kernel) from the
+// {4, 8, 16, 32, 64}; ng (states a thread) and chunked (which kernel) from the
 // wrapper's launch_plan, which the builds above must match.
 extern "C" int selective_scan(const void* x, const void* dt, const void* Bm, const void* Cm,
                               const void* A, const void* h0, void* y, void* h_out, int B,
@@ -379,6 +402,7 @@ extern "C" int selective_scan(const void* x, const void* dt, const void* Bm, con
     case 8: return launch<8>(in, a, h, yo, ho, B, S, D, ng, chunked, st);
     case 16: return launch<16>(in, a, h, yo, ho, B, S, D, ng, chunked, st);
     case 32: return launch<32>(in, a, h, yo, ho, B, S, D, ng, chunked, st);
+    case 64: return launch<64>(in, a, h, yo, ho, B, S, D, ng, chunked, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -12,7 +12,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 
-STATE_SIZES = (4, 8, 16, 32)       # N
+STATE_SIZES = (4, 8, 16, 32, 64)   # N (64: the mamba2 block)
 SHORT_S = 8                        # S at or below: the direct kernel
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 

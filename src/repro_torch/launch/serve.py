@@ -8,6 +8,13 @@ self-tuning, on the CUDA device by default.
   # full-width falcon-mamba-7b (ssm family, selective-scan kernel):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
 
+  # full-width zamba2-1.2b (hybrid family: mamba2 blocks through the scan
+  # kernel at N = 64, a shared attention block through the flash and
+  # paged-attention kernels), self-tuned and warm-started from a tuning
+  # store that every run reads and adds to:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --selftune --tuning-store /path/to/store
+
   # self-tuning (the tuner learns the serving setting online and applies
   # it by staged or stop-the-world reconfiguration), with a Chrome trace
   # (+ PATH.audit.jsonl, the tuner's decisions) and the attribution panel:
@@ -19,10 +26,16 @@ self-tuning, on the CUDA device by default.
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --reduced --device cpu --selftune
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --reduced --device cpu --selftune --tuning-store /tmp/store
 
-Weights are random, drawn from ``--seed``.  ``--tuning-store`` and the
-hybrid, moe, vlm and encoder archs come with later slices of the port and
-raise ``NotImplementedError``.
+Weights are random, drawn from ``--seed``.  ``--tuning-store DIR`` (with
+``--selftune``) keeps the JAX package's store layout, so either package
+reads a store the other wrote: the run starts from the golden incumbent
+of the nearest signature, the tuner absorbs that signature's observations
+and skips init settings, and on exit the store is compacted and its
+``GOLDEN.json`` rewritten.  The moe, vlm and encoder archs come with later
+slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,6 +55,7 @@ from repro_torch.serving import (DEFAULT_SERVING_SETTING,
                                  ServingObjective, serve_loop,
                                  serving_knob_space)
 from repro_torch.serving.workload import make_trace
+from repro_torch.store import TuningStore, lookup, signature_from_trace
 
 
 def trace_kwargs(scenario: str, prompt_len: int, gen: int, max_seq: int):
@@ -66,12 +80,15 @@ def trace_kwargs(scenario: str, prompt_len: int, gen: int, max_seq: int):
 def selftune_manager(engine, space, setting: dict, *, window: int = 40,
                      init_settings: int = 5, seed: int = 0,
                      drift_z: float = 3.0, slo_s: float = 3.0,
-                     tracer=None) -> TuningManager:
+                     tracer=None, store=None,
+                     signature=None) -> TuningManager:
     """The tuner of ``--selftune``: a TuningManager over ``space`` that
     scores the engine with the SLO-penalized ServingObjective, classifies
     the pool knobs as Type I-b, closes a window after ``window`` quanta or
     2 s of tick time, and amortizes switch costs over a horizon learned
-    from observed load drift (20 s before the first drift)."""
+    from observed load drift (20 s before the first drift).  With a
+    ``store`` and ``signature`` it warm-starts from the store and writes
+    what it learns back."""
     return TuningManager(
         space, setting,
         TunerConfig(eps=1e-6, a=window, b=init_settings, seed=seed,
@@ -79,7 +96,30 @@ def selftune_manager(engine, space, setting: dict, *, window: int = 40,
                     amortize_horizon_s=20.0, adapt_horizon=True),
         objective=ServingObjective(engine, slo_p99_s=slo_s),
         reconfig_knob_classes={"mesh_knobs": SERVING_RELAYOUT_KNOBS},
-        tracer=tracer)
+        tracer=tracer, store=store, signature=signature)
+
+
+def open_store(path: str, engine, cfg, max_seq: int, trace,
+               duration_s: float, setting: dict):
+    """The tuning store at ``path``, this run's signature, and the start
+    setting: the golden incumbent of the nearest signature (applied to
+    ``engine``) when the store holds observations, else ``setting``."""
+    store = TuningStore(path)
+    sig = signature_from_trace(cfg, engine.pool.kind, max_seq, trace,
+                               duration_s)
+    entry, _, tier = (lookup(store.build_golden(), sig)
+                      if store.read_records(kinds=("obs",))
+                      else (None, None, None))
+    if entry is None:
+        print(f"tuning-store: no golden entry for {sig.key}", flush=True)
+        return store, sig, setting
+    golden = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in entry["incumbent"]["setting"].items()}
+    setting = dict(setting, **golden)
+    engine.reconfigure(setting)
+    print(f"tuning-store: golden incumbent {golden} ({tier} match, "
+          f"{entry['n_obs']} obs) -> start setting", flush=True)
+    return store, sig, setting
 
 
 def main(argv=None):
@@ -97,7 +137,8 @@ def main(argv=None):
     ap.add_argument("--selftune", action="store_true",
                     help="tune serving knobs online while serving")
     ap.add_argument("--tuning-store", default=None, metavar="DIR",
-                    help="not ported yet (later slice)")
+                    help="fleet tuning store (with --selftune): warm-start "
+                         "from it and add this run's observations")
     ap.add_argument("--scenario", default="poisson",
                     choices=("poisson", "bursty", "diurnal", "mixed_lengths",
                              "shared_prefix", "long_prompt"),
@@ -126,10 +167,6 @@ def main(argv=None):
                          "--selftune is on")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
-    if args.tuning_store:
-        raise NotImplementedError(
-            "--tuning-store is not ported yet: the tuning store comes with "
-            "a later slice of the port")
     if args.prompt_len + args.gen > args.max_seq:
         raise SystemExit(f"--prompt-len + --gen ({args.prompt_len}+{args.gen})"
                          f" must fit in --max-seq ({args.max_seq})")
@@ -156,6 +193,11 @@ def main(argv=None):
               f"kernels in {time.perf_counter() - t0:.1f}s", flush=True)
     trace = make_trace(args.scenario, args.rate, args.duration,
                        vocab=cfg.vocab_size, seed=args.seed, **trace_kw)
+    store = sig = None
+    if args.tuning_store and args.selftune:
+        store, sig, setting = open_store(args.tuning_store, engine, cfg,
+                                         args.max_seq, trace, args.duration,
+                                         setting)
     # the tracer goes on after warm-start, so the attribution panel covers
     # the serving run, not startup (a --cold run still shows its captures:
     # they fire inside ticks and reconfiguration windows as exec.build)
@@ -168,7 +210,14 @@ def main(argv=None):
         tuner = selftune_manager(
             engine, space, setting, window=args.window,
             init_settings=args.init_settings, seed=args.seed,
-            drift_z=args.drift_z, slo_s=args.slo, tracer=tracer)
+            drift_z=args.drift_z, slo_s=args.slo, tracer=tracer,
+            store=store, signature=sig)
+        ws = tuner.warm_start_info
+        if ws is not None:
+            print(f"tuning-store: warm-start absorbed {ws['absorbed_obs']} "
+                  f"obs (tier={ws['tier']}, skipped "
+                  f"{ws['init_settings_skipped']} init settings"
+                  f"{', READ-ONLY' if ws['read_only'] else ''})", flush=True)
     mode = "selftune" if args.selftune else f"fixed(max_batch={args.batch})"
     print(f"arch={cfg.name} family={cfg.family} pool={engine.pool.kind} "
           f"device={device} scenario={args.scenario} rate={args.rate}rps "
@@ -191,6 +240,16 @@ def main(argv=None):
         print(f"reconfigurations: {stats['reconfig_count']} "
               f"({stats['reconfig_total_s']:.2f}s total), "
               f"final setting: {stats['final_setting']}")
+    if store is not None:
+        # release the shared lock, fold this run's segment in, refresh the
+        # golden table: the next process warm-starts from all of it
+        tuner.close_store()
+        compacted = store.compact()
+        table = store.write_golden()
+        print(f"tuning-store: {len(table['entries'])} golden entries -> "
+              f"{store.golden_path}"
+              f"{'' if compacted else ' (compaction skipped: store busy)'}",
+              flush=True)
     if tracer is not None:
         audit = tuner.audit if tuner is not None else None
         attr = time_attribution(tracer, stats["wall_s"], audit=audit)

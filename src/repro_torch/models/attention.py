@@ -1,5 +1,6 @@
-"""GQA attention: the prefill and training path, the paged decode path and
-the plain dense decode path.
+"""GQA attention: the prefill and training path, the paged decode path, the
+hybrid's slab decode (the paged path over a dense slab viewed as blocks)
+and the plain dense decode path.
 
 CUDA tensors go to the hand-written kernels (``repro_torch.kernels``);
 CPU tensors run plain PyTorch versions.  In training (autograd on) the
@@ -141,6 +142,36 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, *, pos,
     kvp = torch.arange(w * bs, device=q.device)
     mask = kvp[None, None, None, :] <= q_pos[:, None, :, None]
     return _masked_attention(q, kb, vb, mask)
+
+
+def slab_block(max_seq: int) -> int:
+    """Rows of one block of a slab's block view: 16 (a block size of the
+    paged-attention kernel), or the largest power of two dividing
+    ``max_seq``."""
+    return next(bs for bs in (16, 8, 4, 2, 1) if max_seq % bs == 0)
+
+
+def identity_tables(n_slots: int, max_seq: int, device):
+    """Block tables of a slab (n_slots, max_seq, K, hd) viewed as blocks
+    of ``slab_block(max_seq)`` rows: slot b's column j is block
+    b * cols + j.  (n_slots, cols) int32."""
+    cols = max_seq // slab_block(max_seq)
+    return torch.arange(n_slots * cols, dtype=torch.int32,
+                        device=device).view(n_slots, cols)
+
+
+def slab_decode_attention(q, k_slab, v_slab, tables, *, pos):
+    """Attention of S query tokens over a dense per-slot KV slab (B,
+    max_seq, K, hd), the hybrid's shared-block cache: JAX's dense
+    ``decode_attention``.  The slab is viewed without a copy as blocks of
+    ``slab_block(max_seq)`` rows addressed by ``identity_tables``, so on
+    CUDA the paged-attention kernel reads it in place (and on the CPU the
+    paged path's plain version gathers it back whole)."""
+    B, T, K, hd = k_slab.shape
+    bs = T // tables.shape[1]
+    return paged_decode_attention(q, k_slab.view(B * T // bs, bs, K, hd),
+                                  v_slab.view(B * T // bs, bs, K, hd),
+                                  tables, pos=pos)
 
 
 def decode_attention(q, k_cache, v_cache, *, pos):

@@ -1,6 +1,9 @@
 """Decoder LM: parameters, prefill, decode and training (the loss), for
-the dense family (attention + SwiGLU MLP, paged KV decode) and the ssm
-family (mamba1 blocks, recurrent-state decode; training raises).
+the dense family (attention + SwiGLU MLP, paged KV decode), the ssm family
+(mamba1 blocks, recurrent-state decode) and the hybrid family (zamba2:
+mamba2 blocks and one shared attention + MLP block applied every
+``shared_attn_every`` layers, whose KV lives in a dense per-slot slab);
+training runs for the dense family and raises for the other two.
 
 The port of the JAX package's ``models/lm.py``.  Parameters are a nested
 dict of tensors with the JAX tree's keys: layer weights are stacked on a
@@ -11,15 +14,16 @@ of the stacked tensors.
 Decode writes the new state into the cache it is given *in place* (JAX
 returns rebuilt arrays): the dense family's KV rows into the paged pool's
 ``cache["k"]``/``cache["v"]``, the ssm family's conv window and SSM state
-into ``cache["conv"]``/``cache["h"]``; ``decode_step`` returns the same
-dict it was given.
+into ``cache["conv"]``/``cache["h"]``, and the hybrid family's shared
+block's KV rows into ``cache["shared_k"]``/``cache["shared_v"]``;
+``decode_step`` returns the same dict it was given.
 
 Training (``mode="train"``, ``loss_fn``) keeps no KV and writes nothing
 in place; autograd runs through it, with each layer optionally
 recomputed in the backward (``ModelKnobs.remat``).
 
-Other families (hybrid, moe, vlm, encoder) are served by later slices of
-the port and raise ``NotImplementedError``.
+Other families (moe, vlm, encoder) are served by later slices of the port
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,7 +31,6 @@ import functools
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -35,11 +38,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common
 from repro_torch.models.attention import (chunked_attention, decode_attention,
-                                          paged_decode_attention)
-from repro_torch.models.mamba import mamba1_block
+                                          identity_tables,
+                                          paged_decode_attention,
+                                          slab_decode_attention)
+from repro_torch.models.mamba import mamba1_block, mamba2_block
 
 ZERO_INIT = ("scale", "bq", "bk", "bv",     # norm gains (1 + scale), biases
-             "conv_b", "dt_b")
+             "conv_b", "dt_b", "dt_bias2", "gnorm", "A_log2")
 
 
 @dataclass(frozen=True)
@@ -61,14 +66,15 @@ class ModelKnobs:
 
 
 def check_family(cfg: ModelConfig):
-    if cfg.family == "dense" or (cfg.family == "ssm"
-                                 and cfg.ssm_version == 1):
+    if (cfg.family == "dense"
+            or (cfg.family == "ssm" and cfg.ssm_version == 1)
+            or (cfg.family == "hybrid" and cfg.ssm_version == 2)):
         return
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet: the port serves the "
-        f"dense family and the ssm family (mamba1); hybrid (mamba2 + shared "
-        f"attention), moe, vlm and encoder come with a later 'other "
-        f"families' slice")
+        f"dense family, the ssm family (mamba1) and the hybrid family "
+        f"(mamba2 + shared attention); moe, vlm and encoder come with a "
+        f"later 'other families' slice")
 
 
 def _pdt(cfg: ModelConfig):
@@ -83,34 +89,48 @@ def param_shapes(cfg: ModelConfig) -> dict:
     """Nested dict of shapes, keyed as the JAX package's ``param_shapes``."""
     check_family(cfg)
     L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
-    if cfg.family == "ssm":
-        Di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-        layers = {"ln1": {"scale": (L, D)},
-                  "ssm": {"in_proj": (L, D, 2 * Di),
-                          "conv_w": (L, Di, cfg.ssm_conv), "conv_b": (L, Di),
-                          "out_proj": (L, Di, D),
-                          "x_proj": (L, Di, R + 2 * N), "dt_w": (L, R, Di),
-                          "dt_b": (L, Di), "A_log": (L, Di, N),
-                          "Dskip": (L, Di)}}
+    F_ = cfg.d_ff
+    if cfg.family in ("ssm", "hybrid"):
+        Di, N = cfg.d_inner, cfg.ssm_state
+        ssm = {"in_proj": (D, 2 * Di), "conv_w": (Di, cfg.ssm_conv),
+               "conv_b": (Di,), "out_proj": (Di, D)}
+        if cfg.ssm_version == 1:
+            R = cfg.dt_rank
+            ssm.update({"x_proj": (Di, R + 2 * N), "dt_w": (R, Di),
+                        "dt_b": (Di,), "A_log": (Di, N), "Dskip": (Di,)})
+        else:
+            nh = cfg.n_ssm_heads
+            ssm.update({"BC_proj": (D, 2 * N), "dt_proj2": (D, nh),
+                        "dt_bias2": (nh,), "A_log2": (nh,), "Dskip2": (nh,),
+                        "gnorm": (Di,)})
+        layer = {"ln1": {"scale": (D,)}, "ssm": ssm}
     else:
-        H, K, hd, F_ = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
-        attn = {"wq": (L, D, H * hd), "wk": (L, D, K * hd),
-                "wv": (L, D, K * hd), "wo": (L, H * hd, D)}
-        if cfg.qkv_bias:
-            attn.update({"bq": (L, H * hd), "bk": (L, K * hd),
-                         "bv": (L, K * hd)})
-        layers = {"ln1": {"scale": (L, D)}, "ln2": {"scale": (L, D)},
-                  "attn": attn,
-                  "mlp": {"wi": (L, D, F_), "wg": (L, D, F_),
-                          "wo": (L, F_, D)}}
+        layer = {"ln1": {"scale": (D,)}, "ln2": {"scale": (D,)},
+                 "attn": _attn_shapes(cfg),
+                 "mlp": {"wi": (D, F_), "wg": (D, F_), "wo": (F_, D)}}
     tree = {
         "embed": {"tokens": (V, D)},
-        "layers": layers,
+        "layers": _map_tree(layer, lambda _, s: (L,) + s),
         "final_norm": {"scale": (D,)},
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": (D, V)}
+    if cfg.shared_attn_every:
+        # the hybrid's one shared attention + MLP block: not stacked
+        tree["shared"] = {"ln1": {"scale": (D,)}, "ln2": {"scale": (D,)},
+                          "attn": _attn_shapes(cfg),
+                          "mlp": {"wi": (D, F_), "wg": (D, F_),
+                                  "wo": (F_, D)}}
     return tree
+
+
+def _attn_shapes(cfg: ModelConfig) -> dict:
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {"wq": (D, H * hd), "wk": (D, K * hd), "wv": (D, K * hd),
+         "wo": (H * hd, D)}
+    if cfg.qkv_bias:
+        p.update({"bq": (H * hd,), "bk": (K * hd,), "bv": (K * hd,)})
+    return p
 
 
 def _map_tree(tree: dict, fn, path=()):
@@ -123,8 +143,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default: the CUDA device; raises without one unless ``device`` is
     given): truncated normal on [-2, 2] over sqrt(fan_in), with norm gains
-    and biases zero, and the ssm fix-ups ``A_log = log(1..N)`` and
-    ``Dskip = 1`` — the JAX package's distributions, not its numbers."""
+    and biases zero, and the ssm fix-ups ``A_log = log(1..N)``,
+    ``A_log2 = 0``, ``dt_bias2 = gnorm = 0`` and ``Dskip = Dskip2 = 1`` —
+    the JAX package's distributions, not its numbers."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -135,7 +156,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             a = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
                                        device=dev))
             return a.expand(shape).to(dt)
-        if path[-1] == "Dskip":
+        if path[-1] in ("Dskip", "Dskip2"):
             return torch.ones(shape, dtype=dt, device=dev)
         if len(shape) <= 1 or path[-1] in ZERO_INIT:
             return torch.zeros(shape, dtype=dt, device=dev)
@@ -162,13 +183,17 @@ def paged_rows(positions, block_tables, block_size: int):
 
 
 def _attn_apply(x, p, cfg: ModelConfig, knobs: ModelKnobs, positions, rope,
-                cache=None, pos=None, block_tables=None, rows=None):
-    """Returns (out, new_kv): the (k, v) activations in prefill, the paged
-    pool pair (written in place) in decode.
+                cache=None, pos=None, block_tables=None, rows=None,
+                slab=False):
+    """Returns (out, new_kv): the (k, v) activations in prefill, the cache
+    pair (written in place) in decode.
 
     ``rope``: the (cos, sin) tables of ``positions``; ``rows``: the
-    ``paged_rows`` the S >= 1 new tokens write in decode (S > 1 = chunked
-    prefill against prior blocks)."""
+    (block, offset) rows the S >= 1 new tokens write in decode (S > 1 =
+    chunked prefill against prior blocks).  The cache is the paged pool
+    (NB, bs, K, hd) with the requests' ``block_tables``, or (``slab``) the
+    hybrid's dense slab (B, max_seq, K, hd) with ``rows`` from
+    ``slab_rows`` and ``block_tables`` its identity tables."""
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
@@ -184,11 +209,14 @@ def _attn_apply(x, p, cfg: ModelConfig, knobs: ModelKnobs, positions, rope,
                                 kv_positions=positions,
                                 k_chunk=knobs.k_chunk)
         new_kv = (k, v)
-    else:                                   # decode: paged (NB, bs, K, hd)
+    else:                                   # decode: write, then attend
         k_cache, v_cache = cache
         k_cache[rows] = k.to(k_cache.dtype)
         v_cache[rows] = v.to(v_cache.dtype)
-        if knobs.attn_impl == "gather":
+        if slab:
+            out = slab_decode_attention(q, k_cache, v_cache, block_tables,
+                                        pos=pos)
+        elif knobs.attn_impl == "gather":
             NB, bs = k_cache.shape[:2]
             MB = block_tables.shape[1]
             bt = block_tables.long()
@@ -203,7 +231,28 @@ def _attn_apply(x, p, cfg: ModelConfig, knobs: ModelKnobs, positions, rope,
 
 
 def _mlp_apply(x, p):
-    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+    return (common.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+
+
+def slab_rows(positions, max_seq: int):
+    """(slot, position) rows of a dense slab that S >= 1 new tokens write:
+    positions clamped to ``max_seq - 1``, as the JAX dense decode clamps
+    them (a request never reads a row past its own position)."""
+    b = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    return b, torch.clamp(positions, max=max_seq - 1)
+
+
+def _shared_block(x, p, cfg: ModelConfig, knobs: ModelKnobs, positions,
+                  rope, cache=None, pos=None, tables=None, rows=None):
+    """Zamba2's shared attention + MLP block (one weight set, applied every
+    ``shared_attn_every`` layers).  Returns (x, kv) as ``_attn_apply``."""
+    h, kv = _attn_apply(common.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps),
+                        p["attn"], cfg, knobs, positions, rope, cache, pos,
+                        block_tables=tables, rows=rows, slab=True)
+    x = x + h
+    x = x + _mlp_apply(common.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps),
+                       p["mlp"])
+    return x, kv
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -252,10 +301,14 @@ def forward(params, tokens, cfg: ModelConfig,
     pool written in place (``mode="decode"``, ``pos`` (B,) the first write
     position).  ssm: the stacked prefill state (conv (L, B, Di, K-1), h
     (L, B, Di, N) f32), or the decode cache written in place (``pos`` is
-    not read).
+    not read).  hybrid: the same with h (L, B, nh, P, N), and the shared
+    block's KV, (n_apps, B, S, K, hd) in prefill or the slab
+    ``shared_k``/``shared_v`` (n_apps, B, max_seq, K, hd) written in place
+    at ``pos`` in decode.
 
     ``mode="train"`` (dense only): no cache (None), nothing written in
-    place, each layer under ``knobs.remat``; the ssm family raises.
+    place, each layer under ``knobs.remat``; the ssm and hybrid families
+    raise.
 
     ``valid_len`` (int or (1,) int64 tensor, prefill only): non-pad tokens
     of a right-padded batch.  Attention ignores it (the causal mask and the
@@ -265,19 +318,20 @@ def forward(params, tokens, cfg: ModelConfig,
     check_family(cfg)
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode {mode!r}: prefill | decode | train")
-    if mode == "train" and cfg.family != "ssm":
+    if mode == "train" and cfg.family == "dense":
         return _forward_train(params, tokens, cfg, knobs), None
     if mode == "train":
         raise NotImplementedError(
-            "ssm training is not ported yet: it needs a backward of the "
-            "selective scan (a later slice)")
+            f"{cfg.family} training is not ported yet: it needs a backward "
+            f"of the selective scan (a later slice)")
     x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         if mode != "prefill" or valid_len is None:
             valid_len = None
         elif not isinstance(valid_len, torch.Tensor):
             valid_len = torch.tensor([valid_len], device=x.device)
-        return _forward_ssm(params, x, cfg, mode, cache, valid_len)
+        return _forward_ssm(params, x, cfg, knobs, mode, cache, pos,
+                            valid_len)
     B, S, D = x.shape
     ar = torch.arange(S, device=x.device)
     if mode == "decode":
@@ -331,24 +385,60 @@ def _forward_train(params, tokens, cfg: ModelConfig, knobs: ModelKnobs):
     return common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
 
 
-def _forward_ssm(params, x, cfg: ModelConfig, mode: str, cache,
-                 valid_len=None):
-    """[mamba1] x L.  Decode hands each layer views of ``cache["conv"]``
-    and ``cache["h"]``, which the block updates in place."""
-    convs, hs = [], []
+def _forward_ssm(params, x, cfg: ModelConfig, knobs: ModelKnobs, mode: str,
+                 cache, pos=None, valid_len=None):
+    """[mamba1] x L (ssm), or [mamba2] x L with the shared block after
+    layers 0, k, 2k, ... (hybrid, k = ``shared_attn_every``).  Decode hands
+    each layer views of ``cache["conv"]`` and ``cache["h"]``, which the
+    block updates in place, and each application of the shared block its
+    slab ``cache["shared_k"][a]`` / ``cache["shared_v"][a]``, read through
+    ``cache["slab_tables"]`` (identity block tables; made here when the
+    cache has none)."""
+    block = mamba1_block if cfg.ssm_version == 1 else mamba2_block
+    every = cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    if every:
+        B, S, _ = x.shape
+        ar = torch.arange(S, device=x.device)
+        rows = tables = None
+        if mode == "decode":
+            positions = pos.long()[:, None] + ar[None, :]
+            pos = pos.to(torch.int32)
+            max_seq = cache["shared_k"].shape[2]
+            rows = slab_rows(positions, max_seq)
+            tables = cache.get("slab_tables")
+            if tables is None:
+                tables = identity_tables(B, max_seq, x.device)
+        else:
+            positions = ar[None, :].expand(B, S)
+        rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
+    convs, hs, sk, sv = [], [], [], []
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         st = ({"conv": cache["conv"][i], "h": cache["h"][i]}
               if mode == "decode" else None)
-        h, new_st = mamba1_block(common.rms_norm(x, lp["ln1"]["scale"],
-                                                 cfg.norm_eps),
-                                 lp["ssm"], cfg, st, valid_len)
+        h, new_st = block(common.rms_norm(x, lp["ln1"]["scale"],
+                                          cfg.norm_eps),
+                          lp["ssm"], cfg, st, valid_len)
         x = x + h
         if mode == "prefill":
             convs.append(new_st["conv"])
             hs.append(new_st["h"])
-    new_cache = ({"conv": torch.stack(convs), "h": torch.stack(hs)}
-                 if mode == "prefill" else cache)
+        if every and i % every == 0:
+            a = i // every
+            c = ((cache["shared_k"][a], cache["shared_v"][a])
+                 if mode == "decode" else None)
+            x, kv = _shared_block(x, params["shared"], cfg, knobs, positions,
+                                  rope, c, pos, tables, rows)
+            if mode == "prefill":
+                sk.append(kv[0])
+                sv.append(kv[1])
+    if mode == "prefill":
+        new_cache = {"conv": torch.stack(convs), "h": torch.stack(hs)}
+        if every:
+            new_cache.update(shared_k=torch.stack(sk),
+                             shared_v=torch.stack(sv))
+    else:
+        new_cache = cache
     x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return x, new_cache
 
@@ -402,17 +492,34 @@ def init_paged_cache_shapes(cfg: ModelConfig, n_blocks: int,
     return {"k": shape, "v": shape}
 
 
-def init_cache_shapes(cfg: ModelConfig, batch: int) -> dict:
-    """Shapes of the ssm family's per-slot decode state: conv (L, B, Di,
-    K-1) (the pool's dtype) and h (L, B, Di, N) (always f32) — no sequence
-    axis.  The dense family decodes from the paged pool
-    (``init_paged_cache_shapes``)."""
+def init_cache_shapes(cfg: ModelConfig, batch: int,
+                      max_seq: int | None = None) -> dict:
+    """Shapes of the ssm and hybrid families' per-slot decode state: conv
+    (L, B, Di, K-1) (the pool's dtype) and h (L, B, Di, N) or, for mamba2,
+    (L, B, nh, P, N) (always f32); the hybrid adds its shared block's KV
+    slab ``shared_k`` / ``shared_v`` (n_apps, B, max_seq, K, hd), the one
+    state with a sequence axis, so it needs ``max_seq``.  The dense family
+    decodes from the paged pool (``init_paged_cache_shapes``)."""
     check_family(cfg)
-    if cfg.family != "ssm":
+    if cfg.family not in ("ssm", "hybrid"):
         raise ValueError(f"family {cfg.family!r} decodes from the paged pool")
-    L, Di = cfg.n_layers, cfg.d_inner
-    return {"conv": (L, batch, Di, cfg.ssm_conv - 1),
-            "h": (L, batch, Di, cfg.ssm_state)}
+    L, Di, B = cfg.n_layers, cfg.d_inner, batch
+    out = {"conv": (L, B, Di, cfg.ssm_conv - 1),
+           "h": ((L, B, Di, cfg.ssm_state) if cfg.ssm_version == 1 else
+                 (L, B, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state))}
+    if cfg.family == "hybrid":
+        if max_seq is None:
+            raise ValueError("the hybrid family's KV slab needs max_seq")
+        slab = (n_shared_apps(cfg), B, max_seq, cfg.n_kv_heads, cfg.hd)
+        out.update(shared_k=slab, shared_v=slab)
+    return out
+
+
+def n_shared_apps(cfg: ModelConfig) -> int:
+    """Applications of the hybrid's shared block: after layers 0, k, 2k,
+    ... (k = ``shared_attn_every``)."""
+    every = cfg.shared_attn_every
+    return -(-cfg.n_layers // every)
 
 
 def prefill(params, tokens, cfg: ModelConfig,

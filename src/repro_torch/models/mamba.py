@@ -1,26 +1,27 @@
-"""Mamba1 block (falcon-mamba, the ssm family): the port of the JAX
-package's ``models/mamba.py`` for ``ssm_version == 1``.
+"""Mamba blocks: mamba1 (falcon-mamba, the ssm family) and mamba2 (zamba2,
+the hybrid family), the port of the JAX package's ``models/mamba.py``.
 
 The selective scan runs in the hand-written kernel
-(``repro_torch.kernels.mamba_scan``) in every mode of ``mamba1_block``:
-full sequence (``state=None``, the scan starts from zeros), and decode of
+(``repro_torch.kernels.mamba_scan``) in every mode of both blocks: full
+sequence (``state=None``, the scan starts from zeros), and decode of
 S >= 1 tokens from a stored state.  The projections, the causal conv, the
-softplus, the ``Dskip`` term and the ``silu(z)`` gate stay plain PyTorch,
-as the JAX package computes them outside any Pallas kernel.
+softplus, the skip term and the gates stay plain PyTorch, as the JAX
+package computes them outside any Pallas kernel.  The mamba2 recurrence
+(a scalar A per head, one B/C group) is the mamba1 recurrence over
+channels d = (head, p), with a head's dt and A repeated over its P
+channels: the same kernel at N = 64.
 
-State is ``{"conv": (B, Di, K-1), "h": (B, Di, N) f32}``.  Where the JAX
-block returns a new state, decode here writes it into the ``state``
-tensors it was given, *in place* (the scan kernel writes ``h`` over
-itself), and returns that same dict.
-
-``mamba2_block`` (the hybrid family) comes with a later slice.
+State is ``{"conv": (B, Di, K-1), "h": (B, Di, N) | (B, nh, P, N) f32}``.
+Where the JAX block returns a new state, decode here writes it into the
+``state`` tensors it was given, *in place* (the scan kernel writes ``h``
+over itself), and returns that same dict.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import selective_scan
+from repro_torch.models import common
 
 
 def _causal_conv1d(x, w, b, state=None, valid_len=None):
@@ -62,12 +63,12 @@ def mamba1_block(x, p, cfg, state=None, valid_len=None):
     xs, new_conv = _causal_conv1d(xs, p["conv_w"], p["conv_b"],
                                   None if state is None else state["conv"],
                                   valid_len)
-    xs = F.silu(xs)
+    xs = common.silu(xs)
 
     # the scan reads dt, Bm and Cm where they lie, in bf16 (Bm and Cm as
     # views of the x_proj output): widening to f32 is exact, so no cast
     dt_raw, Bm, Cm = (xs @ p["x_proj"]).split([R, N, N], dim=-1)
-    dt = F.softplus(dt_raw @ p["dt_w"] + p["dt_b"])          # (B, S, Di)
+    dt = common.softplus(dt_raw @ p["dt_w"] + p["dt_b"])     # (B, S, Di)
     if valid_len is not None:
         # zeroed dt makes a step a no-op (dA = exp(0) = 1, update = 0), so
         # right-pad tokens pass the recurrent state through unchanged
@@ -78,7 +79,7 @@ def mamba1_block(x, p, cfg, state=None, valid_len=None):
     y, new_h = selective_scan(xs, dt, Bm, Cm, A, h0, h_out=h0)
 
     y = y + p["Dskip"].float() * xs.float()
-    y = y.to(x.dtype) * F.silu(z)
+    y = y.to(x.dtype) * common.silu(z)
     out = y @ p["out_proj"]
     if state is None:
         return out, {"conv": new_conv, "h": new_h}
@@ -87,19 +88,55 @@ def mamba1_block(x, p, cfg, state=None, valid_len=None):
 
 
 def mamba2_block(x, p, cfg, state=None, valid_len=None):
-    raise NotImplementedError(
-        "mamba2_block is not ported yet: it comes with the hybrid slice of "
-        "the port (zamba2)")
+    """Zamba2 block (single B/C group, scalar A per head).  x: (B, S, D)
+    bf16.  Returns (out, state) as ``mamba1_block`` does; h is (B, nh, P,
+    N) f32.  Every input of the recurrence is f32, as in the JAX block:
+    rounding x, dt, B or C to bf16 would move the result off it."""
+    B, S, D = x.shape
+    Di, N = cfg.d_inner, cfg.ssm_state
+    P, nh = cfg.ssm_head_dim, cfg.n_ssm_heads
+
+    xs, z = (x @ p["in_proj"]).split(Di, dim=-1)             # (B, S, Di) x2
+    xs, new_conv = _causal_conv1d(xs, p["conv_w"], p["conv_b"],
+                                  None if state is None else state["conv"],
+                                  valid_len)
+    xs = common.silu(xs)
+
+    # f32 views of one f32 copy, last stride 1: the scan reads them there
+    Bm, Cm = (x @ p["BC_proj"]).float().split(N, dim=-1)     # (B, S, N) x2
+    dt = common.softplus(x @ p["dt_proj2"] + p["dt_bias2"]).float()
+    if valid_len is not None:
+        # as in mamba1: dt = 0 at pad positions passes the state through
+        pad = torch.arange(S, device=x.device) >= valid_len
+        dt = dt.masked_fill(pad[None, :, None], 0.0)         # (B, S, nh)
+    A = -torch.exp(p["A_log2"].float())                      # (nh,)
+    xf = xs.float()                                          # (B, S, Di)
+    # a head's dt and A over its P channels (the kernel reads dt dense)
+    dt_d = dt[..., None].expand(B, S, nh, P).reshape(B, S, Di)
+    A_d = A[:, None, None].expand(nh, P, N).reshape(Di, N)
+    h0 = None if state is None else state["h"].view(B, Di, N)
+    y, new_h = selective_scan(xf, dt_d, Bm, Cm, A_d, h0, h_out=h0)
+
+    Dskip = p["Dskip2"].float()[:, None].expand(nh, P).reshape(Di)
+    y = y + Dskip * xf
+    # gated RMSNorm, in f32
+    y = y * common.silu(z.float())
+    var = y.square().mean(dim=-1, keepdim=True)
+    y = y * torch.rsqrt(var + cfg.norm_eps)
+    y = (y * (1.0 + p["gnorm"].float())).to(x.dtype)
+    out = y @ p["out_proj"]
+    if state is None:
+        return out, {"conv": new_conv, "h": new_h.view(B, nh, P, N)}
+    state["conv"].copy_(new_conv)
+    return out, state
 
 
 def init_mamba_state(cfg, batch: int, dtype=torch.float32, device=None):
-    """Zero state of ``batch`` requests: conv window in ``dtype``, h f32."""
-    if cfg.ssm_version != 1:
-        raise NotImplementedError(
-            "mamba2 state is not ported yet: it comes with the hybrid slice "
-            "of the port")
+    """Zero state of ``batch`` requests: conv window in ``dtype``, h f32
+    ((B, Di, N) for mamba1, (B, nh, P, N) for mamba2)."""
     Di, K = cfg.d_inner, cfg.ssm_conv
+    h = ((batch, Di, cfg.ssm_state) if cfg.ssm_version == 1 else
+         (batch, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state))
     return {"conv": torch.zeros((batch, Di, K - 1), dtype=dtype,
                                 device=device),
-            "h": torch.zeros((batch, Di, cfg.ssm_state), dtype=torch.float32,
-                             device=device)}
+            "h": torch.zeros(h, dtype=torch.float32, device=device)}

@@ -1,5 +1,5 @@
 """Continuous-batching inference engine with online-reconfigurable knobs
-(dense and ssm families).
+(dense, ssm and hybrid families).
 
 The port of the JAX package's ``serving/engine.py`` main path:
 
@@ -9,11 +9,12 @@ The port of the JAX package's ``serving/engine.py`` main path:
     short bounded lookahead lets small requests pass a long prompt;
   * the state pool from ``make_state_pool`` (repro_torch.serving.pool):
     ``PagedKVPool`` (dense: paged KV blocks, block tables, copy-on-write
-    prompt-prefix sharing) or ``SSMStatePool`` (ssm: one recurrent state
-    per slot);
+    prompt-prefix sharing) or ``SSMStatePool`` (ssm and hybrid: one
+    recurrent state per slot, and the hybrid's shared-block KV slab);
   * prefill per request at batch 1, padded to a multiple of
     ``prefill_chunk`` (flash-attention kernel; for ssm the selective-scan
-    kernel, with the state stopped at the last prompt token); a prompt
+    kernel, with the state stopped at the last prompt token, and the
+    hybrid's shared block through the flash kernel); a prompt
     whose prefix is cached in a paged pool computes only its suffix, as
     one multi-token paged decode step against the shared blocks
     (paged-attention kernel);
@@ -21,11 +22,13 @@ The port of the JAX package's ``serving/engine.py`` main path:
     reads KV blocks in place through the block table (paged-attention
     kernel), per context bucket so short batches read only their live
     blocks; ssm decode continues each slot's stored state (selective-scan
-    kernel);
+    kernel), and the hybrid's shared block reads its slab through the
+    paged-attention kernel;
   * speculative decoding (``spec_k`` > 0): a drafter proposes k tokens a
     slot, one S = k+1 decode step verifies them, and the rejected tail is
     rolled back — the pool's deferred copy-on-write records (paged), or a
-    snapshot of the state and a replay of the accepted tokens (ssm);
+    snapshot of the recurrent state and a replay of the accepted tokens
+    (ssm, hybrid);
   * ``quant="int8"`` re-quantizes freshly written KV rows through the
     int8 quantize/dequantize kernels.  ``quant`` and ``prefix_share``
     apply to paged pools only and are ignored for ssm pools, as in the
@@ -477,7 +480,7 @@ class ServingEngine:
                                                   for k, v in kv.items()},
                                            start=0)
                 else:
-                    self.pool.write_prefill(slot, pcache)
+                    self.pool.write_prefill(slot, pcache, P)
             self.prefill_tokens_computed += P
         self.prefill_tokens_total += P
         req.tokens_out = [tok]
@@ -627,7 +630,11 @@ class ServingEngine:
         in place, in order of accepted length: each continues from where
         the last stopped (the state after ``done`` tokens) with the next
         ``L - done`` tokens, and then the slots that accepted L tokens copy
-        their rows into the pool.  Each width is one step, 1..k."""
+        their rows of the snapshot's leaves into the pool.  Each width is
+        one step, 1..k.  The hybrid's slab is not snapshotted: the replay
+        steps write its rows at the replayed positions again, and rows of
+        rejected positions are masked and rewritten before any query reads
+        them (``_spec_decode``)."""
         partial = sorted({accepted_len[s] for s in active
                           if accepted_len[s] < S})
         done = 0
@@ -638,8 +645,8 @@ class ServingEngine:
                 self._stage("tok", tok[:, done:L], torch.long),
                 self._stage("pos", pos0 + done))
             idx = self._stage("slots", slots, torch.long)
-            for name, t in self.pool.state.items():
-                t[:, idx] = self.pool.saved[name][:, idx]
+            for name in self.pool.SNAPSHOT:
+                self.pool.state[name][:, idx] = self.pool.saved[name][:, idx]
             done = L
 
     # ---------------------------------------------------------------- tick

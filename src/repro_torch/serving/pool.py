@@ -8,10 +8,11 @@
     a chained hash of the block's tokens — so identical prompt prefixes
     are prefilled once.  Admission is block-granular: a request reserves
     ``ceil(tokens / block_size)`` blocks under an overcommit budget.
-  * ``SSMStatePool`` (ssm family): per-slot recurrent state (conv window +
-    SSM state).  No sequence axis — a slot is O(1) memory at any sequence
-    length, so admission is slot-granular and there is nothing to page or
-    share.
+  * ``SSMStatePool`` (ssm and hybrid families): per-slot recurrent state
+    (conv window + SSM state).  No sequence axis — a slot is O(1) memory at
+    any sequence length, so admission is slot-granular and there is
+    nothing to page or share.  The hybrid's shared attention block keeps
+    its KV in a dense per-slot slab beside it.
 
 The host bookkeeping (tables, refcounts, prefix cache, budget, slots) is
 the JAX package's numpy logic unchanged, so both packages make the same
@@ -37,8 +38,6 @@ themselves, so a step captured against them before the commit is the
 step of the new pool.  Either way the tensors the engine's steps captured
 are replaced, and the engine drops those steps.
 
-The hybrid family's shared-attention slab comes with a later slice of the
-port.
 """
 from __future__ import annotations
 
@@ -47,6 +46,7 @@ import torch
 
 from repro_torch.device import synchronize
 from repro_torch.models import lm
+from repro_torch.models.attention import identity_tables
 from repro_torch.ps.odmr import relocate_rows
 
 TRASH_BLOCK = 0     # physical block 0 is reserved: inactive/padded writes
@@ -796,30 +796,41 @@ class PagedKVPool(StatePool):
 
 
 class SSMStatePool(StatePool):
-    """Per-slot recurrent state for the ssm family.
+    """Per-slot recurrent state for the ssm and hybrid families.
 
     State has no sequence axis (conv window + SSM state are O(1) per slot),
     so admission is slot-granular and there is nothing to page or share.
-    ``cache_dtype`` applies to the conv window; the SSM state ``h`` stays
-    float32 — the recurrence accumulates, and truncating it is a
-    correctness knob, not an efficiency knob."""
+    The hybrid family's shared-attention KV rides along as a dense slab of
+    per-slot rows (``shared_k`` / ``shared_v``, (n_apps, slots, max_seq, K,
+    hd)), read through one identity block table (``slab_tables``).
+    ``cache_dtype`` applies to the conv window and the slab; the SSM state
+    ``h`` stays float32 — the recurrence accumulates, and truncating it is
+    a correctness knob, not an efficiency knob.  Every leaf has its slot on
+    axis 1."""
 
     kind = "ssm"
+    # the leaves a speculative verify must roll back: the slab's rows of
+    # rejected positions are masked (kv position <= query position) and
+    # rewritten in-step before any query reads them, so they need none
+    SNAPSHOT = ("conv", "h")
 
     def __init__(self, cfg, setting: dict, max_seq: int, device):
-        # max_seq bounds nothing here: the state has no sequence axis
         self.cfg = cfg
         self.device = torch.device(device)
+        self.max_seq = max_seq          # the slab's rows (hybrid only)
         self.setting = dict(setting)
         self._alloc(int(setting["max_batch"]))
 
     def _alloc(self, n_slots: int):
         self.n_slots = n_slots
         dt = pool_dtype(self.setting)
-        shapes = lm.init_cache_shapes(self.cfg, n_slots)  # raises if not ssm
+        shapes = lm.init_cache_shapes(self.cfg, n_slots, self.max_seq)
         self.state = {k: torch.zeros(s, dtype=torch.float32 if k == "h"
                                      else dt, device=self.device)
                       for k, s in shapes.items()}
+        self.slab_tables = (identity_tables(n_slots, self.max_seq,
+                                            self.device)
+                            if "shared_k" in self.state else None)
         self.slot_live = [False] * n_slots
         self.saved = None         # the speculative snapshot (save_state)
 
@@ -827,15 +838,18 @@ class SSMStatePool(StatePool):
         return ("ssm", self.n_slots, self.setting.get("cache_dtype"))
 
     def save_state(self) -> dict:
-        """Copy every slot's state into one persistent buffer (allocated at
-        the first call, then reused: the replay steps capture it by
-        address) and return it.  The decode step writes the state in place,
-        so a speculative verify needs this real copy to roll back from."""
+        """Copy every slot's ``SNAPSHOT`` leaves into one persistent buffer
+        (allocated at the first call, then reused: the replay steps capture
+        it by address) and return it, as a decode cache whose other leaves
+        (the slab and its tables) are the pool's own.  The decode step
+        writes the state in place, so a speculative verify needs this real
+        copy to roll back from."""
         if self.saved is None:
-            self.saved = {k: torch.empty_like(v)
-                          for k, v in self.state.items()}
-        for k, v in self.state.items():
-            self.saved[k].copy_(v)
+            self.saved = self.decode_cache()
+            self.saved.update({k: torch.empty_like(self.state[k])
+                               for k in self.SNAPSHOT})
+        for k in self.SNAPSHOT:
+            self.saved[k].copy_(self.state[k])
         return self.saved
 
     def try_admit(self, prompt: np.ndarray, max_new: int):
@@ -854,21 +868,29 @@ class SSMStatePool(StatePool):
         admission."""
         self.slot_live[slot] = False
 
-    def write_prefill(self, slot: int, pcache: dict):
-        """Land a batch-1 prefill's (L, 1, ...) state in ``slot`` (in
-        place, cast to the pool's dtypes); the prefill already stopped its
-        state at the last prompt token (``valid_len``)."""
+    def write_prefill(self, slot: int, pcache: dict, P: int):
+        """Land a batch-1 prefill's state in ``slot`` (in place, cast to the
+        pool's dtypes): the (L, 1, ...) leaves whole (the prefill already
+        stopped its state at the last prompt token, ``valid_len``), the
+        hybrid's (n_apps, 1, bucket, K, hd) KV rows up to the prompt's
+        length ``P``."""
         for k, v in pcache.items():
-            self.state[k][:, slot] = v[:, 0]
+            if k.startswith("shared"):
+                self.state[k][:, slot, :P] = v[:, 0, :P]
+            else:
+                self.state[k][:, slot] = v[:, 0]
 
     def decode_cache(self) -> dict:
         """Operands of the decode step: the pool's own state tensors, which
-        the step updates in place."""
-        return dict(self.state)
+        the step updates in place (and the slab's block tables)."""
+        cache = dict(self.state)
+        if self.slab_tables is not None:
+            cache["slab_tables"] = self.slab_tables
+        return cache
 
     def set_cache(self, new_cache: dict):
         """Adopt the state a decode step returns, pinned to the pool's
-        dtypes (h f32, conv the pool dtype)."""
+        dtypes (h f32, conv and slab the pool dtype)."""
         self.state = {k: new_cache[k].to(self.state[k].dtype)
                       for k in self.state}
 
@@ -879,9 +901,9 @@ class SSMStatePool(StatePool):
                  min_slots: int = 0) -> dict:
         """Type I-b re-layout: new state tensors for ``new_setting``'s slot
         count and dtype, the live slots' rows moved into them in slot order
-        (the conv window cast to the new dtype, h stays f32).  The
-        speculative snapshot goes with the old tensors.  Returns
-        {old_slot: new_slot}."""
+        along axis 1 of every leaf (conv and slab cast to the new dtype, h
+        stays f32).  The speculative snapshot goes with the old tensors.
+        Returns {old_slot: new_slot}."""
         live = sorted(live_extents)
         old_state = self.state
         self.setting = dict(new_setting)
@@ -897,8 +919,9 @@ class SSMStatePool(StatePool):
 
 def make_state_pool(cfg, setting: dict, max_seq: int, device):
     """Family dispatch: paged KV for the dense family, recurrent-state
-    slots for the ssm family; other families raise (later slices)."""
+    slots for the ssm and hybrid families; other families raise (later
+    slices)."""
     lm.check_family(cfg)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return SSMStatePool(cfg, setting, max_seq, device)
     return PagedKVPool(cfg, setting, max_seq, device)

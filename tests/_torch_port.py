@@ -1,6 +1,7 @@
 """Shared set-up of the PyTorch-port parity tests: the same reduced
-starcoder2-3b and falcon-mamba-7b parameters in both packages, the
-tolerances the tests hold the port to, and the tie-aware token check."""
+starcoder2-3b, falcon-mamba-7b and zamba2-1.2b parameters in both
+packages, the tolerances the tests hold the port to, and the tie-aware
+token check."""
 from __future__ import annotations
 
 import jax
@@ -14,17 +15,18 @@ from repro_torch.models.convert import params_from_numpy
 
 # Logits of the reduced model (|logit| < 4, where one bf16 step is 1/64),
 # JAX against the port on the CPU.  Both round every activation to bf16,
-# but XLA and PyTorch round the bf16 silu/sigmoid differently by one step,
-# and the port's prefill attention keeps p in f32 (the flash kernel's
-# numerics) where the JAX prefill rounds it to bf16.  Through two layers
-# the logits then differ by up to ~2.4 bf16 steps (0.037 measured over
-# seeded prompts of 3-64 tokens), so the bound is four steps.
+# and the silu, softplus and attention round op by op as XLA does
+# (``common.silu``, ``blocked_attention``), but XLA and PyTorch block some
+# bf16 matrix products differently and round them a step apart.  Through
+# two layers the logits then differ by up to ~2.4 bf16 steps (0.038
+# measured over seeded prompts of 3-64 tokens), so the bound is four
+# steps.
 LOGIT_TOL = 4 / 64
 
 
-def _models(arch: str, seed: int):
-    cfg = get_config(arch).reduced()
-    tcfg = torch_get_config(arch).reduced()
+def _models(arch: str, seed: int, **overrides):
+    cfg = get_config(arch).reduced(**overrides)
+    tcfg = torch_get_config(arch).reduced(**overrides)
     jp = jlm.init_params(cfg, jax.random.PRNGKey(seed))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
                            device="cpu")
@@ -40,6 +42,13 @@ def ssm_models(seed: int = 0):
     """The same for reduced falcon-mamba-7b (2 mamba1 layers, d_model 64,
     d_inner 128, N 16, vocab 256)."""
     return _models("falcon-mamba-7b", seed)
+
+
+def hybrid_models(seed: int = 0, n_layers: int = 3):
+    """The same for reduced zamba2-1.2b (mamba2 layers, d_model 64, d_inner
+    128 in 8 heads of 16, N 16; the shared block every 2 layers, so 3
+    layers apply it twice, after layers 0 and 2)."""
+    return _models("zamba2-1.2b", seed, n_layers=n_layers)
 
 
 def tie_aware_check(jp, cfg, prompt, ref_tokens, got_tokens):

@@ -243,14 +243,51 @@ def test_decode_from_init_mamba_state_is_the_full_sequence_mode(models):
     assert all(torch.equal(st_d[k], st_f[k]) for k in ("conv", "h"))
 
 
-def test_mamba2_and_hybrid_are_later_slices():
-    cfg = get_config("zamba2-1.2b").reduced()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmamba.mamba2_block(None, {}, cfg)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmamba.init_mamba_state(cfg, 2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tlm.param_shapes(cfg)
+def test_mamba2_block_hands_the_scan_its_f32_inputs(monkeypatch):
+    """The mamba2 recurrence through the same scan at decode: x f32, dt a
+    head's value repeated over its P channels, Bm and Cm f32 views of one
+    projection (last stride 1), A a head's scalar over (P, N), and h0 the
+    state's (B, nh, P, N) viewed as (B, Di, N), written in place; the
+    block's output and state agree with the JAX block (one bf16 step, and
+    f32 summation order: tests/test_torch_hybrid.py's bounds)."""
+    from _torch_port import hybrid_models
+    cfg, tcfg, jp, tp = hybrid_models(0)
+    B, S, Di, N = 2, 3, cfg.d_inner, cfg.ssm_state
+    nh, P = cfg.n_ssm_heads, cfg.ssm_head_dim
+    jl = jax.tree_util.tree_map(lambda t: t[0], jp["layers"]["ssm"])
+    tl = {k: v[0] for k, v in tp["layers"]["ssm"].items()}
+    seen, scan = {}, tmamba.selective_scan
+
+    def spy(x, dt, Bm, Cm, A, h0=None, *, h_out=None):
+        seen.update(x=x, dt=dt, Bm=Bm, Cm=Cm, A=A, h0=h0, h_out=h_out)
+        return scan(x, dt, Bm, Cm, A, h0, h_out=h_out)
+
+    monkeypatch.setattr(tmamba, "selective_scan", spy)
+    x = RNG.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    conv = f32(jnp.asarray(RNG.standard_normal((B, Di, 3)), jnp.bfloat16))
+    h = RNG.standard_normal((B, nh, P, N)).astype(np.float32) * 0.3
+    tst = {"conv": T(conv).to(torch.bfloat16), "h": T(h.copy())}
+    to, tn = tmamba.mamba2_block(T(x).to(torch.bfloat16), tl, tcfg,
+                                 state=tst)
+    assert all(seen[k].dtype == torch.float32
+               for k in ("x", "dt", "Bm", "Cm", "A"))
+    assert seen["x"].is_contiguous() and seen["dt"].is_contiguous()
+    dt = seen["dt"].reshape(B, S, nh, P)
+    assert torch.equal(dt, dt[..., :1].expand(B, S, nh, P))
+    A = seen["A"].reshape(nh, P, N)
+    assert torch.equal(A, A[:, :1, :1].expand(nh, P, N))
+    assert seen["Bm"].stride()[2] == 1 and seen["Bm"].shape == (B, S, N)
+    assert seen["Cm"].data_ptr() - seen["Bm"].data_ptr() == N * 4
+    assert seen["h0"] is seen["h_out"]
+    assert seen["h0"].data_ptr() == tst["h"].data_ptr() and tn is tst
+    jo, jn = jmamba.mamba2_block(jnp.asarray(x, jnp.bfloat16), jl, cfg,
+                                 state={"conv": jnp.asarray(conv,
+                                                            jnp.bfloat16),
+                                        "h": jnp.asarray(h)})
+    np.testing.assert_allclose(f32(to), f32(jo), rtol=2 ** -7,
+                               atol=2 ** -10)
+    np.testing.assert_allclose(f32(tn["h"]), f32(jn["h"]), atol=1e-6,
+                               rtol=0)
 
 
 def _leaves(tree, path=()):

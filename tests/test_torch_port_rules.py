@@ -3,9 +3,9 @@ the port or ``chip_smoke.py``, entry points that refuse to fall back to
 the CPU, settings of later slices that raise instead of quietly running
 something else, and speculative decoding, the tuning slice
 (``--selftune``, ``--trace``, ``serve_loop(tuner=...)``,
-``warm_start(space)``, ``reconfigure``) and training
-(``launch/train.py``, with and without ``--self-tune``), which no longer
-raise."""
+``warm_start(space)``, ``reconfigure``, ``--tuning-store``), the hybrid
+family and training (``launch/train.py``, with and without
+``--self-tune``), which no longer raise."""
 import ast
 import json
 from pathlib import Path
@@ -50,7 +50,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "core/tree.py", "data/synthetic.py", "optim/optimizers.py",
                 "ps/compression.py", "ps/stepfn.py", "ps/trainer.py",
                 "ps/lm_job.py", "checkpoint/ckpt.py", "launch/train.py",
-                "kernels/flash_attention/kernel.py"):
+                "kernels/flash_attention/kernel.py",
+                # the tuning store
+                "store/__init__.py", "store/signature.py", "store/store.py",
+                "store/golden.py"):
         assert port / rel in files, rel
     bad = []
     for f in files:
@@ -121,20 +124,15 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
     assert out.rstrip().endswith("OK") and "served" in out
 
 
-@pytest.mark.parametrize("case", ["store", "selftune_store", "family",
-                                  "ssm_train", "mesh_plan", "remesh_restore"])
+@pytest.mark.parametrize("case", ["family", "ssm_train", "mesh_plan",
+                                  "remesh_restore"])
 def test_later_slices_raise_not_implemented(case, tmp_path):
     ssm = get_config("falcon-mamba-7b").reduced()
     mesh_plan = reconfig.plan(dict(DEFAULT_LM_SETTING, mesh_split="2x1"),
                               dict(DEFAULT_LM_SETTING, mesh_split="1x2"))
     call = {
-        "store": lambda: launch_serve.main(
-            ["--arch", "starcoder2-3b", "--reduced", "--tuning-store", "x"]),
-        "selftune_store": lambda: launch_serve.main(
-            ["--arch", "starcoder2-3b", "--reduced", "--device", "cpu",
-             "--selftune", "--tuning-store", "x"]),
         "family": lambda: lm.init_params(
-            get_config("zamba2-1.2b").reduced(), 0, device="cpu"),
+            get_config("llama4-scout-17b-a16e").reduced(), 0, device="cpu"),
         "ssm_train": lambda: lm.loss_fn(
             lm.init_params(ssm, 0, device="cpu"),
             {"tokens": torch.zeros((1, 4), dtype=torch.int64),
@@ -149,11 +147,15 @@ def test_later_slices_raise_not_implemented(case, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["tuner", "selftune", "space",
-                                  "reconfigure"])
-def test_tuning_slice_runs_on_cpu(case, capsys):
+                                  "reconfigure", "store", "selftune_store"])
+def test_tuning_slice_runs_on_cpu(case, capsys, tmp_path):
     """What raised until the tuning slice was ported now runs on the CPU:
     ``serve_loop(tuner=...)``, ``launch/serve.py --selftune``,
-    ``warm_start(space)`` and ``reconfigure``."""
+    ``warm_start(space)``, ``reconfigure`` and ``--tuning-store``: a
+    ``--tuning-store`` without ``--selftune`` serves at the fixed setting
+    and leaves the store alone; two self-tuned runs on one store, the
+    second warm-started from the first's observations and golden
+    incumbent."""
     params = lm.init_params(CFG, 0, device="cpu")
 
     def engine(**setting):
@@ -191,11 +193,40 @@ def test_tuning_slice_runs_on_cpu(case, capsys):
                            dtype=torch.bfloat16)
         assert eng._quant_exec(32)(rows).dtype == torch.bfloat16   # C10
         assert stats_ok(serve_loop(eng, reqs))
-    else:
+    elif case == "reconfigure":
         eng = engine(max_batch=1)
         assert eng.reconfigure(dict(eng.setting, max_batch=2)) >= 0.0
         assert eng.pool.n_slots == 2 and eng.setting["max_batch"] == 2
         assert stats_ok(serve_loop(eng, reqs))
+    elif case == "store":
+        launch_serve.main(["--arch", "starcoder2-3b", "--reduced",
+                           "--device", "cpu", "--duration", "0.2",
+                           "--gen", "4", "--tuning-store",
+                           str(tmp_path / "store")])
+        out = capsys.readouterr().out
+        assert out.rstrip().endswith("OK") and "tuning-store" not in out
+    else:
+        store = tmp_path / "store"
+        args = ["--arch", "zamba2-1.2b", "--reduced", "--device", "cpu",
+                "--selftune", "--duration", "1.0", "--window", "8",
+                "--init-settings", "2", "--tuning-store", str(store),
+                "--json-out", str(tmp_path / "stats.json")]
+        launch_serve.main(args)
+        first = capsys.readouterr().out
+        assert "tuning-store: no golden entry for zamba2-1.2b-reduced" \
+            in first and "warm-start absorbed 0 obs" in first
+        assert (store / "GOLDEN.json").exists()
+        launch_serve.main(args)
+        second = capsys.readouterr().out
+        assert "tuning-store: golden incumbent" in second
+        assert "(exact match" in second
+        assert "warm-start absorbed" in second and "tier=exact" in second
+        assert second.rstrip().endswith("OK")
+        stats = json.loads((tmp_path / "stats.json").read_text())
+        ws = stats["warm_start"]
+        assert ws["absorbed_obs"] > 0 and ws["tier"] == "exact"
+        assert ws["init_settings_skipped"] > 0
+        assert stats["completed"] == stats["requests"]
 
 
 def stats_ok(stats):

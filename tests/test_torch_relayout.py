@@ -226,11 +226,14 @@ def test_undrained_shrink_and_block_size_change_refuse_to_stage():
     ls.tp.check_invariants()
 
 
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
 @pytest.mark.parametrize("change", [dict(max_batch=4),
                                     dict(cache_dtype="bf16", max_batch=1)])
-def test_ssm_relayout_matches_jax(change):
-    cfg = get_config("falcon-mamba-7b").reduced()
-    tcfg = torch_get_config("falcon-mamba-7b").reduced()
+def test_ssm_relayout_matches_jax(change, arch):
+    """The recurrent-state pool (and the hybrid's KV slab, whose slot is
+    axis 1 as every leaf's): relayout in lockstep with the JAX pool."""
+    cfg = get_config(arch).reduced()
+    tcfg = torch_get_config(arch).reduced()
     setting = _setting(max_batch=3, cache_dtype="f32")
     jp = JSSMPool(cfg, setting, max_seq=MAX_SEQ)
     tp = TSSMPool(tcfg, setting, max_seq=MAX_SEQ, device="cpu")
@@ -241,7 +244,8 @@ def test_ssm_relayout_matches_jax(change):
         pc = {k: rng.standard_normal((v.shape[0], 1) + v.shape[2:])
               .astype(np.float32) for k, v in jp.state.items()}
         jp.write_prefill(s, {k: jnp.asarray(v) for k, v in pc.items()}, 4)
-        tp.write_prefill(s, {k: torch.from_numpy(v) for k, v in pc.items()})
+        tp.write_prefill(s, {k: torch.from_numpy(v) for k, v in pc.items()},
+                         4)
     tp.save_state()
     jp.release(1)
     tp.release(1)

@@ -331,3 +331,36 @@ def test_wrapper_reads_strided_bf16_bc_as_f32_copies():
                             Bm.float().contiguous(), Cm.float().contiguous(),
                             A, h0)
     assert torch.equal(y, ry) and torch.equal(h, rh)
+
+
+@pytest.mark.parametrize("N", STATE_SIZES)
+def test_chunk_ring_fits_and_opts_in_past_48k(N):
+    """The chunked kernel's ring (two chunks of dt, dt * x, B, C and the
+    padded y rows, f32) in dynamic shared memory: within the 227 KB a
+    block may take, and past the 48 KB default only at N = 64 (57 KB),
+    where the launch opts in to the larger size first."""
+    G = N // launch_plan(SHORT_S + 1, N)[0]
+    ring = 4 * 2 * CHUNK * (2 * D_BLOCK + 2 * N + D_BLOCK + 32 // G)
+    assert ring <= 232448
+    assert (ring > 48 * 1024) == (N == 64)
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in CU
+    assert "extern __shared__" in CU
+
+
+@pytest.mark.parametrize("S", [1, 3, SHORT_S + 1, 40])
+def test_schedule_matches_plain_on_mamba2_inputs(S):
+    """zamba2's recurrence through the scan (N = 64, channel d = (head,
+    p)): dt and A of a head repeated over its P channels, from a stored
+    state; the direct (decode, verify) and chunked (prefill) schedules
+    against the plain version."""
+    B, nh, P, N = 2, 3, 8, 64
+    x, _, Bm, Cm, _, h0 = _t(_inputs(B, S, nh * P, N, h0=True))
+    dt = T(np.abs(RNG.standard_normal((B, S, nh))).astype(np.float32) * 0.1)
+    dt = dt[..., None].expand(B, S, nh, P).reshape(B, S, nh * P)
+    A = -T(np.abs(RNG.standard_normal((nh,))).astype(np.float32) + 0.1)
+    A = A[:, None, None].expand(nh, P, N).reshape(nh * P, N)
+    assert launch_plan(S, N) == (8, S > SHORT_S)
+    y, h = scan_schedule(x, dt, Bm, Cm, A, h0)
+    ry, rh = selective_scan_ref(x, dt, Bm, Cm, A, h0)
+    _close(y, ry)
+    _close(h, rh)

@@ -100,7 +100,7 @@ def test_ssm_pool_admission_and_release(models):
     assert pool.n_active == 2 and pool.try_admit(prompt, 8) == (1, 0)
     pc = {"conv": torch.full((L, 1, Di, K - 1), 0.5, dtype=torch.float32),
           "h": torch.full((L, 1, Di, N), 0.25, dtype=torch.float32)}
-    pool.write_prefill(2, pc)
+    pool.write_prefill(2, pc, 40)
     assert pool.state["conv"].dtype == torch.bfloat16
     assert bool((pool.state["conv"][:, 2] == 0.5).all())
     assert bool((pool.state["h"][:, 2] == 0.25).all())

@@ -34,17 +34,18 @@ from repro_torch.ps.stepfn import (StepKnobs, build_train_step,
 
 from _torch_port import dense_models, f32
 
-# The loss, JAX against the port: both round every activation to bf16 and
-# their attention rounds P to bf16 for P.V block by block, but XLA and
-# PyTorch round the bf16 silu differently (LOGIT_TOL's reasons).  Measured:
-# up to 1.5e-3 over 4 seeds x 3 batch shapes (2.2e-3 while the port's CPU
-# attention kept P in f32).
+# The loss, JAX against the port: both round every activation to bf16,
+# their attention rounds P to bf16 for P.V block by block and their silu
+# rounds op by op alike, forward and backward, but XLA and PyTorch block
+# some bf16 matrix products differently (LOGIT_TOL's reasons).  Measured
+# (scripts/grad_gap_cpu.py): up to 1.7e-3 over 4 seeds x 3 batch shapes.
 LOSS_TOL = 1e-2
 # A gradient leaf, JAX against the port, relative to the leaf's largest
 # |value|: the same roundings reach every bf16 gradient, and the
 # embedding's scatter-add sums its rows in bf16 in another order.
-# Measured: up to 2.4% (layers/ln2/scale) over 4 seeds x 3 batch shapes;
-# the attention weights' worst 2.0% (2.2% while P stayed f32).
+# Measured (scripts/grad_gap_cpu.py): up to 2.0% (layers/mlp/wg) over 4
+# seeds x 3 batch shapes; 2.4% (layers/ln2/scale) while the port's silu
+# rounded as F.silu does.
 GRAD_RTOL = 0.04
 BATCH, SEQ = 4, 16
 

@@ -236,7 +236,19 @@ def test_tuning_manager_emits_the_jax_plans(family, b, commit_after):
     assert tt.costs.avgs == jt.costs.avgs
 
 
-def test_tuner_store_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TuningManager(t_space(), dict(DEFAULT_SERVING_SETTING),
-                      TunerConfig(eps=1e-6), store=object(), signature="k")
+def test_tuner_attaches_a_store(tmp_path):
+    """A TuningManager given a store opens a writer session, records its
+    warm start in the audit and releases the lock on ``close_store``
+    (tests/test_torch_store.py holds the warm start to the JAX tuner)."""
+    from repro_torch.store import TuningStore
+    store = TuningStore(str(tmp_path))
+    key = "m:dense:00000000|paged:seq96|r5:p4:g4:s0"
+    tm = TuningManager(t_space(), dict(DEFAULT_SERVING_SETTING),
+                       TunerConfig(eps=1e-6), store=store, signature=key)
+    assert tm.warm_start_info == {
+        "store_key": key, "read_only": False, "matched_key": None,
+        "tier": None, "absorbed_obs": 0, "init_settings_skipped": 0}
+    assert tm.audit.records[-1]["type"] == "warm_start"
+    assert store.compact() is False            # the session holds the lock
+    tm.close_store()
+    assert store.compact() is True
