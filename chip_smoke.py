@@ -49,6 +49,12 @@ Phases, in order; any failure exits non-zero before the result line:
              and 3 in place), flash at H = K = 32, hd 64 (G = 1) beside
              SDPA, paged attention over the shared block's slab viewed as
              blocks beside SDPA with a mask; each timed beside its bound.
+             The moe path's shapes (llama4-scout, 40 q / 8 kv heads, G =
+             5): paged attention at decode, verify and a suffix prefill
+             over bf16 and f32 pools, flash at S = 320 and at the training
+             shape with lse beside SDPA, and the flash backward at the
+             training shape with one CTA a cluster (P = 1) beside SDPA's
+             backward.
 4. parity  — full-width starcoder2-3b decode step: paged kernel against
              the plain dense gather path on one f32 pool, one layer deep
              and all 30 layers (against a measured rounding-noise floor).
@@ -148,11 +154,35 @@ Phases, in order; any failure exits non-zero before the result line:
              tokens the plain arm's; two self-tuned serves through
              ``launch/serve.py --selftune --tuning-store`` on one fresh
              store under build/smoke/, the second warm-started from the
-             first's golden incumbent and observations.
+             first's golden incumbent and observations.  Layer by layer
+             (``layer_by_layer``): each of the 38 layers of the kernel path
+             and of the plain path (every kernel replaced by its plain
+             version) on the same input, the plain path's output of the
+             layer before, in a decode step from a stored state and slab
+             and in a prefill; each layer's gap within 1.5 x its own noise
+             (the plain path with its input moved one ulp).
+
+11. moe    — the hybrid model is freed; llama4-scout-17b-a16e at full width
+             (d_model 5120, 40 q / 8 kv heads of hd 128, 16 experts of d_ff
+             8192 a layer, top-1, capacity factor 1.25, vocab 202048) cut
+             to 12 of its 48 layers (54 GB of weights): the per-layer check
+             of a decode step (paged vs gather) and of a 320-token prefill
+             (flash vs plain), with the tokens whose expert differs and
+             their router margins, then phase 4's decode parity at 1 and 12
+             layers as the drift bound; phase 5's shared_prefix arm and
+             int8 arm, phase 6's graph checks and decode profile (the
+             expert products' share against the weight read), a spec_k = 3
+             arm, each served token held to a replay of the engine's
+             prefill groups and decode steps on the plain paths; a
+             self-tuned serve with at least one relayout.  Then training
+             at 1 layer (4.15 B parameters, 4 x 512 tokens): loss, router
+             aux and gradients of the kernel path against the plain path
+             within a measured noise floor, fixed steps in which the loss
+             falls, one step with the int8 push.
 
 Prints one JSON ``kernels`` line (launches: the serve arms', the training
-runs' and the hybrid path's), the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``.
+runs', the hybrid path's and the moe path's), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1190,7 +1220,11 @@ def profile_decode(torch, eng, cfg, g):
     around a synchronised step; CUDA events around 10 back-to-back steps),
     then under ``torch.profiler``: the card's kernel time per step against
     the wall time, the kernels a step and the host's launch calls a step
-    (kernel launches, graph launches and asynchronous copies)."""
+    (kernel launches, graph launches and asynchronous copies).  Returns the
+    graph's wall and kernel ms a step, and the device ms a step of the
+    eager step's ``aten::bmm`` calls (the moe experts' products: cuBLAS
+    names a batched and a plain GEMM alike, and a graph replay records no
+    operator)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import LAUNCHES
@@ -1208,6 +1242,7 @@ def profile_decode(torch, eng, cfg, g):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
+    out = {}
     for mode, fn in (("eager", entry.eager), ("graph", entry)):
         def step():
             fn(*args)
@@ -1249,7 +1284,12 @@ def profile_decode(torch, eng, cfg, g):
               f"kernels and {calls // steps} host launch calls a step, "
               f"{wrapped} launches of the port's kernels", flush=True)
         if mode == "eager":
+            out["bmm_ms"] = sum(
+                getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0.0))
+                for e in events if e.key == "aten::bmm") / steps / 1e3
             continue
+        out.update(wall_ms=wall, busy_ms=busy)
         for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
             print(f"profile:   {dev_us(e) / steps / 1e3:8.4f} ms/step "
                   f"{e.count // steps:5d} x  {e.key[:90]}", flush=True)
@@ -1260,6 +1300,7 @@ def profile_decode(torch, eng, cfg, g):
             print(f"profile:   the port's kernel {e.key[:70]}: "
                   f"{dev_us(e) / steps / 1e3:.4f} ms/step, "
                   f"{e.count // steps} launches a step", flush=True)
+    return out
 
 
 def dense_trace(cfg):
@@ -1564,14 +1605,15 @@ def forced_reconfigs(torch, cfg, params, tol):
           f"bit", flush=True)
 
 
-def selftuned_serve(torch, cfg, params, card):
+def selftuned_serve(torch, cfg, params, card, need_relayout=False):
     """Phase 8b, full-width starcoder2-3b: the ``launch/serve.py
     --selftune`` path — ``warm_start(space)``, the launcher's
     ``selftune_manager`` (TuningManager + ServingObjective) and
     ``serve_loop`` — over a Poisson trace long enough for the Latin-
     hypercube init to visit its settings.  Every request completes, every
     kind of reconfiguration the tuner proposed commits at least once, and
-    no staged capture fails."""
+    no staged capture fails; with ``need_relayout`` at least one commit
+    re-lays the pool out (Type I-b)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.serve import selftune_manager
     from repro_torch.serving import (DEFAULT_SERVING_SETTING, ServingEngine,
@@ -1620,6 +1662,8 @@ def selftuned_serve(torch, cfg, params, card):
     bad = [r for r in stats["reconfigs"] if r["bg_capture_failures"]]
     if bad:
         fail(f"selftune: staged captures failed: {bad}")
+    if need_relayout and "I-b" not in got:
+        fail(f"selftune: no relayout committed (kinds {sorted(got)})")
     check_pool(eng, "selftune")
     staged = [r for r in stats["reconfigs"] if r["staged"]]
     print(f"selftune: {stats['completed']}/{len(trace)} requests, "
@@ -2466,6 +2510,313 @@ def check_hybrid_kernels(torch, rows):
               flush=True)
 
 
+# ------------------------------------------------------------ per-layer parity
+def bump_ulp(torch, x, sign):
+    """``x`` with every nonzero element moved one ulp of its dtype away
+    from zero (``sign`` 1), toward it (-1), or each its own way (``sign``
+    a tensor of +-1 like ``x``); zeros stay."""
+    it = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[x.dtype]
+    if isinstance(sign, torch.Tensor):
+        sign = sign.to(it)
+    return torch.where(x == 0, x, (x.view(it) + sign).view(x.dtype))
+
+
+@contextlib.contextmanager
+def plain_path(torch):
+    """Every kernel the model calls replaced by its plain PyTorch version
+    on the card: prefill attention by ``blocked_attention`` (the JAX
+    package's chunked attention), paged attention over a block table or a
+    slab by the dense gather + masked softmax, the selective scan by
+    ``selective_scan_ref`` (h written where the kernel writes it)."""
+    from repro_torch.kernels.mamba_scan import selective_scan_ref
+    from repro_torch.models import attention, lm, mamba
+
+    def scan(x, dt, Bm, Cm, A, h0=None, *, h_out=None):
+        y, h = selective_scan_ref(x, dt, Bm, Cm, A, h0)
+        return y, (h if h_out is None else h_out.copy_(h))
+
+    def paged(q, k_pool, v_pool, block_tables, *, pos, ctx_cols=0):
+        NB, bs, K, hd = k_pool.shape
+        B, MB = block_tables.shape
+        w = min(ctx_cols, MB) if ctx_cols else MB
+        bt = block_tables[:, :w].long()
+        return attention.decode_attention(
+            q, k_pool[bt].reshape(B, w * bs, K, hd),
+            v_pool[bt].reshape(B, w * bs, K, hd), pos=pos)
+
+    saved = (lm.chunked_attention, lm.paged_decode_attention,
+             attention.paged_decode_attention, mamba.selective_scan)
+    lm.chunked_attention = attention.blocked_attention
+    lm.paged_decode_attention = attention.paged_decode_attention = paged
+    mamba.selective_scan = scan
+    try:
+        yield
+    finally:
+        (lm.chunked_attention, lm.paged_decode_attention,
+         attention.paged_decode_attention, mamba.selective_scan) = saved
+
+
+class RouteRecorder:
+    """Records what each moe block routed (the router's probabilities, the
+    chosen experts and which (token, choice) pairs kept a capacity slot)
+    while active, by wrapping ``models/moe.py``'s ``_route`` and
+    ``_dispatch``; the block itself runs unchanged.  ``pinned(routes)``
+    imposes recorded choices instead: each block computes its router's
+    probabilities and aux loss itself but takes the next recorded top-k
+    indices, so its gates and dispatch are the recorded run's; ``flips``
+    counts the tokens whose own choice differed."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.moe, self.torch, self.calls, self.flips = moe, torch, [], 0
+
+    @contextlib.contextmanager
+    def pinned(self, routes):
+        moe, route, it = self.moe, self.moe._route, iter(routes)
+
+        def pin(x, router, topk):
+            probs, _, topi = route(x, router, topk)
+            want = next(it)
+            self.flips += int((topi != want).any(-1).sum())
+            topw = probs.gather(-1, want)
+            topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+            return probs, topw, want
+
+        moe._route = pin
+        try:
+            yield self
+        finally:
+            moe._route = route
+
+    @contextlib.contextmanager
+    def active(self):
+        moe, torch = self.moe, self.torch
+        route, dispatch = moe._route, moe._dispatch
+        rec = {}
+
+        def routed(x, router, topk):
+            out = route(x, router, topk)
+            rec["probs"], rec["topi"] = out[0].detach(), out[2]
+            return out
+
+        def dispatched(x, topw, topi, n_experts, cap):
+            xe, meta, order = dispatch(x, topw, topi, n_experts, cap)
+            keep = torch.empty_like(meta[3]).scatter_(0, order, meta[3])
+            self.calls.append((rec["probs"], rec["topi"],
+                               keep.view(topi.shape)))
+            return xe, meta, order
+
+        moe._route, moe._dispatch = routed, dispatched
+        try:
+            yield self
+        finally:
+            moe._route, moe._dispatch = route, dispatch
+
+    def take(self):
+        """(probs, topi, keep) of the last block run, or None."""
+        out = self.calls[-1] if self.calls else None
+        self.calls.clear()
+        return out
+
+
+def layer_by_layer(torch, label, x0, n_layers, run):
+    """Each layer of the kernel path and of the plain path on the same
+    input, the plain path's output of the layer before: ``run(i, x,
+    plain)`` -> (y, route), route (router probabilities, chosen experts,
+    kept pairs) for a routed layer, else None, restoring any state the
+    layer writes before it runs.  Per layer:
+
+    - the gap: the largest |kernel - plain| of the layer's output over the
+      tokens that both paths routed alike (same experts, same pairs kept);
+    - the noise: the largest |plain(x') - plain(x)| with x' = x moved one
+      ulp, over the tokens that routed alike in both, of four draws:
+      every element away from zero, every element toward it (which the
+      RMSNorm nearly divides out), and twice each element a seeded random
+      way; the bound is 1.5 x that noise;
+    - the tokens whose chosen experts differ, each with the plain path's
+      router margin (1st minus 2nd probability, or k-th minus (k+1)-th):
+      each margin must be within 3 x the largest router-probability move
+      of the noise draws (1.5 x the two probabilities it takes to swap),
+      i.e. a swap that the layer's own rounding noise could make; tokens
+      that only lost or won a capacity slot are counted.
+
+    Fails when a gap passes its bound or a swap its
+    margin bound.  Returns the per-layer rows (gap, noise, swaps, tokens
+    that only won or lost a slot) and the largest router-probability move
+    between the kernel path and the plain path over the layers (0 without
+    routed layers)."""
+    x = x0
+    rows, kernel_move = [], 0.0
+    g = torch.Generator(device=x0.device).manual_seed(7)
+    for i in range(n_layers):
+        yk, rk = run(i, x, False)
+        ways = [torch.randint(0, 2, x.shape, generator=g,
+                              device=x.device) * 2 - 1 for _ in range(2)]
+        noisy = [run(i, bump_ulp(torch, x, s), True)
+                 for s in [1, -1] + ways]
+        yp, rp = run(i, x, True)
+        if not all(torch.isfinite(y.float()).all() for y in (yk, yp)):
+            fail(f"layers[{label}] layer {i}: output not finite")
+        T = yp.shape[0] * yp.shape[1]
+
+        def alike(ra, rb):
+            if ra is None:
+                return torch.ones(T, dtype=torch.bool, device=yp.device)
+            return ((ra[1] == rb[1]).all(-1) & (ra[2] == rb[2]).all(-1))
+
+        def diff(y, ok):
+            d = (y.float() - yp.float()).abs().reshape(T, -1).amax(-1)
+            return float((d * ok).max())
+
+        same = alike(rk, rp)
+        gap = diff(yk, same)
+        noise = max(diff(yn, alike(rn, rp)) for yn, rn in noisy)
+        swaps, lost = [], 0
+        if rp is not None:
+            k = rp[1].shape[1]
+            srt = rp[0].sort(-1, descending=True).values
+            margin = srt[:, k - 1] - srt[:, k]
+            rn_move = max(float((rn[0] - rp[0]).abs().max())
+                          for _, rn in noisy)
+            kernel_move = max(kernel_move,
+                              float((rk[0] - rp[0]).abs().max()))
+            moved = (rk[1] != rp[1]).any(-1)
+            swaps = [(int(t), float(margin[t])) for t in
+                     torch.nonzero(moved).flatten().tolist()]
+            lost = int((~same & ~moved).sum())
+            bad = [s for s in swaps if s[1] > 3 * rn_move]
+            if bad:
+                fail(f"layers[{label}] layer {i}: experts swapped at router "
+                     f"margins {bad} beyond 3 x the noise's probability "
+                     f"move {rn_move:.3g}")
+        rows.append((gap, noise, swaps, lost))
+        print(f"layers[{label}] {i:2d}: gap {gap:.4g} noise {noise:.4g} "
+              f"(bound {1.5 * noise:.4g}, gap/noise "
+              f"{gap / max(noise, 1e-30):.3f})"
+              + (f"; {len(swaps)} tokens of {T} chose other experts, router "
+                 f"margins {[round(m, 5) for _, m in swaps[:6]]}; {lost} "
+                 f"only won or lost a capacity slot" if rp is not None
+                 else ""), flush=True)
+        if gap > 1.5 * noise:
+            fail(f"layers[{label}] layer {i}: kernel-vs-plain gap {gap} "
+                 f"beyond 1.5 x the layer's noise {noise}")
+        x = yp
+    worst = max(r[0] / max(r[1], 1e-30) for r in rows)
+    print(f"layers[{label}]: {n_layers} layers each within 1.5 x its own "
+          f"one-ulp noise (worst gap/noise {worst:.3f})"
+          + (f"; the router's probabilities, kernel against plain path, "
+             f"moved by at most {kernel_move:.3g}" if kernel_move else ""),
+          flush=True)
+    return rows, kernel_move
+
+
+def attn_layer_runs(torch, cfg, params, rec, decode, seed):
+    """(x0, run) for ``layer_by_layer`` over the dense and moe families'
+    layers (``lm._attn_layer``): a 320-token prefill (flash against the
+    plain chunked attention), or a decode step of 8 slots at 289-373
+    tokens of context over a random bf16 pool (paged attention against
+    the gather path), the step's KV rows written before they are read."""
+    from repro_torch.models import common, lm
+    from repro_torch.models.lm import ModelKnobs
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, S = (8, 1) if decode else (1, 320)
+    tok = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    x0 = params["embed"]["tokens"][tok].to(torch.bfloat16)
+    kw = {}
+    if decode:
+        bs, mb = 16, 64
+        shape = lm.init_paged_cache_shapes(cfg, B * mb + 1, bs)["k"]
+        kv = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2)]
+        tables = (torch.arange(B * mb, device=dev).reshape(B, mb) + 1
+                  ).to(torch.int32)
+        pos = torch.tensor([300, 317, 333, 351, 288, 299, 345, 372],
+                           dtype=torch.int32, device=dev)
+        positions = pos.long()[:, None]
+        kw = dict(pos=pos, block_tables=tables,
+                  rows=lm.paged_rows(positions, tables, bs))
+    else:
+        positions = torch.arange(S, device=dev)[None]
+    rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
+
+    def run(i, x, plain):
+        lp = lm._layer(params["layers"], i)
+        cache = (kv[0][i], kv[1][i]) if decode else None
+        with (plain_path(torch) if plain else contextlib.nullcontext()), \
+                rec.active():
+            y, _, _ = lm._attn_layer(x, lp, cfg, ModelKnobs(), positions,
+                                     rope, cache, **kw)
+        return y, rec.take()
+
+    return x0, run
+
+
+def hybrid_layer_runs(torch, cfg, params, decode, seed):
+    """(x0, run) for ``layer_by_layer`` over the hybrid's layers (mamba2,
+    then the shared block after layers 0, k, 2k, ...): a 128-token prefill
+    of 2 sequences (the scan from zeros and flash against their plain
+    versions), or the decode of token 12 of 2 sequences from the state and
+    slab of an 11-token prefill (the scan from h0 and paged attention over
+    the slab against theirs).  Each run restores the layer's conv, h and
+    slab first."""
+    from repro_torch.models import common, lm
+    from repro_torch.models.attention import identity_tables
+    from repro_torch.models.lm import ModelKnobs
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    every = cfg.shared_attn_every
+    B, S, max_seq = 2, (12 if decode else 128), 16
+    tok = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    kw, cache = {}, None
+    if decode:
+        cache = {k: torch.zeros(s, device=dev, dtype=torch.float32
+                                if k == "h" else torch.bfloat16)
+                 for k, s in lm.init_cache_shapes(cfg, B, max_seq).items()}
+        for k, v in lm.forward(params, tok[:, :-1], cfg)[1].items():
+            if k.startswith("shared"):
+                cache[k][:, :, :v.shape[2]] = v
+            else:
+                cache[k].copy_(v)
+        pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+        positions = pos.long()[:, None]
+        kw = dict(pos=pos, tables=identity_tables(B, max_seq, dev),
+                  rows=lm.slab_rows(positions, max_seq))
+        tok = tok[:, -1:]
+    else:
+        positions = torch.arange(S, device=dev)[None].expand(B, S)
+    rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
+    x0 = params["embed"]["tokens"][tok].to(torch.bfloat16)
+    saved = {}
+
+    def run(i, x, plain):
+        lp = lm._layer(params["layers"], i)
+        a = i // every if i % every == 0 else None
+        st = slab = None
+        if decode:
+            st = {"conv": cache["conv"][i], "h": cache["h"][i]}
+            if a is not None:
+                slab = (cache["shared_k"][a], cache["shared_v"][a])
+            keep = list(st.values()) + list(slab or ())
+            if i not in saved:
+                saved.clear()
+                saved[i] = [t.clone() for t in keep]
+            for t, s in zip(keep, saved[i]):
+                t.copy_(s)
+        with plain_path(torch) if plain else contextlib.nullcontext():
+            h, _ = lm.mamba2_block(common.rms_norm(x, lp["ln1"]["scale"],
+                                                   cfg.norm_eps),
+                                   lp["ssm"], cfg, st)
+            y = x + h
+            if a is not None:
+                y, _ = lm._shared_block(y, params["shared"], cfg,
+                                        ModelKnobs(), positions, rope, slab,
+                                        **kw)
+        return y, None
+
+    return x0, run
+
+
 # ------------------------------------------------------------ phase 10
 def hybrid_parity(torch, cfg, params):
     """Token-by-token decode (S = 1 from the stored state and slab: the
@@ -2783,6 +3134,11 @@ def hybrid_path(torch, card):
           f"{cfg.ssm_state}; the shared block {lm.n_shared_apps(cfg)} "
           f"times), init {time.perf_counter() - t0:.1f}s", flush=True)
     tol, tol_shallow = hybrid_parity(torch, cfg, params)
+    for decode, what in ((True, "decode: scan from h0 + paged over the slab "
+                                "vs plain"),
+                         (False, "prefill: scan + flash vs plain")):
+        x0, run = hybrid_layer_runs(torch, cfg, params, decode, seed=33)
+        layer_by_layer(torch, f"{cfg.name} {what}", x0, cfg.n_layers, run)
     setting = dict(DEFAULT_SERVING_SETTING, max_batch=8, cache_dtype="bf16")
     spans = LaunchSpans(LAUNCHES)
     eng, done, stats, la = serve_arm(torch, cfg, params, setting,
@@ -2839,6 +3195,640 @@ def hybrid_path(torch, card):
     return launches
 
 
+# ------------------------------------------------------- phase 3 (moe shapes)
+MOE_H, MOE_K = 40, 8               # llama4-scout: 40 q / 8 kv heads, G = 5
+
+
+def check_moe_kernels(torch, rows):
+    """The attention kernels at llama4-scout's heads (H = 40, K = 8, hd
+    128, G = 5), against their plain versions, then timed beside their
+    bounds (printed ``kernel ...[moe ...]`` lines; the kernels line keeps
+    each kernel's first row):
+
+    - paged attention, decode (8, 1, 40, 128) and verify (8, 4, 40, 128)
+      over (NB, 16, 8, 128) bf16 and f32 pools, and a suffix prefill of
+      S = 64 over a 256-token prefix;
+    - the flash forward at (1, 320, 40 / 8, 128), and at the training
+      shape (4, 512, 40 / 8, 128) with the rows' log-sum-exp;
+    - the flash backward at the training shape, where a cluster splits a
+      kv head's 5 query heads over P = 1 CTA (the largest divisor of 5 up
+      to 4): bit for bit across two calls, timed whole and by launch
+      beside SDPA's backward."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_ref)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    bf16, f32 = torch.bfloat16, torch.float32
+    H_, K_ = MOE_H, MOE_K
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def randn(shape, dtype=bf16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def pool(B, pool_dt, bs=16, max_seq=1024):
+        mb = max_seq // bs
+        nb = B * mb + 1
+        bt = (torch.randperm(nb - 1, generator=g, device=dev)[:B * mb]
+              .reshape(B, mb) + 1).to(torch.int32)
+        return randn((nb, bs, K_, HD), pool_dt), randn((nb, bs, K_, HD),
+                                                       pool_dt), bt
+
+    pos8 = [300, 317, 333, 351, 288, 299, 345, 372]
+    err = 0.0
+    for B, S, pool_dt, pos in [(8, 1, bf16, pos8), (8, 4, bf16, pos8),
+                               (8, 1, f32, [0, 15, 16, 255, 256, 600, 999,
+                                            1000]),
+                               (8, 4, f32, pos8), (1, 64, bf16, [256])]:
+        kp, vp, bt = pool(B, pool_dt)
+        q = randn((B, S, H_, HD))
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        for _ in range(2):               # the split counters return to 0
+            out = paged_attention(q, kp, vp, bt, p)
+            torch.cuda.synchronize()
+            err = max(err, check_close(
+                torch, f"paged_attention G=5 B={B} S={S} pool={pool_dt}",
+                out, paged_attention_ref(q, kp, vp, bt, p), BF16_TOL))
+    rows["paged_attention"]["max_abs_err"] = max(
+        rows["paged_attention"]["max_abs_err"], err)
+    for B, S, pos in [(8, 1, pos8), (8, 4, pos8), (1, 64, [256])]:
+        kp, vp, bt = pool(B, bf16)
+        q = randn((B, S, H_, HD))
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        cols = ((max(pos) + S - 1) // 16 // 11 + 1) * 11   # a 1/6 bucket
+        ms = timed_ms(torch, lambda: paged_attention(q, kp, vp, bt, p,
+                                                     ctx_cols=cols))
+        plain = timed_ms(torch, lambda: paged_attention_ref(
+            q, kp, vp, bt[:, :cols], p))
+        seen = sum(x + S for x in pos)
+        pairs = sum(x + j + 1 for x in pos for j in range(S))
+        b = bound(seen * K_ * HD * 2 * 2 + 2 * q.numel() * 2
+                  + bt[:, :cols].numel() * 4, 4 * pairs * H_ * HD,
+                  BF16_FLOPS)
+        print(f"kernel paged_attention[moe B={B} S={S} H={H_} K={K_} "
+              f"hd={HD} G=5 bs=16 bf16 pool, ctx {min(pos) + 1}-"
+              f"{max(pos) + S}, ctx_cols={cols}]: kernel_ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms=n/a bound_ms={b[0]:.4f} "
+              f"({b[1]})", flush=True)
+
+    err = 0.0
+    for S, kc in [(37, 128), (320, 128), (320, 256), (1000, 128)]:
+        q, k, v = randn((1, S, H_, HD)), randn((1, S, K_, HD)), randn(
+            (1, S, K_, HD))
+        out = flash_attention(q, k, v, block_k=kc)
+        torch.cuda.synchronize()
+        err = max(err, check_close(torch, f"flash_attention G=5 S={S}", out,
+                                   attention_ref(q, k, v), BF16_TOL))
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], err)
+    for B, S, lse in [(1, 320, False), (4, 512, True)]:
+        q, k, v = randn((B, S, H_, HD)), randn((B, S, K_, HD)), randn(
+            (B, S, K_, HD))
+        pos = torch.arange(S, device=dev)[None].expand(B, S)
+        if lse:
+            o, l_ = flash_attention(q, k, v, pos, pos, return_lse=True)
+            e = float((l_ - attention_lse_ref(q, k, pos, pos)).abs().max())
+            if e > LSE_TOL * max(1.0, float(l_.abs().max())):
+                fail(f"flash lse G=5 B={B} S={S}: max abs err {e}")
+        ms = timed_ms(torch, lambda: flash_attention(q, k, v, pos, pos,
+                                                     return_lse=lse))
+        plain = timed_ms(torch, lambda: attention_ref(q, k, v, pos, pos))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True))
+        b = bound((2 * q.numel() + k.numel() + v.numel()) * 2
+                  + B * H_ * S * 4 * lse, 4 * B * H_ * HD * S * (S + 1) / 2,
+                  BF16_FLOPS)
+        print(f"kernel flash_attention[moe B={B} S={S} H={H_} K={K_} "
+              f"hd={HD} G=5 bf16{', with lse' if lse else ''}]: "
+              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms="
+              f"{lib:.4f} (SDPA) bound_ms={b[0]:.4f} ({b[1]})", flush=True)
+
+    # the backward at G = 5: one CTA a cluster (P = 1)
+    B, S = TRAIN_B, TRAIN_S
+    q, k, v, do = (randn((B, S, h, HD)) for h in (H_, K_, K_, H_))
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    out, lse = flash_attention(q, k, v, pos, pos, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, do, lse, pos, pos)
+    again = flash_attention_bwd(q, k, v, out, do, lse, pos, pos)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("flash_attention_bwd G=5: two calls differ")
+    err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got,
+                          attention_bwd_ref(q, k, v, do, pos, pos)):
+        e = float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max())
+        if not torch.isfinite(a.float()).all() or e > BWD_RTOL:
+            fail(f"flash_attention_bwd G=5 {name}: max err {e} of the "
+                 f"largest |value| (bound {BWD_RTOL})")
+        err = max(err, float((a.float() - b.float()).abs().max()))
+    rows["flash_attention_bwd"]["max_abs_err"] = max(
+        rows["flash_attention_bwd"]["max_abs_err"], err)
+    ms = timed_ms(torch, lambda: flash_attention_bwd(q, k, v, out, do, lse,
+                                                     pos, pos))
+    plain = timed_ms(torch, lambda: attention_bwd_ref(q, k, v, do, pos, pos))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib = timed_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    per = launch_ms(torch, lambda: flash_attention_bwd(
+        q, k, v, out, do, lse, pos, pos), r"flash_bwd_(dq|dkdv)_kernel")
+    pairs = B * H_ * S * (S + 1) / 2
+    big, small = B * S * H_ * HD * 2, B * S * K_ * HD * 2
+    b = bound(4 * big + 4 * small + B * H_ * S * 4, 10 * HD * pairs,
+              BF16_FLOPS)
+    print(f"kernel flash_attention_bwd[moe training B={B} S={S} H={H_} "
+          f"K={K_} hd={HD} G=5, P=1 CTA a cluster]: max_abs_err={err:.3g} "
+          f"(within {BWD_RTOL} of the largest |gradient|, bit for bit across "
+          f"two calls) kernel_ms={ms:.4f}"
+          + "".join(f" {n}_ms={t:.4f}" for n, t in sorted(per.items()))
+          + f" plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA backward) "
+          f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
+
+
+# ------------------------------------------------------------ phase 11
+MOE_DEPTH = 12                     # llama4-scout's 48 layers cut to 12
+MOE_SHALLOW = 2                    # the token checks' depth (see moe_path)
+MOE_TRAIN_DEPTH = 1                # training: one layer (Adam state)
+
+
+class AdmitLog(LaunchSpans):
+    """``LaunchSpans`` that also records, for each admitted request, how
+    many prompt tokens it took from the prefix cache (0: prefilled whole;
+    s > 0: its suffix prefilled against s shared tokens)."""
+
+    def __init__(self, launches):
+        super().__init__(launches)
+        self.shared: dict = {}
+        self._rid = None
+
+    @contextlib.contextmanager
+    def span(self, name, **kw):
+        if name == "serve.admit":
+            self._rid = kw.get("rid")
+        elif name == "serve.prefill":
+            self.shared[self._rid] = 0
+        elif name == "serve.chunk_prefill":
+            self.shared[self._rid] = kw["shared"]
+        with super().span(name, **kw):
+            yield
+
+
+def moe_replay(torch, cfg, params, reqs, everyone, shared, setting, tol,
+               label, margin=0.0):
+    """The served tokens of ``reqs`` against a replay of the engine's
+    computation on the plain paths, outside the engine (no pool, no graphs,
+    no kernels): each prompt prefilled as the engine prefilled it — whole,
+    right-padded to its bucket, or its suffix padded to its bucket against
+    the first s rows of the prefill of the request that put that prefix in
+    the cache (the first request of ``everyone`` prefilled whole with the
+    same first s tokens) — then the served tokens fed back one decode step
+    at a time, all requests in one batch, through the gather path.  A
+    moe layer routes a prefill's tokens together and drops the pairs past
+    an expert's capacity, so a prefill of other tokens, or of the same
+    tokens in another group, is a different computation: the replay keeps
+    the engine's groups.  Decode groups (a tick's live slots, at most 16
+    tokens) never drop.  Every served token must be within ``tol`` of the
+    replay's largest logit at its position (tie-aware), unless the token
+    that produced that position's logits had, in some layer of the replay,
+    a router margin (the chosen experts' least probability minus the
+    next) within ``margin``: there rounding alone can choose another
+    expert, as the per-layer check measures, and the position's logits are
+    another computation's; such positions are counted and printed.
+    Prints how many prompt tokens lost an expert to capacity in the
+    replayed prefills."""
+    from repro_torch.models import lm
+    from repro_torch.models.lm import ModelKnobs
+    dev = torch.device("cuda")
+    bs, max_seq, chunk = 16, 1024, setting["prefill_chunk"]
+    mb = max_seq // bs
+    kn = ModelKnobs(k_chunk=setting["k_chunk"])
+    n = len(reqs)
+    shape = lm.init_paged_cache_shapes(cfg, n * mb + 1, bs)["k"]
+    cache = {k: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+             for k in "kv"}
+    tables = (torch.arange(n * mb, device=dev).reshape(n, mb) + 1).to(
+        torch.int32)
+    cache["block_tables"] = tables
+    rec = RouteRecorder(torch)
+    first, first_m, dropped, prompt_toks = [], [], 0, 0
+    k = cfg.moe_top_k
+
+    def margins(rows):
+        """The least router margin over the layers' recorded calls of the
+        token rows ``rows`` of each call: (len(rows),)."""
+        out = None
+        for probs, _, _ in rec.calls:
+            srt = probs[rows].sort(-1, descending=True).values
+            m = srt[:, k - 1] - srt[:, k]
+            out = m if out is None else torch.minimum(out, m)
+        rec.calls.clear()
+        return out
+
+    def padded(toks):
+        b = min(-(-len(toks) // chunk) * chunk, max_seq)
+        t = torch.zeros((1, b), dtype=torch.long, device=dev)
+        t[0, :len(toks)] = torch.as_tensor(np.asarray(toks), device=dev)
+        return t
+
+    with plain_path(torch), rec.active():
+        for i, r in enumerate(reqs):
+            P, s = len(r.prompt), shared[r.rid]
+            src = r.prompt if s == 0 else next(
+                o.prompt for o in sorted(everyone, key=lambda o: o.rid)
+                if shared.get(o.rid) == 0
+                and len(o.prompt) >= s
+                and np.array_equal(o.prompt[:s], r.prompt[:s]))
+            hidden, pc = lm.forward(params, padded(src), cfg, kn,
+                                    mode="prefill")
+            for _, _, keep in rec.calls:
+                dropped += int((~keep[:len(src)]).any(-1).sum())
+            prompt_toks += len(src) * cfg.n_layers
+            if s == 0:
+                m0 = margins([P - 1])
+            rec.calls.clear()
+            m = P if s == 0 else s
+            rows = lm.paged_rows(torch.arange(m, device=dev)[None],
+                                 tables[i:i + 1], bs)
+            for name in "kv":
+                cache[name][:, rows[0][0], rows[1][0]] = pc[name][:, 0, :m]
+            if s == 0:
+                lg = lm.logits_fn(params, hidden[:, P - 1:P], cfg)[0, 0]
+            else:
+                sfx = padded(r.prompt[s:])
+                sub = dict(cache, block_tables=tables[i:i + 1])
+                out, _ = lm.decode_step(params, sub, sfx, torch.tensor(
+                    [s], dtype=torch.int32, device=dev), cfg, kn)
+                lg = out[0, P - s - 1]
+                for _, _, keep in rec.calls:
+                    dropped += int((~keep[:P - s]).any(-1).sum())
+                prompt_toks += (P - s) * cfg.n_layers
+                m0 = margins([P - s - 1])
+            first.append(lg.float())
+            first_m.append(m0)
+        steps, mins = [torch.stack(first)], [torch.cat(first_m)]
+        gen = len(reqs[0].tokens_out)
+        for j in range(1, gen):
+            tok = torch.tensor([[r.tokens_out[j - 1]] for r in reqs],
+                               device=dev)
+            pos = torch.tensor([len(r.prompt) + j - 1 for r in reqs],
+                               dtype=torch.int32, device=dev)
+            out, _ = lm.decode_step(params, cache, tok, pos, cfg, kn)
+            steps.append(out[:, 0].float())
+            mins.append(margins(list(range(n))))
+    lg = torch.stack(steps, 1)                                # (n, gen, V)
+    ambiguous = torch.stack(mins, 1) <= margin                # (n, gen)
+    if not torch.isfinite(lg).all():
+        fail(f"{label}: replayed logits not finite")
+    got = torch.tensor([r.tokens_out for r in reqs], device=dev)
+    gap = lg.max(-1).values - lg.gather(-1, got[..., None])[..., 0]
+    exact = int((gap == 0).sum())
+    off = gap > tol
+    excused = int((off & ambiguous).sum())
+    worst = float((gap * ~(off & ambiguous)).max())
+    print(f"{label}: {exact}/{gap.numel()} served tokens of {n} requests are "
+          f"the replay's argmax, worst logit gap {worst:.4g} (tolerance "
+          f"{tol:.4g}) beside {excused} beyond it at positions whose token "
+          f"had a router margin within {margin:.3g} in some layer (of "
+          f"{int(ambiguous.sum())} such positions; largest gap there "
+          f"{float((gap * ambiguous).max()):.4g}); {dropped} of "
+          f"{prompt_toks} (token, layer) pairs of the replayed prefills lost "
+          f"an expert to capacity", flush=True)
+    mins = torch.stack(mins, 1)
+    for r, j in torch.nonzero(off).tolist()[:8]:
+        print(f"{label}:   request {reqs[r].rid} token {j}: gap "
+              f"{float(gap[r, j]):.4g}, least router margin "
+              f"{float(mins[r, j]):.3g}", flush=True)
+    if worst > tol:
+        fail(f"{label}: served tokens disagree with the replay: logit gap "
+             f"{worst} > {tol}")
+
+
+def moe_serve(torch, cfg, params, card, tol, margin, full=True):
+    """Phase 11's serving on llama4-scout at full width and ``cfg``'s
+    depth: the shared_prefix bf16 arm (prefill through flash, suffix
+    prefill and decode through paged attention at G = 5, copy-on-write)
+    and a spec_k = 3 arm, every served token held to the replay
+    (``moe_replay``, within ``tol`` outside router margins within
+    ``margin``); with ``full`` also an int8 arm, the graph checks and the
+    decode profile (the expert products' share against the weight read).
+
+    The spec arm verifies 4 tokens a slot.  With ``full`` it has 8 slots,
+    32 tokens a verify step: past the capacity's small-step floor of 16,
+    so a verify step can drop pairs (idle slots and rejected drafts take
+    capacity too, as in the JAX engine) and its tokens are not the plain
+    arm's by construction; without ``full`` it has 4 slots, 16 tokens a
+    step, which never drop, and the replay holds it like the plain arm.
+    Returns the arms' launches."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.serving import DEFAULT_SERVING_SETTING
+    from repro_torch.serving.workload import make_trace
+    share = dict(DEFAULT_SERVING_SETTING, max_batch=8, block_size=16,
+                 cache_dtype="bf16", prefix_share=True)
+    tag = f"moe {cfg.n_layers} layers"
+    log = AdmitLog(LAUNCHES)
+    eng, done, stats, la = serve_arm(torch, cfg, params, share,
+                                     dense_trace(cfg), f"{tag} bf16",
+                                     tracer=log)
+    by = {k: {n: v[n] for n in ("flash_attention", "paged_attention")}
+          for k, v in log.by_span.items()
+          if k in ("serve.prefill", "serve.chunk_prefill", "serve.decode")}
+    print(f"serve[{tag} bf16]: launches by span {by}; {stats['cow_copies']} "
+          f"COW copies; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    if not (by.get("serve.prefill", {}).get("flash_attention")
+            and by.get("serve.chunk_prefill", {}).get("paged_attention")
+            and by.get("serve.decode", {}).get("paged_attention")
+            and stats["cow_copies"]):
+        fail(f"the moe serve did not run flash in prefill and paged "
+             f"attention in suffix prefill and decode, or made no COW copy: "
+             f"{by}")
+    moe_replay(torch, cfg, params, done, done, log.shared, share, tol,
+               f"tokens[{tag} bf16]", margin)
+    launches = {k: la[k] for k in DENSE_KERNELS}
+    if full:
+        trace8 = make_trace("shared_prefix", 400.0, 0.015,
+                            vocab=cfg.vocab_size, seed=100, prefix_len=192,
+                            tail_lens=(8, 48), max_news=(8, 8))
+        eng8, _, _, lb = serve_arm(torch, cfg, params,
+                                   dict(share, quant="int8"), trace8,
+                                   f"{tag} int8")
+        quant_roundtrip(torch, eng8, cfg)
+        g = fill_pool(torch, eng, 7)
+        check_graphs(torch, eng, cfg.name, step_cases(torch, eng, cfg, g,
+                                                      quant_eng=eng8))
+        prof = profile_decode(torch, eng, cfg, g)
+        experts = 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * 2 * cfg.n_layers
+        rest = sum(t.numel() * t.element_size() for t in _leaves(params)) - (
+            experts + params["embed"]["tokens"].numel() * 2)
+        print(f"profile[{cfg.name}]: expert GEMMs (bmm, eager step) "
+              f"{prof['bmm_ms']:.3f} ms a step beside {prof['busy_ms']:.3f} "
+              f"ms of kernels a graph step; every expert's weights "
+              f"({experts / 1e9:.2f} GB) read at 3.35 TB/s take "
+              f"{experts / HBM_BYTES_PER_S * 1e3:.3f} ms, the other weights "
+              f"({rest / 1e9:.2f} GB) {rest / HBM_BYTES_PER_S * 1e3:.3f} ms: "
+              f"the step's weight-read bound "
+              f"{(experts + rest) / HBM_BYTES_PER_S * 1e3:.3f} ms against "
+              f"{prof['wall_ms']:.3f} ms wall", flush=True)
+        for k in DENSE_KERNELS:
+            launches[k] += lb[k]
+        del eng8
+    del eng
+    log = AdmitLog(LAUNCHES)
+    from repro_torch.models.moe import _capacity
+    slots = 8 if full else 4
+    cap = _capacity(4 * slots, cfg.moe_top_k, cfg.n_experts,
+                    cfg.capacity_factor)
+    _, sdone, sstats, lc = serve_arm(
+        torch, cfg, params, dict(share, spec_k=3.0, drafter="ngram",
+                                 max_batch=slots),
+        dense_trace(cfg), f"{tag} bf16 spec_k=3 ngram {slots} slots",
+        tracer=log)
+    ver = log.by_span.get("decode.verify", {}).get("paged_attention", 0)
+    print(f"spec[{tag}]: paged_attention launches in decode.verify (S = 4 "
+          f"at {slots} slots: {4 * slots} tokens a step against a capacity "
+          f"of {cap} an expert) {ver}; "
+          f"{sstats['speculation']}", flush=True)
+    if not ver:
+        fail("the moe spec arm did not verify through paged attention")
+    want = {r.rid: r.tokens_out for r in done}
+    differ = [r for r in sdone if r.tokens_out != want[r.rid]]
+    print(f"spec[{tag}]: {len(sdone) - len(differ)}/{len(sdone)} requests "
+          f"served exactly the spec_k=0 arm's tokens", flush=True)
+    if differ:
+        moe_replay(torch, cfg, params, differ, sdone, log.shared, share, tol,
+                   f"spec[{tag}] requests that differ", margin)
+    for k in DENSE_KERNELS:
+        launches[k] += lc[k]
+    return launches
+
+
+def moe_train(torch, card):
+    """Phase 11's training on llama4-scout at full width cut to one layer
+    (4.15 B parameters; their Adam state, 4 x 512 tokens a step): one
+    step's loss (the router aux in it) and gradients, the kernel path
+    (flash forward and backward at G = 5, P = 1) against the plain path on
+    the same parameters and batch, within a measured rounding-noise floor
+    as in phase 9, the plain runs pinned to the kernel run's expert
+    choices (``RouteRecorder.pinned``: a router near-tie that the two
+    paths' rounding breaks apart moves a token's whole gradient to another
+    expert, up to 0.94 of a leaf's largest value on an H100, so unpinned
+    the comparison measures the ties, not the kernels); then fixed-setting
+    steps in which
+    the loss falls (step time, tokens/s, peak memory) and one step with the
+    int8 push (one quantize and dequantize a leaf).  Returns the launches
+    of the runs."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import flatten, leaves
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.models.lm import ModelKnobs
+    from repro_torch.ps.lm_job import DEFAULT_LM_SETTING, LMJob
+    from repro_torch.ps.stepfn import _grads
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              n_layers=MOE_TRAIN_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    batch = next(lm_batch_iterator(cfg, TRAIN_B, TRAIN_S, seed=0))
+
+    def run():
+        loss, aux, g = _grads(params, batch, cfg, ModelKnobs())
+        return float(loss), float(aux["aux"]), flatten(g)
+
+    rec = RouteRecorder(torch)
+    before = LAUNCHES["flash_attention_bwd"]
+    with rec.active():
+        k_loss, k_aux, (names, k_g) = run()
+    if LAUNCHES["flash_attention_bwd"] - before != cfg.n_layers:
+        fail("moe train parity: the flash backward did not run once a layer")
+    routes = [topi for _, topi, _ in rec.calls]
+    with plain_attention(torch), rec.pinned(routes):
+        p_loss, p_aux, (_, p_g) = run()
+    flips = rec.flips
+    with plain_attention(torch, eps=2.0 ** -20), rec.pinned(routes):
+        n_loss, n_aux, (_, n_g) = run()
+
+    def worst(a, b):
+        return max((float((x.float() - y.float()).abs().max()
+                          / y.float().abs().max().clamp_min(1e-30)), n)
+                   for x, y, n in zip(a, b, names))
+
+    (err, leaf), (noise, _) = worst(k_g, p_g), worst(n_g, p_g)
+    tol = TRAIN_GRAD_TOL + 1.5 * noise
+    lerr, lnoise = abs(k_loss - p_loss), abs(n_loss - p_loss)
+    ltol = TRAIN_LOSS_TOL + 1.5 * lnoise
+    print(f"parity[train moe {cfg.n_layers} layer]: loss kernel {k_loss:.6f} "
+          f"plain {p_loss:.6f} (|diff| {lerr:.3g}, floor {lnoise:.3g}, bound "
+          f"{ltol:.3g}), router aux {k_aux:.6f} / {p_aux:.6f}; gradients: "
+          f"worst leaf ({leaf}) max err {err:.4g} of its largest |value| "
+          f"against a rounding-noise floor of {noise:.4g} (bound "
+          f"{tol:.4g}); the plain run's own expert choice differed for "
+          f"{flips} of {TRAIN_B * TRAIN_S} tokens (pinned to the kernel "
+          f"run's)", flush=True)
+    if not (err <= tol and lerr <= ltol and k_aux > 0) or any(
+            not torch.isfinite(x.float()).all() for x in k_g):
+        fail("moe train parity")
+    del params, k_g, p_g, n_g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    job = LMJob(cfg, batch=TRAIN_B, seq=TRAIN_S)
+    state = job.init_state(DEFAULT_LM_SETTING, seed=0)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    step = job.step_builder(DEFAULT_LM_SETTING)
+    batches = job.batches(0)
+    losses, walls, evs = [], [], []
+    reset_launches()
+    for _ in range(MOE_TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, m = step(state, next(batches))
+        b.record()
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        evs.append(a.elapsed_time(b))
+    launches = dict(LAUNCHES)
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not np.isfinite(losses).all() or not last < first:
+        fail(f"moe fixed run: the loss did not fall ({first} -> {last})")
+    state, pwall, busy, top, groups = _profile_steps(torch, step, state,
+                                                     batches, steps=2)
+    opt_ms = time_optimizer(torch, job, state, reps=2)
+    wall, ev = float(np.median(walls[2:])), float(np.median(evs[2:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = cfg.n_params()
+    print(f"train[moe fixed]: {cfg.name} full width at {cfg.n_layers} layer "
+          f"({n / 1e9:.3f} B params, {cfg.n_active_params() / 1e9:.3f} B "
+          f"active a token), {TRAIN_B} x {TRAIN_S} tokens, "
+          f"{MOE_TRAIN_STEPS} steps of {DEFAULT_LM_SETTING}: loss "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (mean of the first 3 "
+          f"{first:.4f}, of the last 3 {last:.4f})", flush=True)
+    print(f"train[moe fixed]: step {wall:.2f} ms wall, {ev:.2f} ms between "
+          f"CUDA events (medians of steps 3-{MOE_TRAIN_STEPS}), "
+          f"{TRAIN_B * TRAIN_S / wall * 1e3:.0f} tokens/s; under "
+          f"torch.profiler {pwall:.2f} ms wall, busy share {busy / pwall:.3f};"
+          f" by kind: " + ", ".join(
+              f"{g_} {ms:.2f} ms ({k} kernels)" for g_, (ms, k) in
+              sorted(groups.items(), key=lambda kv: -kv[1][0]))
+          + f"; the Adam pass alone {opt_ms:.2f} ms; state {state_gb:.2f} GB,"
+          f" peak {peak:.2f} GB allocated on {card}", flush=True)
+    int8 = dict(DEFAULT_LM_SETTING, compression="int8")
+    step8 = job.step_builder(int8)
+    before = dict(LAUNCHES)
+    state, m = step8(state, next(batches))
+    loss8 = float(m["loss"])
+    d = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    n_leaves = len(leaves(state["params"]))
+    if not np.isfinite(loss8) or not (d["quantize"] == d["dequantize"]
+                                      == n_leaves):
+        fail(f"moe int8 step: loss {loss8}, {d['quantize']} quantize / "
+             f"{d['dequantize']} dequantize launches for {n_leaves} leaves")
+    print(f"train[moe int8]: one step with the int8 push, loss {loss8:.4f}, "
+          f"one quantize and dequantize for each of {n_leaves} leaves (the "
+          f"largest, layers/moe/wi, "
+          f"{state['params']['layers']['moe']['wi'].numel():,} values in one "
+          f"block)", flush=True)
+    for k in launches:
+        launches[k] += d[k]
+    del state, step, step8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+MOE_TRAIN_STEPS = 8
+
+
+def moe_path(torch, card):
+    """Phase 11 on llama4-scout-17b-a16e at full width (d_model 5120, 40 q
+    / 8 kv heads of hd 128, 16 experts of d_ff 8192 a layer, top-1,
+    capacity factor 1.25, vocab 202048): serving and the per-layer parity
+    at ``MOE_DEPTH`` layers, training at ``MOE_TRAIN_DEPTH``.  Returns the
+    launches of the serve arms, the self-tuned serve and the training
+    runs."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              n_layers=MOE_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"model: {cfg.name} full width at {cfg.n_layers} of 48 layers, "
+          f"{n_params / 1e9:.3f} B params bf16 ({cfg.n_experts} experts of "
+          f"d_ff {cfg.d_ff}, top-{cfg.moe_top_k}, capacity factor "
+          f"{cfg.capacity_factor}), init {time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    rec = RouteRecorder(torch)
+    moves = []
+    for decode, what in ((True, "decode: paged vs gather"),
+                         (False, "prefill: flash vs plain")):
+        x0, run = attn_layer_runs(torch, cfg, params, rec, decode, seed=31)
+        moves.append(layer_by_layer(torch, f"{cfg.name} {what}", x0,
+                                    cfg.n_layers, run)[1])
+        del x0, run                  # the closure holds the parameters
+    # a router margin within 3 x the largest probability move between the
+    # kernel and the plain path in one layer (1.5 x the two probabilities
+    # a swap takes): a choice that the paths' rounding alone can flip
+    margin = 3 * max(moves)
+    tol = decode_parity(torch, cfg, params)
+    print(f"phase 11: parity done at {time.perf_counter() - t0:.1f}s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; router "
+          f"margins within {margin:.3g} count as ties", flush=True)
+    launches = moe_serve(torch, cfg, params, card, tol, margin)
+    print(f"phase 11: serve arms done at {time.perf_counter() - t0:.1f}s, "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    # at 12 layers the random-init model's rounding floor is the logits'
+    # own size (a flipped expert anywhere moves every later token): the
+    # token checks there only bound the drift; at MOE_SHALLOW layers the
+    # floor is small, and the same arms are held to it
+    c, p = _depth(cfg, params, MOE_SHALLOW)
+    shallow = moe_serve(torch, c, p, card, decode_parity(torch, c, p),
+                        margin, full=False)
+    del c, p
+    for k in DENSE_KERNELS:
+        launches[k] += shallow[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ls = selftuned_serve(torch, cfg, params, card, need_relayout=True)
+    for k in DENSE_KERNELS:
+        launches[k] += ls[k]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 11: serving done at {time.perf_counter() - t0:.1f}s; freed "
+          f"the serving model: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB still allocated", flush=True)
+    lt = moe_train(torch, card)
+    launches = {k: launches.get(k, 0) + lt.get(k, 0)
+                for k in set(launches) | set(lt)}
+    missing = [k for k in ("paged_attention", "flash_attention",
+                           "flash_attention_bwd", "quantize", "dequantize")
+               if not launches.get(k)]
+    if missing:
+        fail(f"the moe path never launched {missing}: {launches}")
+    print(f"moe: phase 11 in {time.perf_counter() - t0:.1f}s, launches "
+          f"{launches}, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB", flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -2871,6 +3861,7 @@ def main():
     check_train_kernels(torch, rows)
     rows["selective_scan"] = check_scan(torch)
     check_hybrid_kernels(torch, rows)
+    check_moe_kernels(torch, rows)
     launches = dict.fromkeys(rows, 0)
     launches.update(dense_path(torch, card))
     # free the dense model (and its engines' pools) before falcon-mamba
@@ -2890,6 +3881,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     for name, n in hybrid_path(torch, card).items():
+        launches[name] += n
+    # free the hybrid model before the moe model (54 GB of weights)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"freed the hybrid model: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+          f"allocated", flush=True)
+    for name, n in moe_path(torch, card).items():
         launches[name] += n
 
     line = {"kernels": [

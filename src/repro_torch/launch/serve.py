@@ -15,6 +15,12 @@ self-tuning, on the CUDA device by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --selftune --tuning-store /path/to/store
 
+  # llama4-scout-17b-a16e (moe family: 16 routed experts a layer, top-1,
+  # paged KV) does not fit one card at its 48 layers (203 GB of bf16
+  # weights); reduced, on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama4-scout-17b-a16e --reduced --device cpu
+
   # self-tuning (the tuner learns the serving setting online and applies
   # it by staged or stop-the-world reconfiguration), with a Chrome trace
   # (+ PATH.audit.jsonl, the tuner's decisions) and the attribution panel:
@@ -34,8 +40,9 @@ Weights are random, drawn from ``--seed``.  ``--tuning-store DIR`` (with
 reads a store the other wrote: the run starts from the golden incumbent
 of the nearest signature, the tuner absorbs that signature's observations
 and skips init settings, and on exit the store is compacted and its
-``GOLDEN.json`` rewritten.  The moe, vlm and encoder archs come with later
-slices of the port and raise ``NotImplementedError``.
+``GOLDEN.json`` rewritten.  The dense, moe, ssm and hybrid families are
+served; the vlm and encoder archs come with later slices of the port and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -18,9 +18,11 @@
       --reduced --device cpu --steps 50 --ckpt-dir /tmp/ck --resume
 
 ``--self-tune`` turns on the tuner; otherwise the default setting runs
-fixed.  Weights are random, drawn from ``--seed``.  The dense family
-trains; the ssm family's training raises (it needs a backward of the
-selective scan).
+fixed.  Weights are random, drawn from ``--seed``.  The dense and moe
+families train (moe: the router's load-balancing loss, weighted by
+``router_aux_weight``, enters the loss; each layer's expert tensors are
+autograd leaves of their own); the ssm and hybrid families' training
+raises (it needs a backward of the selective scan).
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """Decoder LM: parameters, prefill, decode and training (the loss), for
-the dense family (attention + SwiGLU MLP, paged KV decode), the ssm family
-(mamba1 blocks, recurrent-state decode) and the hybrid family (zamba2:
-mamba2 blocks and one shared attention + MLP block applied every
-``shared_attn_every`` layers, whose KV lives in a dense per-slot slab);
-training runs for the dense family and raises for the other two.
+the dense family (attention + SwiGLU MLP, paged KV decode), the moe family
+(attention + a top-k routed mixture of SwiGLU experts, ``models/moe.py``,
+paged KV decode), the ssm family (mamba1 blocks, recurrent-state decode)
+and the hybrid family (zamba2: mamba2 blocks and one shared attention +
+MLP block applied every ``shared_attn_every`` layers, whose KV lives in a
+dense per-slot slab); training runs for the dense and moe families and
+raises for the other two.
 
 The port of the JAX package's ``models/lm.py``.  Parameters are a nested
 dict of tensors with the JAX tree's keys: layer weights are stacked on a
@@ -12,18 +14,20 @@ leading L axis and weight matrices keep JAX's (in, out) orientation, so
 of the stacked tensors.
 
 Decode writes the new state into the cache it is given *in place* (JAX
-returns rebuilt arrays): the dense family's KV rows into the paged pool's
-``cache["k"]``/``cache["v"]``, the ssm family's conv window and SSM state
-into ``cache["conv"]``/``cache["h"]``, and the hybrid family's shared
-block's KV rows into ``cache["shared_k"]``/``cache["shared_v"]``;
+returns rebuilt arrays): the dense and moe families' KV rows into the
+paged pool's ``cache["k"]``/``cache["v"]``, the ssm family's conv window
+and SSM state into ``cache["conv"]``/``cache["h"]``, and the hybrid
+family's shared block's KV rows into ``cache["shared_k"]``/
+``cache["shared_v"]``;
 ``decode_step`` returns the same dict it was given.
 
 Training (``mode="train"``, ``loss_fn``) keeps no KV and writes nothing
 in place; autograd runs through it, with each layer optionally
-recomputed in the backward (``ModelKnobs.remat``).
+recomputed in the backward (``ModelKnobs.remat``); the moe family's
+router aux loss enters the loss.
 
-Other families (moe, vlm, encoder) are served by later slices of the port
-and raise ``NotImplementedError``.
+The vlm and encoder families are later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from repro_torch.models.attention import (chunked_attention, decode_attention,
                                           paged_decode_attention,
                                           slab_decode_attention)
 from repro_torch.models.mamba import mamba1_block, mamba2_block
+from repro_torch.models.moe import moe_block
 
 ZERO_INIT = ("scale", "bq", "bk", "bv",     # norm gains (1 + scale), biases
              "conv_b", "dt_b", "dt_bias2", "gnorm", "A_log2")
@@ -65,16 +70,19 @@ class ModelKnobs:
                                # this many positions (0 = at once)
 
 
+ATTN_FAMILIES = ("dense", "moe")     # attention layers, paged KV decode
+
+
 def check_family(cfg: ModelConfig):
-    if (cfg.family == "dense"
+    if (cfg.family in ATTN_FAMILIES
             or (cfg.family == "ssm" and cfg.ssm_version == 1)
             or (cfg.family == "hybrid" and cfg.ssm_version == 2)):
         return
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet: the port serves the "
-        f"dense family, the ssm family (mamba1) and the hybrid family "
-        f"(mamba2 + shared attention); moe, vlm and encoder come with a "
-        f"later 'other families' slice")
+        f"dense and moe families, the ssm family (mamba1) and the hybrid "
+        f"family (mamba2 + shared attention); vlm and encoder come with "
+        f"later slices, one family each")
 
 
 def _pdt(cfg: ModelConfig):
@@ -106,8 +114,13 @@ def param_shapes(cfg: ModelConfig) -> dict:
         layer = {"ln1": {"scale": (D,)}, "ssm": ssm}
     else:
         layer = {"ln1": {"scale": (D,)}, "ln2": {"scale": (D,)},
-                 "attn": _attn_shapes(cfg),
-                 "mlp": {"wi": (D, F_), "wg": (D, F_), "wo": (F_, D)}}
+                 "attn": _attn_shapes(cfg)}
+        if cfg.uses_moe:
+            E = cfg.n_experts
+            layer["moe"] = {"router": (D, E), "wi": (E, D, F_),
+                            "wg": (E, D, F_), "wo": (E, F_, D)}
+        else:
+            layer["mlp"] = {"wi": (D, F_), "wg": (D, F_), "wo": (F_, D)}
     tree = {
         "embed": {"tokens": (V, D)},
         "layers": _map_tree(layer, lambda _, s: (L,) + s),
@@ -145,7 +158,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     given): truncated normal on [-2, 2] over sqrt(fan_in), with norm gains
     and biases zero, and the ssm fix-ups ``A_log = log(1..N)``,
     ``A_log2 = 0``, ``dt_bias2 = gnorm = 0`` and ``Dskip = Dskip2 = 1`` —
-    the JAX package's distributions, not its numbers."""
+    the JAX package's distributions, not its numbers.  The moe family's
+    stacked expert weights (L, E, in, out) are drawn one (in, out) matrix
+    at a time, so the f32 draw stays one matrix (llama4-scout's wi at 12
+    layers, (12, 16, 5120, 8192), would be drawn through 32 GB of f32)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -160,6 +176,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             return torch.ones(shape, dtype=dt, device=dev)
         if len(shape) <= 1 or path[-1] in ZERO_INIT:
             return torch.zeros(shape, dtype=dt, device=dev)
+        if len(shape) == 4:                 # moe experts (L, E, in, out)
+            t = torch.empty(shape, dtype=dt, device=dev)
+            for i in range(shape[0]):
+                for e in range(shape[1]):
+                    t[i, e] = common.dense_init(gen, shape[2:], in_axis=0,
+                                                dtype=dt, device=dev)
+            return t
         return common.dense_init(gen, shape, in_axis=max(0, len(shape) - 2),
                                  dtype=dt, device=dev)
 
@@ -234,6 +257,27 @@ def _mlp_apply(x, p):
     return (common.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
 
 
+def _attn_layer(x, lp, cfg: ModelConfig, knobs: ModelKnobs, positions,
+                rope, cache=None, pos=None, block_tables=None, rows=None,
+                want_aux: bool = False):
+    """One layer of the dense and moe families: attention, then the SwiGLU
+    MLP or (moe) the routed experts over the B*S tokens.  Returns (x, kv,
+    aux): kv as ``_attn_apply``'s; aux the router's load-balancing loss
+    with ``want_aux`` (training), else None (the serving paths, where the
+    JAX package discards it)."""
+    B, S, D = x.shape
+    h, kv = _attn_apply(common.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps),
+                        lp["attn"], cfg, knobs, positions, rope, cache, pos,
+                        block_tables=block_tables, rows=rows)
+    x = x + h
+    xn = common.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps)
+    if not cfg.uses_moe:
+        return x + _mlp_apply(xn, lp["mlp"]), kv, None
+    y, aux = moe_block(xn.reshape(B * S, D), lp["moe"], cfg,
+                       want_aux=want_aux)
+    return x + y.reshape(B, S, D), kv, aux
+
+
 def slab_rows(positions, max_seq: int):
     """(slot, position) rows of a dense slab that S >= 1 new tokens write:
     positions clamped to ``max_seq - 1``, as the JAX dense decode clamps
@@ -263,11 +307,14 @@ def _layer(tree: dict, i: int) -> dict:
 def _save_products(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of ``remat="dots"``: keep the outputs of
     the projections' and the MLP's matrix products (``aten.mm``, what
-    ``x @ w`` becomes) and recompute the rest.  The attention products
-    have batch dims, so JAX's ``checkpoint_dots_with_no_batch_dims`` does
-    not keep them: the flash forward runs again in the backward, as in
-    JAX."""
-    if op is torch.ops.aten.mm.default:
+    ``x @ w`` becomes) and of the moe experts' batched products
+    (``aten.bmm``), and recompute the rest.  The flash forward runs again
+    in the backward, as in JAX.  (JAX's
+    ``checkpoint_dots_with_no_batch_dims`` would recompute the experts'
+    products, which have a batch axis; a remat setting changes memory and
+    time, never the result.  On the CPU the plain attention's products
+    are ``bmm`` too and are kept.)"""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -297,18 +344,19 @@ def forward(params, tokens, cfg: ModelConfig,
             cache=None, pos=None, valid_len=None):
     """tokens: (B, S) int.  Returns (hidden (B, S, D), cache).
 
-    Dense: the stacked (L, B, S, K, hd) prefill activations, or the paged
-    pool written in place (``mode="decode"``, ``pos`` (B,) the first write
-    position).  ssm: the stacked prefill state (conv (L, B, Di, K-1), h
+    Dense and moe: the stacked (L, B, S, K, hd) prefill activations, or the
+    paged pool written in place (``mode="decode"``, ``pos`` (B,) the first
+    write position).  ssm: the stacked prefill state (conv (L, B, Di, K-1), h
     (L, B, Di, N) f32), or the decode cache written in place (``pos`` is
     not read).  hybrid: the same with h (L, B, nh, P, N), and the shared
     block's KV, (n_apps, B, S, K, hd) in prefill or the slab
     ``shared_k``/``shared_v`` (n_apps, B, max_seq, K, hd) written in place
     at ``pos`` in decode.
 
-    ``mode="train"`` (dense only): no cache (None), nothing written in
-    place, each layer under ``knobs.remat``; the ssm and hybrid families
-    raise.
+    ``mode="train"`` (dense and moe): no cache (None), nothing written in
+    place, each layer under ``knobs.remat``; returns (hidden, aux), aux
+    the mean of the layers' router losses (0 for the dense family).  The
+    ssm and hybrid families raise.
 
     ``valid_len`` (int or (1,) int64 tensor, prefill only): non-pad tokens
     of a right-padded batch.  Attention ignores it (the causal mask and the
@@ -318,8 +366,8 @@ def forward(params, tokens, cfg: ModelConfig,
     check_family(cfg)
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode {mode!r}: prefill | decode | train")
-    if mode == "train" and cfg.family == "dense":
-        return _forward_train(params, tokens, cfg, knobs), None
+    if mode == "train" and cfg.family in ATTN_FAMILIES:
+        return _forward_train(params, tokens, cfg, knobs)
     if mode == "train":
         raise NotImplementedError(
             f"{cfg.family} training is not ported yet: it needs a backward "
@@ -345,15 +393,10 @@ def forward(params, tokens, cfg: ModelConfig,
     rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
         c = (cache["k"][i], cache["v"][i]) if mode == "decode" else None
-        h, kv = _attn_apply(common.rms_norm(x, lp["ln1"]["scale"],
-                                            cfg.norm_eps),
-                            lp["attn"], cfg, knobs, positions, rope, c, pos,
-                            block_tables=bt, rows=rows)
-        x = x + h
-        x = x + _mlp_apply(common.rms_norm(x, lp["ln2"]["scale"],
-                                           cfg.norm_eps), lp["mlp"])
+        x, kv, _ = _attn_layer(x, _layer(params["layers"], i), cfg, knobs,
+                               positions, rope, c, pos, block_tables=bt,
+                               rows=rows)
         if mode == "prefill":
             ks.append(kv[0])
             vs.append(kv[1])
@@ -364,25 +407,29 @@ def forward(params, tokens, cfg: ModelConfig,
 
 
 def _forward_train(params, tokens, cfg: ModelConfig, knobs: ModelKnobs):
-    """The dense family's training forward: no KV kept, nothing written in
-    place; each layer goes through ``_maybe_remat``."""
+    """The training forward of the dense and moe families: no KV kept,
+    nothing written in place; each layer goes through ``_maybe_remat``.
+    Returns (hidden, aux): aux the mean of the layers' router losses, as
+    JAX's ``auxs.mean()`` (zeros for the dense family)."""
     x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
     B, S, D = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
 
     def body(x, lp):
-        h, _ = _attn_apply(common.rms_norm(x, lp["ln1"]["scale"],
-                                           cfg.norm_eps),
-                           lp["attn"], cfg, knobs, positions, rope)
-        x = x + h
-        return x + _mlp_apply(common.rms_norm(x, lp["ln2"]["scale"],
-                                              cfg.norm_eps), lp["mlp"])
+        x, _, aux = _attn_layer(x, lp, cfg, knobs, positions, rope,
+                                want_aux=True)
+        return x, aux
 
     body = _maybe_remat(body, knobs)
+    auxs = []
     for i in range(cfg.n_layers):
-        x = body(x, _layer(params["layers"], i))
-    return common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        x, aux = body(x, _layer(params["layers"], i))
+        auxs.append(aux)
+    aux = (torch.stack(auxs).mean() if cfg.uses_moe else
+           torch.zeros((), dtype=torch.float32, device=x.device))
+    return (common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps),
+            aux)
 
 
 def _forward_ssm(params, x, cfg: ModelConfig, knobs: ModelKnobs, mode: str,
@@ -452,10 +499,11 @@ def logits_fn(params, hidden, cfg: ModelConfig):
 def loss_fn(params, batch, cfg: ModelConfig,
             knobs: ModelKnobs = ModelKnobs()):
     """Mean cross entropy of ``batch["tokens"]`` against ``batch["labels"]``
-    (pre-shifted by the data pipeline), with f32 logits.  Returns (loss,
-    {"ce", "aux"}) as 0-dim f32 tensors; ``knobs.ce_chunk`` splits the
-    positions into chunks when it divides S."""
-    hidden, _ = forward(params, batch["tokens"], cfg, knobs, mode="train")
+    (pre-shifted by the data pipeline), with f32 logits, plus
+    ``router_aux_weight`` x the mean router aux loss of the moe layers.
+    Returns (loss, {"ce", "aux"}) as 0-dim f32 tensors; ``knobs.ce_chunk``
+    splits the positions into chunks when it divides S."""
+    hidden, aux = forward(params, batch["tokens"], cfg, knobs, mode="train")
     labels = batch["labels"]
     B, S = labels.shape
 
@@ -472,7 +520,6 @@ def loss_fn(params, batch, cfg: ModelConfig,
     else:
         total = ce(hidden, labels)
     loss = total / (B * S)
-    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
     return loss + cfg.router_aux_weight * aux, {"ce": loss, "aux": aux}
 
 
@@ -486,7 +533,7 @@ def init_paged_cache_shapes(cfg: ModelConfig, n_blocks: int,
     Attention families only: recurrent state has no sequence axis to
     page."""
     check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"family {cfg.family!r} has no paged KV cache")
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
     return {"k": shape, "v": shape}
@@ -498,8 +545,8 @@ def init_cache_shapes(cfg: ModelConfig, batch: int,
     (L, B, Di, K-1) (the pool's dtype) and h (L, B, Di, N) or, for mamba2,
     (L, B, nh, P, N) (always f32); the hybrid adds its shared block's KV
     slab ``shared_k`` / ``shared_v`` (n_apps, B, max_seq, K, hd), the one
-    state with a sequence axis, so it needs ``max_seq``.  The dense family
-    decodes from the paged pool (``init_paged_cache_shapes``)."""
+    state with a sequence axis, so it needs ``max_seq``.  The dense and moe
+    families decode from the paged pool (``init_paged_cache_shapes``)."""
     check_family(cfg)
     if cfg.family not in ("ssm", "hybrid"):
         raise ValueError(f"family {cfg.family!r} decodes from the paged pool")

@@ -1,5 +1,5 @@
 """Continuous-batching inference engine with online-reconfigurable knobs
-(dense, ssm and hybrid families).
+(dense, moe, ssm and hybrid families).
 
 The port of the JAX package's ``serving/engine.py`` main path:
 
@@ -8,9 +8,10 @@ The port of the JAX package's ``serving/engine.py`` main path:
     ``admit_budget`` knob meters prefills per scheduling quantum, and a
     short bounded lookahead lets small requests pass a long prompt;
   * the state pool from ``make_state_pool`` (repro_torch.serving.pool):
-    ``PagedKVPool`` (dense: paged KV blocks, block tables, copy-on-write
-    prompt-prefix sharing) or ``SSMStatePool`` (ssm and hybrid: one
-    recurrent state per slot, and the hybrid's shared-block KV slab);
+    ``PagedKVPool`` (dense and moe: paged KV blocks, block tables,
+    copy-on-write prompt-prefix sharing) or ``SSMStatePool`` (ssm and
+    hybrid: one recurrent state per slot, and the hybrid's shared-block KV
+    slab);
   * prefill per request at batch 1, padded to a multiple of
     ``prefill_chunk`` (flash-attention kernel; for ssm the selective-scan
     kernel, with the state stopped at the last prompt token, and the

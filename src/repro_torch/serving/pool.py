@@ -2,7 +2,7 @@
 
 ``StatePool`` is the interface the engine schedules every family through:
 
-  * ``PagedKVPool`` (dense family): KV in fixed-size blocks addressed
+  * ``PagedKVPool`` (dense and moe families): KV in fixed-size blocks addressed
     through per-request block tables.  Whole prompt blocks are shared
     between requests copy-on-write — refcounted physical blocks keyed by
     a chained hash of the block's tokens — so identical prompt prefixes
@@ -918,9 +918,9 @@ class SSMStatePool(StatePool):
 
 
 def make_state_pool(cfg, setting: dict, max_seq: int, device):
-    """Family dispatch: paged KV for the dense family, recurrent-state
-    slots for the ssm and hybrid families; other families raise (later
-    slices)."""
+    """Family dispatch: paged KV for the dense and moe families,
+    recurrent-state slots for the ssm and hybrid families; vlm and encoder
+    raise (later slices)."""
     lm.check_family(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return SSMStatePool(cfg, setting, max_seq, device)

@@ -29,11 +29,13 @@ pytestmark = pytest.mark.cuda
 # update and the <h, C> sum over <= 512 steps: the scan's bound everywhere
 SCAN_TOL = 1e-4
 BF16_TOL = 2e-2        # one bf16 step at |x| < 4, plus slack
-# Logits of the reduced hybrid, two paths that differ only in rounding:
-# tests/test_torch_hybrid.py's LM_LOGIT_TOL and its reasons (after the
-# shared block the residual stream reaches |x| ~ 12, where one bf16 step is
-# 1/16; JAX against the port differed by up to 0.074 on the CPU)
-HYBRID_LOGIT_TOL = 12 / 64
+# Logits of the reduced hybrid on the card, decode from the stored state
+# and slab against one prefill: two paths that differ only in rounding.
+# scripts/hybrid_decode_gap_card.py measured the largest |difference| over
+# 8 seeds (the test's model and tokens are its seed 0) on an H100 80GB
+# HBM3 at 700 W: 0.0391, 0.0313, 0.0239, 0.0693, 0.0469, 0.0469, 0.0527,
+# 0.0332; the bound is 1.5 x the largest.
+DECODE_GAP_TOL = 1.5 * 0.069336
 
 
 @pytest.fixture
@@ -155,11 +157,10 @@ def test_reduced_hybrid_serve_launches_every_kernel(dev):
         lg, cache = lm.decode_step(params, cache, tok[:, t:t + 1],
                                    torch.full((2,), t, device=dev), cfg)
     # decode (S = 1 products, paged attention over the slab) and prefill
-    # (S = 9 products, flash) round in other places (0.026 and 0.071 in two
-    # unseeded runs on an H100)
+    # (S = 9 products, flash) round in other places (DECODE_GAP_TOL)
     np.testing.assert_allclose(lg[:, 0].float().cpu().numpy(),
                                full[:, -1].float().cpu().numpy(),
-                               atol=HYBRID_LOGIT_TOL, rtol=2e-2)
+                               atol=DECODE_GAP_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("case", ["decode1", "decode3", "replay2",

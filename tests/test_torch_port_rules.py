@@ -4,7 +4,7 @@ the CPU, settings of later slices that raise instead of quietly running
 something else, and speculative decoding, the tuning slice
 (``--selftune``, ``--trace``, ``serve_loop(tuner=...)``,
 ``warm_start(space)``, ``reconfigure``, ``--tuning-store``), the hybrid
-family and training (``launch/train.py``, with and without
+and moe families and training (``launch/train.py``, with and without
 ``--self-tune``), which no longer raise."""
 import ast
 import json
@@ -132,7 +132,7 @@ def test_later_slices_raise_not_implemented(case, tmp_path):
                               dict(DEFAULT_LM_SETTING, mesh_split="1x2"))
     call = {
         "family": lambda: lm.init_params(
-            get_config("llama4-scout-17b-a16e").reduced(), 0, device="cpu"),
+            get_config("phi-3-vision-4.2b").reduced(), 0, device="cpu"),
         "ssm_train": lambda: lm.loss_fn(
             lm.init_params(ssm, 0, device="cpu"),
             {"tokens": torch.zeros((1, 4), dtype=torch.int64),
