@@ -50,11 +50,12 @@ Phases, in order; any failure exits non-zero before the result line:
              SDPA, paged attention over the shared block's slab viewed as
              blocks beside SDPA with a mask; each timed beside its bound.
              The moe path's shapes (llama4-scout, 40 q / 8 kv heads, G =
-             5): paged attention at decode, verify and a suffix prefill
-             over bf16 and f32 pools, flash at S = 320 and at the training
-             shape with lse beside SDPA, and the flash backward at the
-             training shape with one CTA a cluster (P = 1) beside SDPA's
-             backward.
+             5) and the vlm path's (phi-3-vision, 32 q = 32 kv heads of hd
+             96, G = 1): paged attention at decode, verify and a suffix
+             prefill over bf16 and f32 pools, flash at S = 320 and at the
+             training shape with lse beside SDPA, and the flash backward
+             at the training shape with one CTA a cluster (P = 1; at hd 96
+             over tiles padded to 128 columns) beside SDPA's backward.
 4. parity  — full-width starcoder2-3b decode step: paged kernel against
              the plain dense gather path on one f32 pool, one layer deep
              and all 30 layers (against a measured rounding-noise floor).
@@ -180,14 +181,32 @@ Phases, in order; any failure exits non-zero before the result line:
              within a measured noise floor, fixed steps in which the loss
              falls, one step with the int8 push.
 
+12. vlm    — the moe model is freed; phi-3-vision-4.2b at full width and
+             depth (32 layers, d_model 3072, 32 q = 32 kv heads of hd 96,
+             SwiGLU d_ff 8192, vocab 32064, untied head, a patch frontend
+             1024 -> 3072; 3.824 B params): the per-layer check of a decode
+             step (paged vs gather) and of a prefill of 64 image patches +
+             256 tokens (flash vs plain), phase 4's decode parity at 1 and
+             32 layers; served from tokens, as the JAX engine serves vlm:
+             phase 5's shared_prefix bf16 arm with every served token held
+             to a full prefill (tie-aware), the int8 arm, phase 6's graph
+             checks and decode profile, a spec_k = 3 arm with the spec_k =
+             0 arm's tokens, a self-tuned serve; then training with
+             patches, 4 x (64 patches + 448 tokens): loss and gradients
+             (frontend/proj among them) of the kernel path against the
+             plain path at 1 layer within a measured noise floor, fixed
+             steps at full depth in which the loss falls, one step with
+             the int8 push.
+
 Prints one JSON ``kernels`` line (launches: the serve arms', the training
-runs', the hybrid path's and the moe path's), the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.
+runs', the hybrid, moe and vlm paths'), the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import re
 import shutil
@@ -2710,19 +2729,24 @@ def layer_by_layer(torch, label, x0, n_layers, run):
     return rows, kernel_move
 
 
-def attn_layer_runs(torch, cfg, params, rec, decode, seed):
-    """(x0, run) for ``layer_by_layer`` over the dense and moe families'
-    layers (``lm._attn_layer``): a 320-token prefill (flash against the
-    plain chunked attention), or a decode step of 8 slots at 289-373
-    tokens of context over a random bf16 pool (paged attention against
-    the gather path), the step's KV rows written before they are read."""
+def attn_layer_runs(torch, cfg, params, rec, decode, seed, patches=0):
+    """(x0, run) for ``layer_by_layer`` over the dense, moe and vlm
+    families' layers (``lm._attn_layer``): a 320-token prefill (flash
+    against the plain chunked attention; with ``patches``, that many
+    random image patches through the vlm's frontend before 320 - patches
+    tokens), or a decode step of 8 slots at 289-373 tokens of context over
+    a random bf16 pool (paged attention against the gather path), the
+    step's KV rows written before they are read."""
     from repro_torch.models import common, lm
     from repro_torch.models.lm import ModelKnobs
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     B, S = (8, 1) if decode else (1, 320)
-    tok = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
-    x0 = params["embed"]["tokens"][tok].to(torch.bfloat16)
+    tok = torch.randint(0, cfg.vocab_size, (B, S - patches), generator=g,
+                        device=dev)
+    fr = (torch.randn((B, patches, cfg.frontend_dim), generator=g,
+                      device=dev).to(torch.bfloat16) if patches else None)
+    x0 = lm._embed(params, cfg, tok, fr)
     kw = {}
     if decode:
         bs, mb = 16, 64
@@ -3195,25 +3219,29 @@ def hybrid_path(torch, card):
     return launches
 
 
-# ------------------------------------------------------- phase 3 (moe shapes)
+# --------------------------------------------- phase 3 (moe and vlm shapes)
 MOE_H, MOE_K = 40, 8               # llama4-scout: 40 q / 8 kv heads, G = 5
+VLM_H, VLM_HD = 32, 96             # phi-3-vision: 32 q = 32 kv heads of hd
+                                   # 96, G = 1
 
 
-def check_moe_kernels(torch, rows):
-    """The attention kernels at llama4-scout's heads (H = 40, K = 8, hd
-    128, G = 5), against their plain versions, then timed beside their
-    bounds (printed ``kernel ...[moe ...]`` lines; the kernels line keeps
-    each kernel's first row):
+def check_group_kernels(torch, rows, tag, H_, K_, hd, seed):
+    """The attention kernels at one model's heads (H_ q / K_ kv heads of
+    ``hd``), against their plain versions, then timed beside their bounds
+    (printed ``kernel ...[tag ...]`` lines; the kernels line keeps each
+    kernel's first row and the largest error):
 
-    - paged attention, decode (8, 1, 40, 128) and verify (8, 4, 40, 128)
-      over (NB, 16, 8, 128) bf16 and f32 pools, and a suffix prefill of
+    - paged attention, decode (8, 1, H_, hd) and verify (8, 4, H_, hd)
+      over (NB, 16, K_, hd) bf16 and f32 pools, and a suffix prefill of
       S = 64 over a 256-token prefix;
-    - the flash forward at (1, 320, 40 / 8, 128), and at the training
-      shape (4, 512, 40 / 8, 128) with the rows' log-sum-exp;
+    - the flash forward at (1, 320, H_ / K_, hd) (the vlm's 64 patches
+      and 256 tokens), and at the training shape (4, 512, H_ / K_, hd)
+      with the rows' log-sum-exp;
     - the flash backward at the training shape, where a cluster splits a
-      kv head's 5 query heads over P = 1 CTA (the largest divisor of 5 up
-      to 4): bit for bit across two calls, timed whole and by launch
-      beside SDPA's backward."""
+      kv head's G query heads over P CTAs (P the largest divisor of G up
+      to 4: 1 at G = 5 and G = 1; tiles of 128 columns at hd 96): bit for
+      bit across two calls, timed whole and by launch beside SDPA's
+      backward."""
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_lse_ref,
                                                      attention_ref,
@@ -3222,9 +3250,11 @@ def check_moe_kernels(torch, rows):
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(21)
+    g = torch.Generator(device=dev).manual_seed(seed)
     bf16, f32 = torch.bfloat16, torch.float32
-    H_, K_ = MOE_H, MOE_K
+    G = H_ // K_
+    P = max(p for p in range(1, min(G, 4) + 1) if G % p == 0)
+    geo = f"H={H_} K={K_} hd={hd} G={G}"
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def randn(shape, dtype=bf16):
@@ -3235,7 +3265,7 @@ def check_moe_kernels(torch, rows):
         nb = B * mb + 1
         bt = (torch.randperm(nb - 1, generator=g, device=dev)[:B * mb]
               .reshape(B, mb) + 1).to(torch.int32)
-        return randn((nb, bs, K_, HD), pool_dt), randn((nb, bs, K_, HD),
+        return randn((nb, bs, K_, hd), pool_dt), randn((nb, bs, K_, hd),
                                                        pool_dt), bt
 
     pos8 = [300, 317, 333, 351, 288, 299, 345, 372]
@@ -3245,19 +3275,20 @@ def check_moe_kernels(torch, rows):
                                             1000]),
                                (8, 4, f32, pos8), (1, 64, bf16, [256])]:
         kp, vp, bt = pool(B, pool_dt)
-        q = randn((B, S, H_, HD))
+        q = randn((B, S, H_, hd))
         p = torch.tensor(pos, dtype=torch.int32, device=dev)
         for _ in range(2):               # the split counters return to 0
             out = paged_attention(q, kp, vp, bt, p)
             torch.cuda.synchronize()
             err = max(err, check_close(
-                torch, f"paged_attention G=5 B={B} S={S} pool={pool_dt}",
-                out, paged_attention_ref(q, kp, vp, bt, p), BF16_TOL))
+                torch, f"paged_attention {tag} {geo} B={B} S={S} "
+                f"pool={pool_dt}", out, paged_attention_ref(q, kp, vp, bt, p),
+                BF16_TOL))
     rows["paged_attention"]["max_abs_err"] = max(
         rows["paged_attention"]["max_abs_err"], err)
     for B, S, pos in [(8, 1, pos8), (8, 4, pos8), (1, 64, [256])]:
         kp, vp, bt = pool(B, bf16)
-        q = randn((B, S, H_, HD))
+        q = randn((B, S, H_, hd))
         p = torch.tensor(pos, dtype=torch.int32, device=dev)
         cols = ((max(pos) + S - 1) // 16 // 11 + 1) * 11   # a 1/6 bucket
         ms = timed_ms(torch, lambda: paged_attention(q, kp, vp, bt, p,
@@ -3266,65 +3297,65 @@ def check_moe_kernels(torch, rows):
             q, kp, vp, bt[:, :cols], p))
         seen = sum(x + S for x in pos)
         pairs = sum(x + j + 1 for x in pos for j in range(S))
-        b = bound(seen * K_ * HD * 2 * 2 + 2 * q.numel() * 2
-                  + bt[:, :cols].numel() * 4, 4 * pairs * H_ * HD,
+        b = bound(seen * K_ * hd * 2 * 2 + 2 * q.numel() * 2
+                  + bt[:, :cols].numel() * 4, 4 * pairs * H_ * hd,
                   BF16_FLOPS)
-        print(f"kernel paged_attention[moe B={B} S={S} H={H_} K={K_} "
-              f"hd={HD} G=5 bs=16 bf16 pool, ctx {min(pos) + 1}-"
-              f"{max(pos) + S}, ctx_cols={cols}]: kernel_ms={ms:.4f} "
-              f"plain_ms={plain:.4f} library_ms=n/a bound_ms={b[0]:.4f} "
-              f"({b[1]})", flush=True)
+        print(f"kernel paged_attention[{tag} B={B} S={S} {geo} bs=16 bf16 "
+              f"pool, ctx {min(pos) + 1}-{max(pos) + S}, ctx_cols={cols}]: "
+              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms=n/a "
+              f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
 
     err = 0.0
     for S, kc in [(37, 128), (320, 128), (320, 256), (1000, 128)]:
-        q, k, v = randn((1, S, H_, HD)), randn((1, S, K_, HD)), randn(
-            (1, S, K_, HD))
+        q, k, v = randn((1, S, H_, hd)), randn((1, S, K_, hd)), randn(
+            (1, S, K_, hd))
         out = flash_attention(q, k, v, block_k=kc)
         torch.cuda.synchronize()
-        err = max(err, check_close(torch, f"flash_attention G=5 S={S}", out,
-                                   attention_ref(q, k, v), BF16_TOL))
+        err = max(err, check_close(torch, f"flash_attention {tag} {geo} "
+                                   f"S={S}", out, attention_ref(q, k, v),
+                                   BF16_TOL))
     rows["flash_attention"]["max_abs_err"] = max(
         rows["flash_attention"]["max_abs_err"], err)
     for B, S, lse in [(1, 320, False), (4, 512, True)]:
-        q, k, v = randn((B, S, H_, HD)), randn((B, S, K_, HD)), randn(
-            (B, S, K_, HD))
+        q, k, v = randn((B, S, H_, hd)), randn((B, S, K_, hd)), randn(
+            (B, S, K_, hd))
         pos = torch.arange(S, device=dev)[None].expand(B, S)
         if lse:
             o, l_ = flash_attention(q, k, v, pos, pos, return_lse=True)
             e = float((l_ - attention_lse_ref(q, k, pos, pos)).abs().max())
             if e > LSE_TOL * max(1.0, float(l_.abs().max())):
-                fail(f"flash lse G=5 B={B} S={S}: max abs err {e}")
+                fail(f"flash lse {tag} B={B} S={S}: max abs err {e}")
         ms = timed_ms(torch, lambda: flash_attention(q, k, v, pos, pos,
                                                      return_lse=lse))
         plain = timed_ms(torch, lambda: attention_ref(q, k, v, pos, pos))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
-                                           enable_gqa=True))
+                                           enable_gqa=G > 1))
         b = bound((2 * q.numel() + k.numel() + v.numel()) * 2
-                  + B * H_ * S * 4 * lse, 4 * B * H_ * HD * S * (S + 1) / 2,
+                  + B * H_ * S * 4 * lse, 4 * B * H_ * hd * S * (S + 1) / 2,
                   BF16_FLOPS)
-        print(f"kernel flash_attention[moe B={B} S={S} H={H_} K={K_} "
-              f"hd={HD} G=5 bf16{', with lse' if lse else ''}]: "
-              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms="
-              f"{lib:.4f} (SDPA) bound_ms={b[0]:.4f} ({b[1]})", flush=True)
+        print(f"kernel flash_attention[{tag} B={B} S={S} {geo} bf16"
+              f"{', with lse' if lse else ''}]: kernel_ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA) "
+              f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
 
-    # the backward at G = 5: one CTA a cluster (P = 1)
+    # the backward at the training shape
     B, S = TRAIN_B, TRAIN_S
-    q, k, v, do = (randn((B, S, h, HD)) for h in (H_, K_, K_, H_))
+    q, k, v, do = (randn((B, S, h, hd)) for h in (H_, K_, K_, H_))
     pos = torch.arange(S, device=dev)[None].expand(B, S)
     out, lse = flash_attention(q, k, v, pos, pos, return_lse=True)
     got = flash_attention_bwd(q, k, v, out, do, lse, pos, pos)
     again = flash_attention_bwd(q, k, v, out, do, lse, pos, pos)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        fail("flash_attention_bwd G=5: two calls differ")
+        fail(f"flash_attention_bwd {tag}: two calls differ")
     err = 0.0
     for name, a, b in zip(("dq", "dk", "dv"), got,
                           attention_bwd_ref(q, k, v, do, pos, pos)):
         e = float((a.float() - b.float()).abs().max()
                   / b.float().abs().max())
         if not torch.isfinite(a.float()).all() or e > BWD_RTOL:
-            fail(f"flash_attention_bwd G=5 {name}: max err {e} of the "
+            fail(f"flash_attention_bwd {tag} {name}: max err {e} of the "
                  f"largest |value| (bound {BWD_RTOL})")
         err = max(err, float((a.float() - b.float()).abs().max()))
     rows["flash_attention_bwd"]["max_abs_err"] = max(
@@ -3334,19 +3365,19 @@ def check_moe_kernels(torch, rows):
     plain = timed_ms(torch, lambda: attention_bwd_ref(q, k, v, do, pos, pos))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=G > 1)
     lib = timed_ms(torch, lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
     per = launch_ms(torch, lambda: flash_attention_bwd(
         q, k, v, out, do, lse, pos, pos), r"flash_bwd_(dq|dkdv)_kernel")
     pairs = B * H_ * S * (S + 1) / 2
-    big, small = B * S * H_ * HD * 2, B * S * K_ * HD * 2
-    b = bound(4 * big + 4 * small + B * H_ * S * 4, 10 * HD * pairs,
+    big, small = B * S * H_ * hd * 2, B * S * K_ * hd * 2
+    b = bound(4 * big + 4 * small + B * H_ * S * 4, 10 * hd * pairs,
               BF16_FLOPS)
-    print(f"kernel flash_attention_bwd[moe training B={B} S={S} H={H_} "
-          f"K={K_} hd={HD} G=5, P=1 CTA a cluster]: max_abs_err={err:.3g} "
-          f"(within {BWD_RTOL} of the largest |gradient|, bit for bit across "
-          f"two calls) kernel_ms={ms:.4f}"
+    print(f"kernel flash_attention_bwd[{tag} training B={B} S={S} {geo}, "
+          f"P={P} CTA{'s' if P > 1 else ''} a cluster]: max_abs_err="
+          f"{err:.3g} (within {BWD_RTOL} of the largest |gradient|, bit for "
+          f"bit across two calls) kernel_ms={ms:.4f}"
           + "".join(f" {n}_ms={t:.4f}" for n, t in sorted(per.items()))
           + f" plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA backward) "
           f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
@@ -3829,6 +3860,277 @@ def moe_path(torch, card):
     return launches
 
 
+# ------------------------------------------------------------ phase 12
+VLM_PATCHES = 64                   # phi-3-vision's frontend_len
+VLM_TEXT = TRAIN_S - VLM_PATCHES   # text tokens behind the patches: 448
+VLM_TRAIN_STEPS = 8
+
+
+def vlm_serve(torch, cfg, params, tol):
+    """Phase 12's serving on phi-3-vision, from tokens only as the JAX
+    engine serves the vlm family: phase 5's shared_prefix bf16 arm (flash
+    in prefill, paged attention at hd 96 in suffix prefill and decode,
+    copy-on-write) with every served token held to a full-sequence prefill
+    within ``tol`` (tie-aware), the int8 arm and its _quant_exec(320) round
+    trip, phase 6's graph checks and decode profile (beside the step's
+    weight read), and a spec_k = 3 arm whose tokens are the spec_k = 0
+    arm's (a request that differs is held to the prefill path).  Returns
+    the arms' launches."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.serving import DEFAULT_SERVING_SETTING
+    from repro_torch.serving.workload import make_trace
+    share = dict(DEFAULT_SERVING_SETTING, max_batch=8, block_size=16,
+                 cache_dtype="bf16", prefix_share=True)
+    tag = f"vlm {cfg.n_layers} layers"
+    spans = LaunchSpans(LAUNCHES)
+    eng, done, stats, la = serve_arm(torch, cfg, params, share,
+                                     dense_trace(cfg), f"{tag} bf16",
+                                     tracer=spans)
+    by = {k: {n: v[n] for n in ("flash_attention", "paged_attention")}
+          for k, v in spans.by_span.items()
+          if k in ("serve.prefill", "serve.chunk_prefill", "serve.decode")}
+    print(f"serve[{tag} bf16]: launches by span {by}; {stats['cow_copies']} "
+          f"COW copies", flush=True)
+    if not (by.get("serve.prefill", {}).get("flash_attention")
+            and by.get("serve.chunk_prefill", {}).get("paged_attention")
+            and by.get("serve.decode", {}).get("paged_attention")
+            and stats["cow_copies"]):
+        fail(f"the vlm serve did not run flash in prefill and paged "
+             f"attention in suffix prefill and decode, or made no COW copy: "
+             f"{by}")
+    check_tokens(torch, cfg, params, done, tol)
+    trace8 = make_trace("shared_prefix", 400.0, 0.015, vocab=cfg.vocab_size,
+                        seed=100, prefix_len=192, tail_lens=(8, 48),
+                        max_news=(8, 8))
+    eng8, _, _, lb = serve_arm(torch, cfg, params, dict(share, quant="int8"),
+                               trace8, f"{tag} int8")
+    quant_roundtrip(torch, eng8, cfg)
+    g = fill_pool(torch, eng, 7)
+    check_graphs(torch, eng, cfg.name, step_cases(torch, eng, cfg, g,
+                                                  quant_eng=eng8))
+    prof = profile_decode(torch, eng, cfg, g)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"profile[{cfg.name}]: the step's weight read ({nbytes / 1e9:.2f} "
+          f"GB) at 3.35 TB/s takes {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+          f"against {prof['wall_ms']:.3f} ms wall and {prof['busy_ms']:.3f} "
+          f"ms of kernels a graph step", flush=True)
+    del eng, eng8
+    spans = LaunchSpans(LAUNCHES)
+    _, sdone, sstats, lc = serve_arm(
+        torch, cfg, params, dict(share, spec_k=3.0, drafter="ngram"),
+        dense_trace(cfg), f"{tag} bf16 spec_k=3 ngram", tracer=spans)
+    ver = spans.by_span.get("decode.verify", {}).get("paged_attention", 0)
+    print(f"spec[{tag}]: paged_attention launches in decode.verify (S = 4) "
+          f"{ver}; {sstats['speculation']}", flush=True)
+    if not ver:
+        fail("the vlm spec arm did not verify through paged attention")
+    same_tokens(torch, cfg, params, f"spec[{tag}]", sdone, done, tol)
+    return {k: la[k] + lb[k] + lc[k] for k in DENSE_KERNELS}
+
+
+def vlm_batches(cfg, shape):
+    """Text batches of ``lm_batch_iterator`` (learnable, as the LMJob
+    draws them) with ``synthetic_batch``'s image patches, new each step."""
+    from repro_torch.data.synthetic import lm_batch_iterator, synthetic_batch
+    text = lm_batch_iterator(cfg, shape.global_batch,
+                             shape.seq_len - cfg.frontend_len, seed=0)
+    for i in itertools.count():
+        b = next(text)
+        b["frontend"] = synthetic_batch(cfg, shape, seed=1000 + i)["frontend"]
+        yield b
+
+
+def vlm_train(torch, card):
+    """Phase 12's training on phi-3-vision at full width with image
+    patches, ``synthetic_batch`` of 4 x (64 patches + 448 tokens), the
+    loss over the text: one step's loss and gradients (``frontend/proj``
+    included), the kernel path (flash forward and backward at hd 96)
+    against the plain path within a measured rounding-noise floor as in
+    phase 9, at 1 layer; then at full depth (32 layers, 3.824 B
+    parameters and their Adam state) fixed-setting steps on text with
+    fresh patches in which the loss falls (step time, tokens/s, busy
+    share, peak memory) and one step with the int8 push (one quantize and
+    dequantize a leaf).  Returns the launches of the runs."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import flatten, leaves
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.models.lm import ModelKnobs
+    from repro_torch.ps.lm_job import DEFAULT_LM_SETTING, LMJob
+    from repro_torch.ps.stepfn import _grads
+    full = get_config("phi-3-vision-4.2b")
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    cfg = dataclasses.replace(full, n_layers=1)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    batch = synthetic_batch(cfg, shape, seed=0)
+
+    def run():
+        loss, _, g = _grads(params, batch, cfg, ModelKnobs())
+        return float(loss), flatten(g)
+
+    before = LAUNCHES["flash_attention_bwd"]
+    k_loss, (names, k_g) = run()
+    if LAUNCHES["flash_attention_bwd"] - before != 1:
+        fail("vlm train parity: the flash backward did not run once")
+    with plain_attention(torch):
+        p_loss, (_, p_g) = run()
+    with plain_attention(torch, eps=2.0 ** -20):
+        n_loss, (_, n_g) = run()
+
+    def worst(a, b):
+        return max((float((x.float() - y.float()).abs().max()
+                          / y.float().abs().max().clamp_min(1e-30)), n)
+                   for x, y, n in zip(a, b, names))
+
+    (err, leaf), (noise, _) = worst(k_g, p_g), worst(n_g, p_g)
+    tol = TRAIN_GRAD_TOL + 1.5 * noise
+    lerr, lnoise = abs(k_loss - p_loss), abs(n_loss - p_loss)
+    ltol = TRAIN_LOSS_TOL + 1.5 * lnoise
+    proj = float(k_g[names.index("frontend/proj")].abs().max())
+    print(f"parity[train vlm 1 layer, {TRAIN_B} x ({VLM_PATCHES} patches + "
+          f"{VLM_TEXT} tokens)]: loss kernel {k_loss:.6f} plain "
+          f"{p_loss:.6f} (|diff| {lerr:.3g}, floor {lnoise:.3g}, bound "
+          f"{ltol:.3g}); gradients: worst leaf ({leaf}) max err {err:.4g} of "
+          f"its largest |value| against a rounding-noise floor of "
+          f"{noise:.4g} (bound {tol:.4g}); frontend/proj's largest |grad| "
+          f"{proj:.4g}", flush=True)
+    if not (err <= tol and lerr <= ltol and proj > 0) or any(
+            not torch.isfinite(x.float()).all() for x in k_g):
+        fail("vlm train parity")
+    del params, batch, k_g, p_g, n_g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    job = LMJob(full, batch=TRAIN_B, seq=VLM_TEXT)
+    state = job.init_state(DEFAULT_LM_SETTING, seed=0)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    step = job.step_builder(DEFAULT_LM_SETTING)
+    batches = vlm_batches(full, shape)
+    losses, walls, evs = [], [], []
+    reset_launches()
+    for _ in range(VLM_TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, m = step(state, next(batches))
+        b.record()
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        evs.append(a.elapsed_time(b))
+    launches = dict(LAUNCHES)
+    if launches["flash_attention_bwd"] != VLM_TRAIN_STEPS * full.n_layers:
+        fail(f"vlm fixed run: {launches['flash_attention_bwd']} flash "
+             f"backward launches in {VLM_TRAIN_STEPS} steps")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not np.isfinite(losses).all() or not last < first:
+        fail(f"vlm fixed run: the loss did not fall ({first} -> {last})")
+    state, pwall, busy, _, groups = _profile_steps(torch, step, state,
+                                                   batches, steps=2)
+    opt_ms = time_optimizer(torch, job, state, reps=2)
+    wall, ev = float(np.median(walls[2:])), float(np.median(evs[2:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = full.n_params()
+    print(f"train[vlm fixed]: {full.name} full width and depth "
+          f"({n / 1e9:.3f} B params), {TRAIN_B} x ({VLM_PATCHES} patches + "
+          f"{VLM_TEXT} tokens), {VLM_TRAIN_STEPS} steps of "
+          f"{DEFAULT_LM_SETTING}: loss {' '.join(f'{x:.4f}' for x in losses)}"
+          f" (mean of the first 3 {first:.4f}, of the last 3 {last:.4f})",
+          flush=True)
+    print(f"train[vlm fixed]: step {wall:.2f} ms wall, {ev:.2f} ms between "
+          f"CUDA events (medians of steps 3-{VLM_TRAIN_STEPS}), "
+          f"{TRAIN_B * TRAIN_S / wall * 1e3:.0f} positions/s; under "
+          f"torch.profiler {pwall:.2f} ms wall, busy share {busy / pwall:.3f};"
+          f" by kind: " + ", ".join(
+              f"{g_} {ms:.2f} ms ({k} kernels)" for g_, (ms, k) in
+              sorted(groups.items(), key=lambda kv: -kv[1][0]))
+          + f"; the Adam pass alone {opt_ms:.2f} ms; state {state_gb:.2f} GB,"
+          f" peak {peak:.2f} GB allocated on {card}", flush=True)
+    step8 = job.step_builder(dict(DEFAULT_LM_SETTING, compression="int8"))
+    before = dict(LAUNCHES)
+    state, m = step8(state, next(batches))
+    loss8 = float(m["loss"])
+    d = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    n_leaves = len(leaves(state["params"]))
+    if not np.isfinite(loss8) or not (d["quantize"] == d["dequantize"]
+                                      == n_leaves):
+        fail(f"vlm int8 step: loss {loss8}, {d['quantize']} quantize / "
+             f"{d['dequantize']} dequantize launches for {n_leaves} leaves")
+    print(f"train[vlm int8]: one step with the int8 push, loss {loss8:.4f}, "
+          f"one quantize and dequantize for each of {n_leaves} leaves "
+          f"(frontend/proj among them)", flush=True)
+    for k in launches:
+        launches[k] += d[k]
+    del state, step, step8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vlm_path(torch, card):
+    """Phase 12 on phi-3-vision-4.2b at full width and depth (32 layers,
+    d_model 3072, 32 q = 32 kv heads of hd 96, SwiGLU d_ff 8192, vocab
+    32064, untied head, a patch frontend 1024 -> 3072; 3.824 B params):
+    the per-layer check of a decode step (paged vs gather) and of a prefill
+    of 64 patches + 256 tokens (flash vs plain), phase 4's decode parity
+    at 1 and 32 layers as the drift bound, ``vlm_serve``, a self-tuned
+    serve, then ``vlm_train``.  Returns the launches of the serve arms,
+    the self-tuned serve and the training runs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = get_config("phi-3-vision-4.2b")
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"model: {cfg.name} full width and depth, {n_params / 1e9:.3f} B "
+          f"params bf16, init {time.perf_counter() - t0:.1f}s", flush=True)
+    rec = RouteRecorder(torch)
+    for decode, what, patches in (
+            (True, "decode: paged vs gather", 0),
+            (False, f"prefill of {VLM_PATCHES} patches + "
+                    f"{320 - VLM_PATCHES} tokens: flash vs plain",
+             VLM_PATCHES)):
+        x0, run = attn_layer_runs(torch, cfg, params, rec, decode, seed=41,
+                                  patches=patches)
+        layer_by_layer(torch, f"{cfg.name} {what}", x0, cfg.n_layers, run)
+        del x0, run                  # the closure holds the parameters
+    tol = decode_parity(torch, cfg, params)
+    print(f"phase 12: parity done at {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    launches = vlm_serve(torch, cfg, params, tol)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ls = selftuned_serve(torch, cfg, params, card)
+    for k in DENSE_KERNELS:
+        launches[k] += ls[k]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12: serving done at {time.perf_counter() - t0:.1f}s; freed "
+          f"the serving model: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB still allocated", flush=True)
+    lt = vlm_train(torch, card)
+    launches = {k: launches.get(k, 0) + lt.get(k, 0)
+                for k in set(launches) | set(lt)}
+    missing = [k for k in ("paged_attention", "flash_attention",
+                           "flash_attention_bwd", "quantize", "dequantize")
+               if not launches.get(k)]
+    if missing:
+        fail(f"the vlm path never launched {missing}: {launches}")
+    print(f"vlm: phase 12 in {time.perf_counter() - t0:.1f}s, launches "
+          f"{launches}, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB", flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -3861,7 +4163,8 @@ def main():
     check_train_kernels(torch, rows)
     rows["selective_scan"] = check_scan(torch)
     check_hybrid_kernels(torch, rows)
-    check_moe_kernels(torch, rows)
+    check_group_kernels(torch, rows, "moe", MOE_H, MOE_K, HD, seed=21)
+    check_group_kernels(torch, rows, "vlm", VLM_H, VLM_H, VLM_HD, seed=23)
     launches = dict.fromkeys(rows, 0)
     launches.update(dense_path(torch, card))
     # free the dense model (and its engines' pools) before falcon-mamba
@@ -3889,6 +4192,14 @@ def main():
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
           f"allocated", flush=True)
     for name, n in moe_path(torch, card).items():
+        launches[name] += n
+    # free the moe model before the vlm model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"freed the moe model: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+          f"allocated", flush=True)
+    for name, n in vlm_path(torch, card).items():
         launches[name] += n
 
     line = {"kernels": [

@@ -1,4 +1,4 @@
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.configs.registry import ARCHS, get_config
 
-__all__ = ["ModelConfig", "TrainConfig", "ARCHS", "get_config"]
+__all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "ARCHS", "get_config"]

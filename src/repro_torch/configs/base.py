@@ -170,3 +170,13 @@ class TrainConfig:
     eps: float = 1e-8
     optimizer: str = "adam"  # adam | sgd | momentum
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input cell: a batch of ``global_batch`` sequences of ``seq_len``
+    positions (patches included) for a ``kind`` of step."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode

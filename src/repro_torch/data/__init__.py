@@ -1,4 +1,5 @@
 """Deterministic synthetic data (``synthetic``)."""
-from repro_torch.data.synthetic import lm_batch_iterator
+from repro_torch.data.synthetic import (input_specs, lm_batch_iterator,
+                                        synthetic_batch)
 
-__all__ = ["lm_batch_iterator"]
+__all__ = ["input_specs", "lm_batch_iterator", "synthetic_batch"]

@@ -26,6 +26,9 @@
 //   past Skv) into shared memory rows padded by 16 bytes, so ldmatrix hits
 //   no bank conflicts, through a ring of two: tile i+1 loads while tile i
 //   computes.  The first tile is in flight before the positions are read.
+// - Head dims 64, 96 and 128 are built.  At hd 96 (phi-3-vision) a row is
+//   12 lines and 6 k16 steps, its padded stride 208 bytes (13 lines: the 8
+//   rows of an ldmatrix land on distinct banks, as at 144 and 272).
 // - A first pass takes the min and max kv position of every tile (in
 //   shared memory, one warp reduction per 32 keys).  Tiles past the last
 //   one any row of the CTA sees are never loaded; one that no row sees
@@ -349,6 +352,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, cons
   float* l = static_cast<float*>(lse);
   if (hd == 64)
     return launch<64>(q, k, v, q_pos, kv_pos, out, l, B, Sq, Skv, H, K, causal, scale, st);
+  if (hd == 96)
+    return launch<96>(q, k, v, q_pos, kv_pos, out, l, B, Sq, Skv, H, K, causal, scale, st);
   if (hd == 128)
     return launch<128>(q, k, v, q_pos, kv_pos, out, l, B, Sq, Skv, H, K, causal, scale, st);
   return cudaErrorInvalidValue;

@@ -63,6 +63,18 @@
 // them; only tiles with keys or queries past the end, or keys in some
 // row's future, are masked element by element.
 //
+// Head dims 64, 96 and 128 are built.  A tile holds HDP = hd rounded up to
+// 64 columns (tile_cols): hd / 64 boxes at 64 and 128, and at hd 96
+// (phi-3-vision) two boxes whose second is half out of the tensor, since
+// each tensor map's inner dimension is the true hd and TMA fills columns
+// 96-127 with zeros (and counts their bytes, so every tile is 2 boxes of
+// transaction).  Products over hd (S, dP) take only hd / 16 k16 steps; the
+// three whose width is hd (dQ, dV, dK) run at n = 128 with f32 columns
+// 96-127 that are zeros and never stored: a third more work in those
+// three.  The delta prologue reads hd columns of O and dO, and dq, dk and
+// dv are stored at their true hd.  (A 64 + 32 split, the second box with
+// the 64-byte swizzle, would drop the padded columns: later work.)
+//
 // Products executed: 7 against the 5 the bound counts (the dK/dV pass
 // recomputes S and dP, the dQ pass's products, since dQ sums over keys and
 // dK/dV over queries), on 64 x 64 tiles that waste ~12% of the causal
@@ -111,6 +123,10 @@ __host__ __device__ constexpr int head_split(int G) {
   return p;
 }
 
+// The columns of a tile in shared memory: hd rounded up to whole 64-column
+// TMA boxes (the 128-byte swizzle's row).
+__host__ __device__ constexpr int tile_cols(int hd) { return (hd + 63) / 64 * 64; }
+
 // 2^x by the SFU's ex2.approx alone (subnormal results flush to 0), in
 // fewer instructions than exp2f; at the training shape the gradients are
 // bit for bit those that exp2f gives.
@@ -125,7 +141,7 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 // K-major descriptor of rows [row0, row0 + N) and K columns [16 kk, 16 kk + 16)
-// of a 64-row tile stored as hd / 64 boxes of 64 columns.
+// of a 64-row tile stored as tile_cols(hd) / 64 boxes of 64 columns.
 __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
   return port::wgmma_desc(tile + (kk / 4) * kBox + row0 * 128 + (kk % 4) * 32, 16, 1024);
 }
@@ -178,7 +194,7 @@ __device__ __forceinline__ void to_afrag(const float (&d)[N], int kt, uint32_t (
 // Q, dO, the ring of K and V tiles, the ring's key positions, delta, the
 // barriers, then the kv tiles' position bounds and the visible list.
 template <int HD> size_t dq_smem_bytes(int n_kt) {
-  return 1024 + (size_t)(2 + 2 * kStages) * (HD / 64) * kBox + kStages * kBlockK * 4 +
+  return 1024 + (size_t)(2 + 2 * kStages) * (tile_cols(HD) / 64) * kBox + kStages * kBlockK * 4 +
          kBlockQ * 4 + (1 + 2 * kStages) * 8 + (size_t)3 * n_kt * 4;
 }
 
@@ -190,7 +206,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
                     float* __restrict__ delta, const int* __restrict__ q_pos,
                     const int* __restrict__ kv_pos, bf16* __restrict__ dq, int Sq, int Skv, int H,
                     int K, int causal, float scale) {
-  constexpr int TILE = (HD / 64) * kBox;       // a 64-row tile of q, dO, k or v
+  constexpr int HDP = tile_cols(HD);
+  constexpr int TILE = (HDP / 64) * kBox;      // a 64-row tile of q, dO, k or v
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const uint32_t qs = port::smem_addr(smem), dos = qs + TILE, ring = qs + 2 * TILE;  // ring: [stage][k, v]
@@ -220,7 +237,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     port::mbar_fence_init();
     port::mbar_arrive_expect_tx(bar_q, 2 * TILE);
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c) {
+    for (int c = 0; c < HDP / 64; ++c) {
       port::tma_load_4d(qs + c * kBox, &tm_q, bar_q, c * 64, h, q0, b);
       port::tma_load_4d(dos + c * kBox, &tm_do, bar_q, c * 64, h, q0, b);
     }
@@ -259,7 +276,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
         const uint32_t kt = ring + s * 2 * TILE, vt = kt + TILE;
         port::mbar_expect_tx(bar_full(s), 2 * TILE);
 #pragma unroll
-        for (int c = 0; c < HD / 64; ++c) {
+        for (int c = 0; c < HDP / 64; ++c) {
           port::tma_load_4d(kt + c * kBox, &tm_k, bar_full(s), c * 64, kh, k0, b);
           port::tma_load_4d(vt + c * kBox, &tm_v, bar_full(s), c * 64, kh, k0, b);
         }
@@ -313,9 +330,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
   port::named_sync(1, kConsumers);
   const float dl0 = s_delta[r0], dl1 = s_delta[r0 + 8];
 
-  float acc[HD / 2];
+  float acc[HDP / 2];                          // columns hd .. HDP - 1 stay 0
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
   for (int it = 0; it < n_vis; ++it) {
     const int s = it % kStages, j = vis[it];
     const uint32_t kt = ring + s * 2 * TILE, vt = kt + TILE;
@@ -387,7 +404,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
 // After the products the K / V / ring area holds the CTA's f32 partial dK
 // and dV (64 rows of HD + 4 each), which the cluster reads.
 template <int HD> size_t dkdv_smem_bytes(int n_qt) {
-  return 1024 + (size_t)(2 + 2 * kStages) * (HD / 64) * kBox + 3 * kStages * kBlockQ * 4 +
+  return 1024 + (size_t)(2 + 2 * kStages) * (tile_cols(HD) / 64) * kBox + 3 * kStages * kBlockQ * 4 +
          (1 + 2 * kStages) * 8 + (size_t)3 * n_qt * 4;
 }
 
@@ -399,7 +416,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
                       const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
                       bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int H, int K,
                       int causal, float scale) {
-  constexpr int TILE = (HD / 64) * kBox;
+  constexpr int HDP = tile_cols(HD);
+  constexpr int TILE = (HDP / 64) * kBox;
   constexpr int LDP = HD + 4;                  // f32 row of a partial (padded against bank conflicts)
   static_assert(2 * kBlockK * LDP * 4 <= (2 + 2 * kStages) * TILE, "partials overflow");
   extern __shared__ unsigned char smem_raw[];
@@ -435,7 +453,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     port::mbar_fence_init();
     port::mbar_arrive_expect_tx(bar_kv, 2 * TILE);
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c) {
+    for (int c = 0; c < HDP / 64; ++c) {
       port::tma_load_4d(ks + c * kBox, &tm_k, bar_kv, c * 64, kh, k0, b);
       port::tma_load_4d(vs + c * kBox, &tm_v, bar_kv, c * 64, kh, k0, b);
     }
@@ -477,7 +495,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
         const uint32_t qt = ring + s * 2 * TILE, dt = qt + TILE;
         port::mbar_expect_tx(bar_full(s), 2 * TILE);
 #pragma unroll
-        for (int c = 0; c < HD / 64; ++c) {
+        for (int c = 0; c < HDP / 64; ++c) {
           port::tma_load_4d(qt + c * kBox, &tm_q, bar_full(s), c * 64, h, q0, b);
           port::tma_load_4d(dt + c * kBox, &tm_do, bar_full(s), c * 64, h, q0, b);
         }
@@ -508,9 +526,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     const int kp0 = k0 + r0 < Skv ? __ldg(kvp + k0 + r0) : INT_MAX;
     const int kp1 = k0 + r0 + 8 < Skv ? __ldg(kvp + k0 + r0 + 8) : INT_MAX;
     const float scale2 = scale * kLog2e;
-    float dka[HD / 2], dva[HD / 2];
+    float dka[HDP / 2], dva[HDP / 2];          // columns hd .. HDP - 1 stay 0
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int i = 0; i < HDP / 2; ++i) dka[i] = dva[i] = 0.f;
     port::mbar_wait(bar_kv, 0);
     for (int it = 0; it < n_items; ++it) {
       const int s = it % kStages, t = vis[it % n_vis], q0 = t * kBlockQ;
@@ -622,9 +640,9 @@ template <typename Kernel> cudaError_t opt_in(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// A (B, S, heads, HD) bf16 tensor as a 4-D tensor map whose box is one
+// A (B, S, heads, hd) bf16 tensor as a 4-D tensor map whose box is one
 // 64-column chunk of one head over 64 consecutive rows (an 8 KB tile,
-// 128-byte swizzle); rows past S read as zeros.
+// 128-byte swizzle); rows past S and columns past hd read as zeros.
 bool tile_map(CUtensorMap* map, const void* base, int B, int S, int heads, int hd) {
   const port::TensorMapEncoder encode = port::tensor_map_encoder();
   if (encode == nullptr) return false;
@@ -711,6 +729,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   auto* dl = static_cast<float*>(delta);
   if (hd == 64)
     return launch<64>(qb, kb, vb, ob, db, lf, qp, kp, dqb, dkb, dvb, dl, B, Sq, Skv, H, K, causal,
+                      scale, st);
+  if (hd == 96)
+    return launch<96>(qb, kb, vb, ob, db, lf, qp, kp, dqb, dkb, dvb, dl, B, Sq, Skv, H, K, causal,
                       scale, st);
   if (hd == 128)
     return launch<128>(qb, kb, vb, ob, db, lf, qp, kp, dqb, dkb, dvb, dl, B, Sq, Skv, H, K, causal,

@@ -39,7 +39,8 @@
 // - No reduction per score: lane t of a warp holds key t of the stage and
 //   loops over hd in shared memory for its warp's 4 rows; the stage's row
 //   max and sum are one warp reduction each per 32 keys.  P goes through
-//   shared memory and each lane accumulates hd/32 dims of P.V.  (mma.sync
+//   shared memory and each lane accumulates hd/32 dims of P.V (2, 3 or 4
+//   at hd 64, 96 and 128; at 3 its loads and stores are scalar).  (mma.sync
 //   would need bf16 q and a bf16 pool; the serving default pool is f32 and
 //   an f32 q must keep f32 scores, so the CUDA cores serve all four dtype
 //   pairs.)
@@ -105,28 +106,46 @@ template <int D> __device__ __forceinline__ void loadD(const float* p, float (&x
   for (int i = 0; i < D; ++i) x[i] = p[i];
 }
 
+// An odd D (hd 96: 3 a lane) starts at an odd element for odd lanes, so
+// it is read and written one value at a time; an even D as bf16 pairs,
+// and as one float2 / float4 (D = 2 / 4, 8- / 16-byte aligned).
 template <int D> __device__ __forceinline__ void loadD(const __nv_bfloat16* p, float (&x)[D]) {
+  if constexpr (D % 2) {
 #pragma unroll
-  for (int i = 0; i < D; i += 2) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
-    x[i] = f.x;
-    x[i + 1] = f.y;
+    for (int i = 0; i < D; ++i) x[i] = __bfloat162float(p[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; i += 2) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
+      x[i] = f.x;
+      x[i + 1] = f.y;
+    }
   }
 }
 
-// D consecutive floats (D = 2 or 4) as one vector store / L2 load.
+// D consecutive floats as one vector store / L2 load (D = 2 or 4), or D
+// scalar ones.
 template <int D> __device__ __forceinline__ void store_f32(float* p, const float (&x)[D]) {
-  if constexpr (D == 4) *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  else *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  if constexpr (D == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (D == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i) p[i] = x[i];
+  }
 }
 
 template <int D> __device__ __forceinline__ void load_f32_cg(const float* p, float (&x)[D]) {
   if constexpr (D == 4) {
     const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
     x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else {
+  } else if constexpr (D == 2) {
     const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
     x[0] = v.x; x[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i) x[i] = __ldcg(p + i);
   }
 }
 
@@ -144,7 +163,9 @@ paged_attention_kernel(const QT* __restrict__ q, const PoolT* __restrict__ k_poo
   constexpr int LINES = HD / LE;               // 16-byte lines per key row
   constexpr int KITER = kStage * LINES / kThreads;
   constexpr int QE = 16 / sizeof(QT);          // q values in a 16-byte line
-  constexpr int QITER = kRowsPerCta * HD / QE / kThreads;
+  constexpr int QLINES = kRowsPerCta * HD / QE;   // the tile's q lines: 192 at
+  constexpr int QITER = (QLINES + kThreads - 1) / kThreads;   // hd 96 bf16
+  static_assert(HD % 32 == 0 && kStage * LINES % kThreads == 0, "a key row's lines");
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_bufs = split_keys / kStage;      // stages of a split
   PoolT* ks = reinterpret_cast<PoolT*>(smem);  // [n_bufs][kStage][LD]
@@ -168,7 +189,8 @@ paged_attention_kernel(const QT* __restrict__ q, const PoolT* __restrict__ k_poo
   for (int i = 0; i < QITER; ++i) {
     const int e = tid + i * kThreads, r = e / (HD / QE), c = e % (HD / QE), row = row0 + r;
     const size_t src = ((size_t)(b * S + row / G) * H + kh * G + row % G) * HD + c * QE;
-    qv[i] = row < rows ? __ldg(reinterpret_cast<const uint4*>(q + src)) : make_uint4(0, 0, 0, 0);
+    qv[i] = e < QLINES && row < rows ? __ldg(reinterpret_cast<const uint4*>(q + src))
+                                     : make_uint4(0, 0, 0, 0);
   }
   const int k_begin = split * split_keys;
   const int k_lim = min(k_begin + split_keys, n_vis * BS);   // the split's visible keys
@@ -208,6 +230,7 @@ paged_attention_kernel(const QT* __restrict__ q, const PoolT* __restrict__ k_poo
   // q rows of the tile, widened to f32
 #pragma unroll
   for (int i = 0; i < QITER; ++i) {
+    if (tid + i * kThreads >= QLINES) break;
     float* dst = qs + (size_t)(tid + i * kThreads) * QE;
     if constexpr (QE == 8) {
       float x[8];
@@ -396,6 +419,8 @@ cudaError_t dispatch_shape(const void* q, const void* kp, const void* vp, const 
                                        MB, n_vis, n_split, split_keys, scale, st);
   PORT_PAGED_CASE(64, 8)
   PORT_PAGED_CASE(64, 16)
+  PORT_PAGED_CASE(96, 8)
+  PORT_PAGED_CASE(96, 16)
   PORT_PAGED_CASE(128, 8)
   PORT_PAGED_CASE(128, 16)
 #undef PORT_PAGED_CASE

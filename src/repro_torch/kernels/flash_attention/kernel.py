@@ -15,7 +15,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref,
                                                      default_positions)
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 
 
 def _check(what, q, k, v, qp, kp):

@@ -19,7 +19,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 BLOCK_SIZES = (8, 16)
 ROWS_PER_CTA = 16          # (query token, head) rows of one CTA
 STAGE_KEYS = 32            # keys of one stage; a split is whole stages

@@ -15,6 +15,11 @@ self-tuning, on the CUDA device by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --selftune --tuning-store /path/to/store
 
+  # full-width phi-3-vision-4.2b (vlm family: 32 layers of 32 heads of
+  # hd 96; served from tokens only, as the JAX engine serves it):
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch phi-3-vision-4.2b
+
   # llama4-scout-17b-a16e (moe family: 16 routed experts a layer, top-1,
   # paged KV) does not fit one card at its 48 layers (203 GB of bf16
   # weights); reduced, on the CPU:
@@ -34,15 +39,17 @@ self-tuning, on the CUDA device by default.
       --reduced --device cpu --selftune
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --reduced --device cpu --selftune --tuning-store /tmp/store
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch phi-3-vision-4.2b --reduced --device cpu
 
 Weights are random, drawn from ``--seed``.  ``--tuning-store DIR`` (with
 ``--selftune``) keeps the JAX package's store layout, so either package
 reads a store the other wrote: the run starts from the golden incumbent
 of the nearest signature, the tuner absorbs that signature's observations
 and skips init settings, and on exit the store is compacted and its
-``GOLDEN.json`` rewritten.  The dense, moe, ssm and hybrid families are
-served; the vlm and encoder archs come with later slices of the port and
-raise ``NotImplementedError``.
+``GOLDEN.json`` rewritten.  The dense, moe, vlm, ssm and hybrid families
+are served (vlm from tokens only); the encoder archs come with a later
+slice of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -4,6 +4,12 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
       --batch 4 --seq 512 --steps 30
 
+  # full-width phi-3-vision-4.2b (vlm family) on the card; its batches
+  # are text, as the JAX package's LMJob draws them (frontend/proj gets a
+  # zero gradient):
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch phi-3-vision-4.2b --batch 4 --seq 512 --steps 10
+
   # self-tuning (the paper's online tuner over microbatches, remat,
   # gradient compression, staleness and k_chunk), with a Chrome trace and
   # the time-attribution panel:
@@ -18,7 +24,7 @@
       --reduced --device cpu --steps 50 --ckpt-dir /tmp/ck --resume
 
 ``--self-tune`` turns on the tuner; otherwise the default setting runs
-fixed.  Weights are random, drawn from ``--seed``.  The dense and moe
+fixed.  Weights are random, drawn from ``--seed``.  The dense, moe and vlm
 families train (moe: the router's load-balancing loss, weighted by
 ``router_aux_weight``, enters the loss; each layer's expert tensors are
 autograd leaves of their own); the ssm and hybrid families' training

@@ -1,10 +1,11 @@
 """Decoder LM: parameters, prefill, decode and training (the loss), for
 the dense family (attention + SwiGLU MLP, paged KV decode), the moe family
 (attention + a top-k routed mixture of SwiGLU experts, ``models/moe.py``,
-paged KV decode), the ssm family (mamba1 blocks, recurrent-state decode)
-and the hybrid family (zamba2: mamba2 blocks and one shared attention +
-MLP block applied every ``shared_attn_every`` layers, whose KV lives in a
-dense per-slot slab); training runs for the dense and moe families and
+paged KV decode), the vlm family (the dense layers behind a patch
+frontend), the ssm family (mamba1 blocks, recurrent-state decode) and the
+hybrid family (zamba2: mamba2 blocks and one shared attention + MLP block
+applied every ``shared_attn_every`` layers, whose KV lives in a dense
+per-slot slab); training runs for the dense, moe and vlm families and
 raises for the other two.
 
 The port of the JAX package's ``models/lm.py``.  Parameters are a nested
@@ -26,8 +27,12 @@ in place; autograd runs through it, with each layer optionally
 recomputed in the backward (``ModelKnobs.remat``); the moe family's
 router aux loss enters the loss.
 
-The vlm and encoder families are later slices of the port and raise
-``NotImplementedError``.
+The vlm family's prefill and training take an optional ``frontend``:
+image patches (B, P, frontend_dim), projected by ``frontend/proj`` and put
+before the B x T token embeddings, so positions run 0 .. P + T - 1 and the
+loss covers the T text positions; its decode (and so its serving) takes
+tokens only, as the JAX engine's does.  The encoder family is a later
+slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -70,7 +75,7 @@ class ModelKnobs:
                                # this many positions (0 = at once)
 
 
-ATTN_FAMILIES = ("dense", "moe")     # attention layers, paged KV decode
+ATTN_FAMILIES = ("dense", "moe", "vlm")   # attention layers, paged KV decode
 
 
 def check_family(cfg: ModelConfig):
@@ -80,9 +85,9 @@ def check_family(cfg: ModelConfig):
         return
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet: the port serves the "
-        f"dense and moe families, the ssm family (mamba1) and the hybrid "
-        f"family (mamba2 + shared attention); vlm and encoder come with "
-        f"later slices, one family each")
+        f"dense, moe and vlm families, the ssm family (mamba1) and the "
+        f"hybrid family (mamba2 + shared attention); the encoder comes "
+        f"with a later slice")
 
 
 def _pdt(cfg: ModelConfig):
@@ -128,6 +133,8 @@ def param_shapes(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": (D, V)}
+    if cfg.frontend != "none":
+        tree["frontend"] = {"proj": (cfg.frontend_dim, D)}
     if cfg.shared_attn_every:
         # the hybrid's one shared attention + MLP block: not stacked
         tree["shared"] = {"ln1": {"scale": (D,)}, "ln2": {"scale": (D,)},
@@ -339,21 +346,35 @@ def _maybe_remat(fn, knobs: ModelKnobs):
 # Forward
 # ===========================================================================
 
+def _embed(params, cfg: ModelConfig, tokens, frontend=None):
+    """The layers' input in bf16: the token embeddings, or (the vlm's patch
+    frontend, given ``frontend`` (B, P, F)) the patches projected by
+    ``frontend/proj`` in bf16 and put before them, (B, P + T, D).  (The
+    encoder's frame frontend never gets here: ``check_family`` refuses
+    the family.)"""
+    x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
+    if cfg.frontend == "patch" and frontend is not None:
+        pat = (frontend.to(torch.bfloat16)
+               @ params["frontend"]["proj"].to(torch.bfloat16))
+        x = torch.cat([pat, x], dim=1)
+    return x
+
+
 def forward(params, tokens, cfg: ModelConfig,
             knobs: ModelKnobs = ModelKnobs(), mode: str = "prefill",
-            cache=None, pos=None, valid_len=None):
+            cache=None, pos=None, valid_len=None, frontend=None):
     """tokens: (B, S) int.  Returns (hidden (B, S, D), cache).
 
-    Dense and moe: the stacked (L, B, S, K, hd) prefill activations, or the
-    paged pool written in place (``mode="decode"``, ``pos`` (B,) the first
-    write position).  ssm: the stacked prefill state (conv (L, B, Di, K-1), h
-    (L, B, Di, N) f32), or the decode cache written in place (``pos`` is
-    not read).  hybrid: the same with h (L, B, nh, P, N), and the shared
-    block's KV, (n_apps, B, S, K, hd) in prefill or the slab
+    Dense, moe and vlm: the stacked (L, B, S, K, hd) prefill activations, or
+    the paged pool written in place (``mode="decode"``, ``pos`` (B,) the
+    first write position).  ssm: the stacked prefill state (conv (L, B, Di,
+    K-1), h (L, B, Di, N) f32), or the decode cache written in place
+    (``pos`` is not read).  hybrid: the same with h (L, B, nh, P, N), and
+    the shared block's KV, (n_apps, B, S, K, hd) in prefill or the slab
     ``shared_k``/``shared_v`` (n_apps, B, max_seq, K, hd) written in place
     at ``pos`` in decode.
 
-    ``mode="train"`` (dense and moe): no cache (None), nothing written in
+    ``mode="train"`` (dense, moe, vlm): no cache (None), nothing written in
     place, each layer under ``knobs.remat``; returns (hidden, aux), aux
     the mean of the layers' router losses (0 for the dense family).  The
     ssm and hybrid families raise.
@@ -362,17 +383,23 @@ def forward(params, tokens, cfg: ModelConfig,
     of a right-padded batch.  Attention ignores it (the causal mask and the
     caller's slicing isolate pads); the ssm family returns the state *after
     token valid_len*, not after the pads.  A tensor stays on the device, so
-    a captured prefill serves every valid_len of its bucket."""
+    a captured prefill serves every valid_len of its bucket.
+
+    ``frontend`` (vlm, prefill and train only): image patches (B, P, F)
+    before the tokens (``_embed``); the hidden states then cover P + S
+    positions."""
     check_family(cfg)
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode {mode!r}: prefill | decode | train")
+    if frontend is not None and mode == "decode":
+        raise ValueError("frontend: a decode step takes tokens only")
     if mode == "train" and cfg.family in ATTN_FAMILIES:
-        return _forward_train(params, tokens, cfg, knobs)
+        return _forward_train(params, tokens, cfg, knobs, frontend)
     if mode == "train":
         raise NotImplementedError(
             f"{cfg.family} training is not ported yet: it needs a backward "
             f"of the selective scan (a later slice)")
-    x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
+    x = _embed(params, cfg, tokens, frontend)
     if cfg.family in ("ssm", "hybrid"):
         if mode != "prefill" or valid_len is None:
             valid_len = None
@@ -406,12 +433,13 @@ def forward(params, tokens, cfg: ModelConfig,
     return x, new_cache
 
 
-def _forward_train(params, tokens, cfg: ModelConfig, knobs: ModelKnobs):
-    """The training forward of the dense and moe families: no KV kept,
-    nothing written in place; each layer goes through ``_maybe_remat``.
-    Returns (hidden, aux): aux the mean of the layers' router losses, as
-    JAX's ``auxs.mean()`` (zeros for the dense family)."""
-    x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
+def _forward_train(params, tokens, cfg: ModelConfig, knobs: ModelKnobs,
+                   frontend=None):
+    """The training forward of the dense, moe and vlm families: no KV
+    kept, nothing written in place; each layer goes through
+    ``_maybe_remat``.  Returns (hidden, aux): aux the mean of the layers'
+    router losses, as JAX's ``auxs.mean()`` (zeros without experts)."""
+    x = _embed(params, cfg, tokens, frontend)
     B, S, D = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
@@ -502,10 +530,15 @@ def loss_fn(params, batch, cfg: ModelConfig,
     (pre-shifted by the data pipeline), with f32 logits, plus
     ``router_aux_weight`` x the mean router aux loss of the moe layers.
     Returns (loss, {"ce", "aux"}) as 0-dim f32 tensors; ``knobs.ce_chunk``
-    splits the positions into chunks when it divides S."""
-    hidden, aux = forward(params, batch["tokens"], cfg, knobs, mode="train")
+    splits the positions into chunks when it divides S.  With
+    ``batch["frontend"]`` (vlm patches) the loss covers the last S hidden
+    positions, the text's."""
+    hidden, aux = forward(params, batch["tokens"], cfg, knobs, mode="train",
+                          frontend=batch.get("frontend"))
     labels = batch["labels"]
     B, S = labels.shape
+    if hidden.shape[1] != S:                # vlm: text positions only
+        hidden = hidden[:, hidden.shape[1] - S:]
 
     def ce(h, y):
         lg = logits_fn(params, h, cfg).float()
@@ -570,8 +603,9 @@ def n_shared_apps(cfg: ModelConfig) -> int:
 
 
 def prefill(params, tokens, cfg: ModelConfig,
-            knobs: ModelKnobs = ModelKnobs()):
-    hidden, cache = forward(params, tokens, cfg, knobs, mode="prefill")
+            knobs: ModelKnobs = ModelKnobs(), frontend=None):
+    hidden, cache = forward(params, tokens, cfg, knobs, mode="prefill",
+                            frontend=frontend)
     return logits_fn(params, hidden[:, -1:], cfg), cache
 
 

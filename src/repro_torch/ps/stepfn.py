@@ -75,7 +75,9 @@ def _grads(params, batch, cfg, mk):
     forward indexes ``v[i]`` alike), and its gradient is stacked once at
     the end: with the stacked tensor as one leaf, every layer's slice
     would give back a zero-filled gradient of the whole stack, summed L
-    times (at full width 30 x 8.6 GB of fills and adds a step)."""
+    times (at full width 30 x 8.6 GB of fills and adds a step).  A leaf
+    the loss does not use (the vlm's ``frontend/proj`` on a text batch)
+    gets a zero gradient, as ``jax.grad`` gives it."""
     paths, pl = flatten(params)
     stacked = [p.startswith("layers/") for p in paths]
     with torch.enable_grad():
@@ -84,7 +86,8 @@ def _grads(params, batch, cfg, mk):
               for p, st in zip(pl, stacked)]
         loss, aux = lm.loss_fn(unflatten(paths, ls), batch, cfg, mk)
         flat = [t for x in ls for t in (x if isinstance(x, list) else [x])]
-        gl = list(torch.autograd.grad(loss, flat))
+        gl = [torch.zeros_like(t) if g is None else g for t, g in zip(
+            flat, torch.autograd.grad(loss, flat, allow_unused=True))]
     del flat, ls
     grads, i = [], 0
     for p, st in zip(pl, stacked):

@@ -37,7 +37,7 @@ from repro_torch.core.knobs import Knob, KnobSpace
 # engine's "model data"). Passed to reconfig.classify/plan as mesh_knobs.
 SERVING_RELAYOUT_KNOBS = ("max_batch", "cache_dtype", "block_size")
 
-PAGED_FAMILIES = ("dense", "moe", "vlm")   # the port serves dense and moe
+PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def serving_knob_space(max_batch_ceiling: int = 8,

@@ -918,9 +918,9 @@ class SSMStatePool(StatePool):
 
 
 def make_state_pool(cfg, setting: dict, max_seq: int, device):
-    """Family dispatch: paged KV for the dense and moe families,
-    recurrent-state slots for the ssm and hybrid families; vlm and encoder
-    raise (later slices)."""
+    """Family dispatch: paged KV for the dense, moe and vlm families,
+    recurrent-state slots for the ssm and hybrid families; the encoder
+    raises (a later slice)."""
     lm.check_family(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return SSMStatePool(cfg, setting, max_seq, device)

@@ -10,10 +10,17 @@ JAX package's Pallas kernels (interpret mode).
 - Flash attention walks 64-key tiles for 64-row query tiles, skips a tile
   whose keys are all past the tile's last query position, and rounds P to
   bf16 before P.V (scores, row sums and the accumulator stay f32).
+- Both at every built head dim, hd 96 (phi-3-vision) included: the paged
+  kernel's lane of D = hd / 32 accumulator dims (3 at hd 96, read and
+  stored one by one), its q lines (192 bf16 lines at hd 96 for 128
+  threads: the second pass guarded) and key lines, with the constants
+  and the dispatch read from ``paged_attention.cu``.
 
 The CUDA kernels run only on the card (``test_torch_cuda.py`` and
 ``chip_smoke.py`` hold them to the same plain versions there); these tests
 show that the schedules themselves are right."""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,9 +28,14 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.paged_attention import paged_attention as j_paged
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import attention_ref
+from repro_torch.kernels.flash_attention.kernel import \
+    HEAD_DIMS as FLASH_HEAD_DIMS
 from repro_torch.kernels.paged_attention import paged_attention_ref
-from repro_torch.kernels.paged_attention.kernel import (MAX_STAGES,
+from repro_torch.kernels.paged_attention.kernel import (BLOCK_SIZES,
+                                                        HEAD_DIMS,
+                                                        MAX_STAGES,
                                                         ROWS_PER_CTA,
                                                         STAGE_KEYS,
                                                         split_plan)
@@ -36,18 +48,51 @@ NEG_INF = -1e30
 F32_TOL = 2e-5          # summation order only
 BF16_TOL = 2e-2         # one bf16 step at |x| < 4, plus slack
 TILE = 64               # the flash kernel's query rows and keys per tile
+PAGED_CU = (_build.CSRC / "paged_attention.cu").read_text()
+FLASH_CU = (_build.CSRC / "flash_attention.cu").read_text()
+LANES = 32              # a warp's lanes: the paged kernel's P.V splits hd
+
+
+def _cu_const(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+)", src).group(1))
+
+
+PAGED_THREADS = 32 * _cu_const(PAGED_CU, "kWarps")
 
 
 # ----------------------------------------------------------- paged, split-KV
+def lane_scratch(acc):
+    """The f32 partial row (rows, hd) that the lanes' stores write:
+    ``store_f32<D>`` puts lane t's D values at t D, one float4 (D = 4), one
+    float2 (D = 2) or D scalars (any other D).  Every column must be
+    written exactly once."""
+    rows, lanes, D = acc.shape
+    out = torch.full((rows, lanes * D), float("nan"))
+    width = D if D in (2, 4) else 1            # values of one store
+    for t in range(lanes):
+        for i in range(0, D, width):
+            col = t * D + i
+            assert torch.isnan(out[:, col:col + width]).all(), "overlap"
+            out[:, col:col + width] = acc[:, t, i:i + width]
+    assert not torch.isnan(out).any()
+    return out
+
+
 def paged_split_kv(q, k_pool, v_pool, tables, pos, *, ctx_cols=0,
                    n_sms=132):
     """The split-KV paged kernel's schedule in plain torch (f32 inside):
-    returns (out in q's dtype, number of live splits per row tile)."""
+    returns (out in q's dtype, number of live splits per row tile).  Each
+    split's accumulator is kept as the kernel's lanes keep it (lane t
+    holds dims t D .. t D + D - 1, D = hd / 32) and its partial goes
+    through an f32 scratch row written lane by lane, as the combine reads
+    it; a head dim that no kernel builds (not a multiple of 32) is kept as
+    one lane of hd."""
     B, S, H, hd = q.shape
     NB, bs, K, _ = k_pool.shape
     MB = tables.shape[1]
     n_vis = min(ctx_cols, MB) if ctx_cols else MB
     G, rows = H // K, S * (H // K)
+    lanes = LANES if hd % LANES == 0 else 1
     tiles, n_split, split_keys = split_plan(B, S, H, K, bs, n_vis, n_sms)
     out = torch.empty((B, S, H, hd), dtype=torch.float32)
     live = []
@@ -69,7 +114,7 @@ def paged_split_kv(q, k_pool, v_pool, tables, pos, *, ctx_cols=0,
                     k_end = min((sp + 1) * split_keys, end_key)
                     m = torch.full((qr[rr].shape[0],), NEG_INF)
                     l = torch.zeros_like(m)
-                    acc = torch.zeros((m.shape[0], hd))
+                    acc = torch.zeros((m.shape[0], lanes, hd // lanes))
                     for k0 in range(sp * split_keys, k_end, STAGE_KEYS):
                         kv = torch.arange(k0, min(k0 + STAGE_KEYS, k_end))
                         s = qr[rr] @ kk[kv].T * hd ** -0.5
@@ -79,9 +124,11 @@ def paged_split_kv(q, k_pool, v_pool, tables, pos, *, ctx_cols=0,
                         corr = torch.exp(m - mx)
                         p = torch.exp(s - mx[:, None])
                         l = l * corr + p.sum(1)
-                        acc = acc * corr[:, None] + p @ vv[kv]
+                        acc = acc * corr[:, None, None] + torch.einsum(
+                            "rk,kld->rld", p,
+                            vv[kv].reshape(len(kv), lanes, -1))
                         m = mx
-                    parts.append((m, l, acc))
+                    parts.append((m, l, lane_scratch(acc)))
                 if n_live == 1:
                     m, l, acc = parts[0]
                     o = acc / l.clamp_min(1e-30)[:, None]
@@ -187,6 +234,90 @@ def test_split_plan(B, S, H, K, bs, n_vis, want):
     assert tiles == -(-S * H // K // ROWS_PER_CTA)
 
 
+def paged_lines(hd, q_bytes, pool_bytes):
+    """The paged kernel's loads at one head dim, from its index math: the
+    (row, 16-byte line) of the tile's q that each thread's QITER loads
+    reach (guarded by e < QLINES), and the (key, line) of a 32-key stage
+    its KITER loads reach.  Returns (q lines, key lines, QITER x threads,
+    QLINES)."""
+    qe, le = 16 // q_bytes, 16 // pool_bytes
+    q_lines = ROWS_PER_CTA * hd // qe
+    qiter = -(-q_lines // PAGED_THREADS)
+    lines = hd // le
+    kiter = STAGE_KEYS * lines // PAGED_THREADS
+    qs, ks = [], []
+    for tid in range(PAGED_THREADS):
+        for i in range(qiter):
+            e = tid + i * PAGED_THREADS
+            if e < q_lines:
+                qs.append((e // (hd // qe), e % (hd // qe)))
+        for i in range(kiter):
+            e = tid + i * PAGED_THREADS
+            ks.append((e // lines, e % lines))
+    return qs, ks, qiter * PAGED_THREADS, q_lines
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("q_bytes,pool_bytes", [(2, 2), (2, 4), (4, 2),
+                                                (4, 4)])
+def test_paged_lanes_and_lines_cover_every_dim(hd, q_bytes, pool_bytes):
+    """At every built head dim and dtype pair: the q loads cover the tile's
+    16 rows x hd once each (at hd 96 in bf16, 192 lines for 128 threads:
+    a second pass of which only 64 threads load, the rest guarded), the
+    key loads a stage's 32 rows once each, a padded shared-memory row is
+    whole 16-byte lines, and 32 lanes of D = hd / 32 dims hold hd."""
+    qs, ks, slots, q_lines = paged_lines(hd, q_bytes, pool_bytes)
+    qe, le = 16 // q_bytes, 16 // pool_bytes
+    assert sorted(qs) == [(r, c) for r in range(ROWS_PER_CTA)
+                          for c in range(hd // qe)]
+    assert sorted(ks) == [(t, c) for t in range(STAGE_KEYS)
+                          for c in range(hd // le)]
+    assert slots >= q_lines and (slots > q_lines) == (
+        hd == 96 and q_bytes == 2)
+    assert ((hd + le) * pool_bytes) % 16 == 0     # row_ld: hd + one line
+    assert hd % LANES == 0
+    lane_scratch(torch.zeros((2, LANES, hd // LANES)))
+
+
+def test_head_dims_are_the_kernels_builds():
+    """The wrappers' HEAD_DIMS are what the sources dispatch: paged
+    attention at every (hd, block size), the flash forward at every hd."""
+    built = set(re.findall(r"PORT_PAGED_CASE\((\d+), (\d+)\)", PAGED_CU))
+    assert built == {(str(h), str(b)) for h in HEAD_DIMS for b in BLOCK_SIZES}
+    assert set(re.findall(r"hd == (\d+)\)", FLASH_CU)) == {
+        str(h) for h in FLASH_HEAD_DIMS}
+    assert 96 in HEAD_DIMS and 96 in FLASH_HEAD_DIMS
+
+
+@pytest.mark.parametrize("S,bs,pos,pool_dt,q_dt", [
+    (1, 16, [0, 100, 300, 511], "float32", "bfloat16"),
+    (1, 8, [511, 3, 260, 64], "bfloat16", "bfloat16"),
+    (4, 16, [400, 31, 7, 200], "bfloat16", "float32"),
+    (9, 8, [470, 120, 0, 33], "float32", "float32"),
+])
+def test_paged_split_kv_at_hd96_matches_plain_and_pallas(S, bs, pos,
+                                                         pool_dt, q_dt):
+    """phi-3-vision's head shape, MHA (G = 1) at hd 96, D = 3 dims a lane:
+    the split schedule, its partials through the lanes' scalar stores,
+    equals the plain version and the Pallas kernel (interpret mode) within
+    2e-5 for f32 queries and one bf16 step for bf16 ones."""
+    B, H, K, hd, MB = 4, 2, 2, 96, 512 // bs
+    q, kp, vp, bt, p = _paged_case(B, S, H, K, hd, bs, MB, pos,
+                                   getattr(torch, pool_dt),
+                                   getattr(torch, q_dt))
+    tol = F32_TOL if q_dt == "float32" else BF16_TOL
+    out, live = paged_split_kv(q, kp, vp, bt, p)
+    ref = paged_attention_ref(q, kp, vp, bt, p)
+    ker = j_paged(jnp.asarray(f32(q)).astype(getattr(jnp, q_dt)),
+                  jnp.asarray(f32(kp)).astype(getattr(jnp, pool_dt)),
+                  jnp.asarray(f32(vp)).astype(getattr(jnp, pool_dt)),
+                  jnp.asarray(bt.numpy()), jnp.asarray(p.numpy()),
+                  interpret=True)
+    np.testing.assert_allclose(f32(out), f32(ref), atol=tol, rtol=tol)
+    np.testing.assert_allclose(f32(out), f32(ker), atol=tol, rtol=tol)
+    assert max(live) > 1
+
+
 # ------------------------------------------------- flash, tensor-core tiles
 def flash_tiles(q, k, v, qpos, kpos, *, causal=True):
     """The tensor-core flash kernel's schedule in plain torch: 64-row query
@@ -234,6 +365,9 @@ def _bf16(shape):
     (1, 50, 130, 4, 2, 16, False, 0),    # not causal, Sq != Skv
     (2, 150, 150, 6, 2, 16, True, 70),   # per-request positions
     (2, 40, 300, 4, 2, 16, True, 0),     # suffix queries over a longer kv
+    (1, 130, 130, 4, 4, 96, True, 0),    # hd 96, MHA (phi-3-vision)
+    (2, 70, 200, 2, 1, 96, True, 30),    # hd 96, MQA, shifted suffix
+    (1, 64, 100, 2, 2, 96, False, 0),    # hd 96, not causal
 ])
 def test_flash_tiles_match_plain(B, Sq, Skv, H, K, hd, causal, shift):
     """The tiled schedule, with P in bf16, against the port's plain version
@@ -254,13 +388,13 @@ def test_flash_tiles_match_plain(B, Sq, Skv, H, K, hd, causal, shift):
     (128, 128, 0),       # the default causal alignment
     (128, 192, 96),      # rows 0..95 of the queries see no key at all
 ])
-def test_flash_tiles_match_pallas_at_block_64(Sq, Skv, kv_start):
+def test_flash_tiles_match_pallas_at_block_64(Sq, Skv, kv_start, H=4, K=2,
+                                              hd=16):
     """Against the Pallas kernel (interpret mode) at block_q = block_k = 64,
     which skips the same tiles: equal within one bf16 step, all-masked
     rows included — such a row averages V over the keys of the tiles its
     query tile visits (p = exp(-1e30 + 1e30) = 1), in both kernels; the
     plain version, which never skips, averages over all keys instead."""
-    H, K, hd = 4, 2, 16
     q, k, v = _bf16((1, Sq, H, hd)), _bf16((1, Skv, K, hd)), _bf16(
         (1, Skv, K, hd))
     qp = torch.arange(Sq) + (Skv - Sq if not kv_start else 0)
@@ -280,6 +414,14 @@ def test_flash_tiles_match_pallas_at_block_64(Sq, Skv, kv_start):
         assert dead.any()
         np.testing.assert_allclose(f32(out)[0, ~dead], f32(ref)[0, ~dead],
                                    atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("Sq,Skv,H,K", [(192, 192, 4, 4), (100, 230, 2, 1)])
+def test_flash_tiles_at_hd96_match_pallas(Sq, Skv, H, K):
+    """phi-3-vision's head dim (6 k16 steps, 12 n8 tiles of the output a
+    warp): the tiled schedule against the Pallas kernel (interpret mode)
+    at block_q = block_k = 64, MHA and MQA, within one bf16 step."""
+    test_flash_tiles_match_pallas_at_block_64(Sq, Skv, 0, H, K, hd=96)
 
 
 def test_flash_p_rounding_error_is_inside_the_bf16_output_step():

@@ -15,7 +15,10 @@ heads of a kv head split over P CTAs of a cluster (P the largest divisor
 of G up to kMaxSplit), each CTA summing dK / dV of its 64 keys in f32 over
 its own heads and the query tiles that see its keys, kDkvWidth queries at
 a time (P rounded to bf16 for dV, dS for dK), and the P partials added in
-rank order.  The tile sizes, widths and split are read from the kernel's
+rank order.  At a head dim that is not whole 64-column TMA boxes (hd 96,
+phi-3-vision) a tile holds hd rounded up to 64 columns, the rest zeros:
+the schedule runs its products over the padded tiles and stores hd
+columns.  The tile sizes, widths and split are read from the kernel's
 source.  The CUDA kernel runs only on the card
 (``test_torch_cuda_train.py`` and ``chip_smoke.py`` hold it to the same
 plain version there)."""
@@ -34,6 +37,8 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                  attention_ref,
                                                  flash_attention,
                                                  flash_attention_bwd)
+from repro_torch.kernels.flash_attention.kernel import \
+    HEAD_DIMS as FLASH_HEAD_DIMS
 
 from _torch_port import f32
 
@@ -84,6 +89,7 @@ def _jax_grads(q, k, v, do, qp, kp, causal, k_chunk):
 
 @pytest.mark.parametrize("B,S,H,K,hd,causal,k_chunk", [
     (1, 96, 2, 2, 16, True, 32),       # G = 1
+    (1, 80, 2, 2, 96, True, 32),       # G = 1 at phi-3-vision's hd 96
     (2, 77, 4, 2, 16, True, 64),       # G = 2, ragged (k_chunk halves to 7)
     (1, 128, 12, 1, 32, True, 64),     # G = 12, the model's group size
     (1, 64, 24, 2, 16, True, 1024),    # G = 12 at the model's head counts
@@ -127,6 +133,12 @@ def _bounds(pos, n, tile):
             [int(pos[t:t + tile].max()) for t in range(0, n, tile)])
 
 
+def tile_cols(hd):
+    """The kernel's tile_cols: a tile's columns, hd in whole 64-column
+    TMA boxes (zeros past hd)."""
+    return -(-hd // 64) * 64
+
+
 def head_split(G):
     """The kernel's head_split: the CTAs that split a group of G heads."""
     return max(p for p in range(1, min(G, MAX_SPLIT) + 1) if G % p == 0)
@@ -134,7 +146,10 @@ def head_split(G):
 
 def bwd_schedule(q, k, v, do, qpos, kpos, *, causal=True):
     """dq, dk, dv as the two kernels compute them (plain torch, f32
-    accumulators, bf16 operands of the tensor-core products)."""
+    accumulators, bf16 operands of the tensor-core products), over tiles
+    of ``tile_cols(hd)`` columns: q, k, v and dout zero past hd, as TMA
+    fills them; delta from hd columns of dout and out; hd columns
+    stored."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
@@ -143,9 +158,14 @@ def bwd_schedule(q, k, v, do, qpos, kpos, *, causal=True):
     out = attention_ref(q, k, v, qpos, kpos, causal=causal)
     lse = attention_lse_ref(q, k, qpos, kpos, causal=causal)    # (B, H, Sq)
     delta = torch.empty((B, H, Sq))
-    dq = torch.zeros((B, Sq, H, hd))
-    dk = torch.zeros((B, Skv, K, hd))
-    dv = torch.zeros((B, Skv, K, hd))
+    for b in range(B):
+        delta[b] = (do[b].float() * out[b].float()).sum(-1).T
+    hdp = tile_cols(hd)
+    q, k, v, do = (torch.nn.functional.pad(t, (0, hdp - hd))
+                   for t in (q, k, v, do))
+    dq = torch.zeros((B, Sq, H, hdp))
+    dk = torch.zeros((B, Skv, K, hdp))
+    dv = torch.zeros((B, Skv, K, hdp))
 
     def p_and_ds(qs, ks, vs, dos, ls, dl, qp, kp):
         """P (f32) and dS over a (queries x keys) block, masked by position."""
@@ -165,9 +185,7 @@ def bwd_schedule(q, k, v, do, qpos, kpos, *, causal=True):
             kh = h // G
             for t, q0 in enumerate(range(0, Sq, BLOCK_Q)):
                 sl = slice(q0, min(q0 + BLOCK_Q, Sq))
-                delta[b, h, sl] = (do[b, sl, h].float()
-                                   * out[b, sl, h].float()).sum(-1)
-                acc = torch.zeros((sl.stop - sl.start, hd))
+                acc = torch.zeros((sl.stop - sl.start, hdp))
                 for j, k0 in enumerate(range(0, Skv, BLOCK_K)):
                     if causal and ktmin[j] > qtmax[t]:
                         continue
@@ -187,11 +205,11 @@ def bwd_schedule(q, k, v, do, qpos, kpos, *, causal=True):
                 kp = kpos[b, k0:k0 + BLOCK_K]
                 vis = [t for t in range(len(qtmax))
                        if not (causal and qtmax[t] < int(kp.min()))]
-                sum_k = torch.zeros((ks.shape[0], hd))
-                sum_v = torch.zeros((ks.shape[0], hd))
+                sum_k = torch.zeros((ks.shape[0], hdp))
+                sum_v = torch.zeros((ks.shape[0], hdp))
                 for r in range(P):
-                    dka = torch.zeros((ks.shape[0], hd))
-                    dva = torch.zeros((ks.shape[0], hd))
+                    dka = torch.zeros((ks.shape[0], hdp))
+                    dva = torch.zeros((ks.shape[0], hdp))
                     for h in range(kh * G + r * (G // P),
                                    kh * G + (r + 1) * (G // P)):
                         for t in vis:
@@ -211,7 +229,9 @@ def bwd_schedule(q, k, v, do, qpos, kpos, *, causal=True):
                     sum_v += dva
                 dk[b, k0:k0 + BLOCK_K, kh] = sum_k * scale
                 dv[b, k0:k0 + BLOCK_K, kh] = sum_v
-    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+    for t in (dq, dk, dv):                    # the padded columns stay 0
+        assert not t[..., hd:].any()
+    return tuple(t[..., :hd].bfloat16() for t in (dq, dk, dv))
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,shift", [
@@ -223,6 +243,9 @@ def bwd_schedule(q, k, v, do, qpos, kpos, *, causal=True):
     (1, 96, 96, 6, 2, 16, True, 0),      # G = 3: P = 3
     (2, 70, 70, 12, 2, 16, True, 30),    # G = 6: P = 3 < G, shifted
     (1, 100, 100, 8, 1, 16, False, 0),   # G = 8: P = 4 < G, not causal
+    (1, 130, 130, 2, 2, 96, True, 0),    # hd 96 (tiles of 128 columns), G = 1
+    (2, 70, 70, 4, 2, 96, True, 30),     # hd 96, G = 2: P = 2, shifted
+    (1, 50, 130, 6, 1, 96, False, 0),    # hd 96, G = 6: P = 3, not causal
 ])
 def test_backward_schedule_matches_plain(B, Sq, Skv, H, K, hd, causal, shift):
     q, k, v, do = _inputs(B, Sq, Skv, H, K, hd, seed=Sq + Skv)
@@ -255,3 +278,20 @@ def test_schedule_constants_are_the_kernels():
     assert "wgmma.mma_async" in hopper and "cp.async.bulk.tensor" in hopper
     for atomic in ("atomicAdd", "red.global", "atom.global", "cp.reduce"):
         assert atomic not in CU and atomic not in hopper   # deterministic
+
+
+def test_padded_tiles_are_the_kernels():
+    """The backward builds every head dim the forward does; a tile's
+    columns are hd in whole 64-column boxes (``tile_cols``: 128 at hd 96,
+    two boxes, the second half outside the tensor and zero-filled by TMA,
+    whose map's inner dimension is the true hd); products over hd take
+    hd / 16 k16 steps, and dq, dk, dv are stored at hd columns."""
+    assert set(re.findall(r"hd == (\d+)\)", CU)) == {
+        str(h) for h in FLASH_HEAD_DIMS}
+    assert "return (hd + 63) / 64 * 64;" in CU
+    assert [tile_cols(h) for h in FLASH_HEAD_DIMS] == [64, 128, 128]
+    assert "const cuuint32_t box[4] = {64, 1, 64, 1};" in CU
+    assert "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE" in CU       # zero fill
+    assert CU.count("kk < HD / 16; ++kk") == 4            # S, dP twice
+    assert CU.count("n < HD / 8; ++n") == 2               # dq; dk/dv
+    assert "N4 = kBlockK * HD / 4" in CU

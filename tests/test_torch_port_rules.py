@@ -15,9 +15,11 @@ import pytest
 import torch
 
 from repro_torch.checkpoint import restore_pytree
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import reconfig
 from repro_torch.core.tuner import TunerConfig, TuningManager
+from repro_torch.data.synthetic import synthetic_batch
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
@@ -78,7 +80,8 @@ CFG = get_config("starcoder2-3b").reduced()
 
 
 @pytest.mark.parametrize("entry", ["init_params", "engine", "launcher",
-                                   "train_launcher", "lm_job"])
+                                   "train_launcher", "lm_job",
+                                   "synthetic_batch"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, entry):
     params = lm.init_params(CFG, 0, device="cpu")
     assert params["embed"]["tokens"].device.type == "cpu"
@@ -91,6 +94,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, entry):
         "train_launcher": lambda: launch_train.main(
             ["--arch", "starcoder2-3b", "--reduced", "--steps", "1"]),
         "lm_job": lambda: LMJob(CFG),
+        "synthetic_batch": lambda: synthetic_batch(
+            CFG, ShapeConfig("c", 16, 2, "train")),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
@@ -132,7 +137,7 @@ def test_later_slices_raise_not_implemented(case, tmp_path):
                               dict(DEFAULT_LM_SETTING, mesh_split="1x2"))
     call = {
         "family": lambda: lm.init_params(
-            get_config("phi-3-vision-4.2b").reduced(), 0, device="cpu"),
+            get_config("hubert-xlarge").reduced(), 0, device="cpu"),
         "ssm_train": lambda: lm.loss_fn(
             lm.init_params(ssm, 0, device="cpu"),
             {"tokens": torch.zeros((1, 4), dtype=torch.int64),
