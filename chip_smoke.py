@@ -56,6 +56,13 @@ Phases, in order; any failure exits non-zero before the result line:
              training shape with lse beside SDPA, and the flash backward
              at the training shape with one CTA a cluster (P = 1; at hd 96
              over tiles padded to 128 columns) beside SDPA's backward.
+             The encoder's (hubert-xlarge, 16 q = 16 kv heads of hd 80, not
+             causal): the flash forward at (4, 1024), S = 1000 and keys at
+             negative positions (masked), with the log-sum-exp, and the
+             flash backward at the same cases (tiles padded from 80 to 128
+             columns), bit for bit across two calls; timed at the training
+             shape with lse, at the encode without, and the backward by
+             launch, beside SDPA (is_causal=False) and its backward.
 4. parity  — full-width starcoder2-3b decode step: paged kernel against
              the plain dense gather path on one f32 pool, one layer deep
              and all 30 layers (against a measured rounding-noise floor).
@@ -198,9 +205,29 @@ Phases, in order; any failure exits non-zero before the result line:
              steps at full depth in which the loss falls, one step with
              the int8 push.
 
+13. encoder — the vlm model is freed; hubert-xlarge at full width and
+             depth (48 layers, d_model 1280, 16 q = 16 kv heads of hd 80,
+             not causal, SwiGLU d_ff 5120, 504 targets, untied head, a
+             frame frontend 512 -> 1280; 1.260 B params): 4 x 1024 frames
+             (synthetic_batch, prefill kind) encoded through
+             lm.forward(mode="prefill") and logits_fn over every frame
+             (wall and CUDA-event time, flash launches); the per-layer
+             check of that encode (flash vs plain, each layer within 1.5 x
+             its one-ulp noise); every frame's logits at 1 layer within
+             2e-2 and at 48 against a measured noise floor, each argmax
+             the plain path's or a near-tie; the serving engine's refusal
+             ("encoder-only models have no decode step"); then training
+             over 4 x 1024 frame batches: loss and gradients of the kernel
+             path against the plain path at 1 layer within a measured
+             noise floor (embed/tokens' gradient exactly zero), 8 Adam
+             steps of build_train_step at full depth on one repeated batch
+             in which the loss falls (step time, frames/s, busy share, the
+             Adam pass alone, peak memory, flash launches a step), one
+             step with remat="full" (the flash forward twice a layer).
+
 Prints one JSON ``kernels`` line (launches: the serve arms', the training
-runs', the hybrid, moe and vlm paths'), the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``.
+runs', the hybrid, moe, vlm and encoder paths'), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1939,7 +1966,8 @@ def _train_cfg(depth=None):
 def plain_attention(torch, eps=0.0):
     """The training attention of ``lm`` replaced by a plain masked softmax
     in f32 (autograd through it), its scores scaled by (1 + eps): the
-    parity run's reference and its rounding-noise floor."""
+    parity run's reference and its rounding-noise floor.  Causal or not
+    (the encoder), masked as the kernels mask."""
     from repro_torch.models import lm
 
     def attn(q, k, v, *, causal, q_positions, kv_positions, k_chunk=0):
@@ -1947,7 +1975,11 @@ def plain_attention(torch, eps=0.0):
         s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                          k.repeat_interleave(G, dim=2).float())
         s = s * (q.shape[-1] ** -0.5 * (1 + eps))
-        mask = q_positions[:, :, None] >= kv_positions[:, None, :]
+        if causal:
+            mask = q_positions[:, :, None] >= kv_positions[:, None, :]
+        else:
+            mask = (kv_positions >= 0)[:, None, :].expand(
+                -1, q.shape[1], -1)
         s = torch.where(mask[:, None], s, -1e30)
         out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
                            v.repeat_interleave(G, dim=2).float())
@@ -2729,24 +2761,31 @@ def layer_by_layer(torch, label, x0, n_layers, run):
     return rows, kernel_move
 
 
-def attn_layer_runs(torch, cfg, params, rec, decode, seed, patches=0):
-    """(x0, run) for ``layer_by_layer`` over the dense, moe and vlm
-    families' layers (``lm._attn_layer``): a 320-token prefill (flash
-    against the plain chunked attention; with ``patches``, that many
-    random image patches through the vlm's frontend before 320 - patches
-    tokens), or a decode step of 8 slots at 289-373 tokens of context over
-    a random bf16 pool (paged attention against the gather path), the
-    step's KV rows written before they are read."""
+def attn_layer_runs(torch, cfg, params, rec, decode, seed, patches=0,
+                    frames=None):
+    """(x0, run) for ``layer_by_layer`` over the dense, moe, vlm and
+    encoder families' layers (``lm._attn_layer``): a 320-token prefill
+    (flash against the plain chunked attention; with ``patches``, that
+    many random image patches through the vlm's frontend before 320 -
+    patches tokens), the encoder's ``frames`` (B, S, F) through its frame
+    frontend (flash not causal against the plain chunked attention), or a
+    decode step of 8 slots at 289-373 tokens of context over a random
+    bf16 pool (paged attention against the gather path), the step's KV
+    rows written before they are read."""
     from repro_torch.models import common, lm
     from repro_torch.models.lm import ModelKnobs
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    B, S = (8, 1) if decode else (1, 320)
-    tok = torch.randint(0, cfg.vocab_size, (B, S - patches), generator=g,
-                        device=dev)
-    fr = (torch.randn((B, patches, cfg.frontend_dim), generator=g,
-                      device=dev).to(torch.bfloat16) if patches else None)
-    x0 = lm._embed(params, cfg, tok, fr)
+    if frames is not None:
+        B, S = frames.shape[:2]
+        x0 = lm._embed(params, cfg, None, frames)
+    else:
+        B, S = (8, 1) if decode else (1, 320)
+        tok = torch.randint(0, cfg.vocab_size, (B, S - patches), generator=g,
+                            device=dev)
+        fr = (torch.randn((B, patches, cfg.frontend_dim), generator=g,
+                          device=dev).to(torch.bfloat16) if patches else None)
+        x0 = lm._embed(params, cfg, tok, fr)
     kw = {}
     if decode:
         bs, mb = 16, 64
@@ -2761,7 +2800,7 @@ def attn_layer_runs(torch, cfg, params, rec, decode, seed, patches=0):
         kw = dict(pos=pos, block_tables=tables,
                   rows=lm.paged_rows(positions, tables, bs))
     else:
-        positions = torch.arange(S, device=dev)[None]
+        positions = torch.arange(S, device=dev)[None].expand(B, S)
     rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
 
     def run(i, x, plain):
@@ -4131,6 +4170,419 @@ def vlm_path(torch, card):
     return launches
 
 
+# ------------------------------------------------------------ phase 13
+ENC_H, ENC_HD = 16, 80             # hubert-xlarge: 16 q = 16 kv heads of hd
+                                   # 80 (G = 1), not causal
+ENC_B, ENC_S = 4, 1024             # frames a batch: encode and training
+ENC_TRAIN_STEPS = 8
+
+
+def check_encoder_kernels(torch, rows):
+    """The flash kernels at the encoder's heads (16 q = 16 kv heads of hd
+    80, not causal) against their plain versions, then timed beside their
+    bounds and SDPA (printed ``kernel ...[encoder ...]`` lines):
+
+    - the forward at (4, 1024), a ragged S = 1000 and keys at negative
+      positions (masked, as the model's chunked attention masks them),
+      with the rows' log-sum-exp; timed at the training shape with the
+      lse and at the encode (the same shape) without, beside
+      ``scaled_dot_product_attention(is_causal=False)``;
+    - the backward at the training shape (one CTA a cluster, tiles padded
+      from 80 to 128 columns), at S = 1000 and with keys at negative
+      positions (which get exactly no dk and dv): bit for bit across two
+      calls, timed whole and by launch beside SDPA's backward."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(25)
+    H_, hd = ENC_H, ENC_HD
+    geo = f"H=K={H_} hd={hd} G=1, not causal"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def case(B, S, start):
+        q, k, v, do = (torch.randn((B, S, H_, hd), generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        pos = (torch.arange(S, device=dev) + start)[None].expand(B, S)
+        return q, k, v, do, pos
+
+    ferr, berr = 0.0, 0.0
+    for B, S, start in [(ENC_B, ENC_S, 0), (2, 1000, 0), (1, 300, -100)]:
+        q, k, v, do, pos = case(B, S, start)
+        out, lse = flash_attention(q, k, v, pos, pos, causal=False,
+                                   return_lse=True)
+        ferr = max(ferr, check_close(
+            torch, f"flash_attention encoder {geo} B={B} S={S} keys from "
+            f"{start}", out, attention_ref(q, k, v, pos, pos, causal=False),
+            BF16_TOL))
+        ref = attention_lse_ref(q, k, pos, pos, causal=False)
+        e = float((lse - ref).abs().max())
+        if e > LSE_TOL * max(1.0, float(ref.abs().max())):
+            fail(f"flash lse encoder B={B} S={S}: max abs err {e}")
+        got = flash_attention_bwd(q, k, v, out, do, lse, pos, pos,
+                                  causal=False)
+        again = flash_attention_bwd(q, k, v, out, do, lse, pos, pos,
+                                    causal=False)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_bwd encoder B={B} S={S}: two calls differ")
+        for name, a, b in zip(("dq", "dk", "dv"), got, attention_bwd_ref(
+                q, k, v, do, pos, pos, causal=False)):
+            e = float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max())
+            if not torch.isfinite(a.float()).all() or e > BWD_RTOL:
+                fail(f"flash_attention_bwd encoder B={B} S={S} {name}: max "
+                     f"err {e} of the largest |value| (bound {BWD_RTOL})")
+            berr = max(berr, float((a.float() - b.float()).abs().max()))
+        if start < 0 and (got[1][:, :-start].any()
+                          or got[2][:, :-start].any()):
+            fail("flash_attention_bwd encoder: a key at a negative position "
+                 "got a gradient")
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], ferr)
+    rows["flash_attention_bwd"]["max_abs_err"] = max(
+        rows["flash_attention_bwd"]["max_abs_err"], berr)
+    print(f"kernel flash_attention[encoder {geo}]: forward max_abs_err "
+          f"{ferr:.3g}, backward max_abs_err {berr:.3g} (within {BWD_RTOL} "
+          f"of the largest |gradient|, bit for bit across two calls) at "
+          f"S = {ENC_S}, 1000 and keys from -100", flush=True)
+
+    B, S = ENC_B, ENC_S
+    q, k, v, do, pos = case(B, S, 0)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = B * H_ * S * S
+    for what, lse in (("training, with lse", True), ("encode", False)):
+        ms = timed_ms(torch, lambda: flash_attention(
+            q, k, v, pos, pos, causal=False, return_lse=lse))
+        plain = timed_ms(torch, lambda: attention_ref(q, k, v, pos, pos,
+                                                      causal=False))
+        lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=False))
+        b = bound(4 * q.numel() * 2 + B * H_ * S * 4 * lse,
+                  4 * hd * pairs, BF16_FLOPS)
+        print(f"kernel flash_attention[encoder {what} B={B} S={S} {geo} "
+              f"bf16]: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms={lib:.4f} (SDPA) bound_ms={b[0]:.4f} ({b[1]})",
+              flush=True)
+    out, lse = flash_attention(q, k, v, pos, pos, causal=False,
+                               return_lse=True)
+    ms = timed_ms(torch, lambda: flash_attention_bwd(
+        q, k, v, out, do, lse, pos, pos, causal=False))
+    plain = timed_ms(torch, lambda: attention_bwd_ref(q, k, v, do, pos, pos,
+                                                      causal=False))
+    lq, lk, lv = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    lib_out = sdpa(lq, lk, lv, is_causal=False)
+    lib = timed_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (lq, lk, lv), do.transpose(1, 2), retain_graph=True))
+    per = launch_ms(torch, lambda: flash_attention_bwd(
+        q, k, v, out, do, lse, pos, pos, causal=False),
+        r"flash_bwd_(dq|dkdv)_kernel")
+    b = bound(8 * q.numel() * 2 + B * H_ * S * 4, 10 * hd * pairs,
+              BF16_FLOPS)
+    print(f"kernel flash_attention_bwd[encoder training B={B} S={S} {geo}, "
+          f"P=1 CTA a cluster, tiles of 128 columns]: kernel_ms={ms:.4f}"
+          + "".join(f" {n}_ms={t:.4f}" for n, t in sorted(per.items()))
+          + f" plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA backward) "
+          f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
+
+
+def encode_parity(torch, cfg, params, frames):
+    """Every frame's logits of the full-depth encode, the kernel path
+    (flash not causal) against the plain path (``blocked_attention``) on
+    the same frames: at 1 layer within BF16_TOL; at full depth within
+    BF16_TOL + 1.5 x a rounding-noise floor measured in the run (the plain
+    path on the frames moved one bf16 ulp), every frame's argmax the plain
+    path's or a near-tie of its logits within the same bound."""
+    import dataclasses
+
+    from repro_torch.models import lm
+
+    def run(depth, plain, x=frames):
+        c = dataclasses.replace(cfg, n_layers=depth)
+        p = dict(params, layers=_slice(params["layers"], depth))
+        with plain_path(torch) if plain else contextlib.nullcontext():
+            hidden, _ = lm.forward(p, None, c, mode="prefill", frontend=x)
+            lg = lm.logits_fn(p, hidden, c)
+        if not torch.isfinite(lg).all() or lg.shape != (
+                *frames.shape[:2], cfg.vocab_size):
+            fail(f"encode logits: shape {tuple(lg.shape)} or not finite")
+        return lg.float()
+
+    err1 = check_close(torch, "1-layer encode flash vs plain",
+                       run(1, False), run(1, True), BF16_TOL)
+    ref = run(cfg.n_layers, True)
+    noise = max_err(torch, run(cfg.n_layers, True,
+                               bump_ulp(torch, frames, 1)), ref)
+    tol = BF16_TOL + 1.5 * noise
+    out = run(cfg.n_layers, False)
+    err = max_err(torch, out, ref)
+    miss = out.argmax(-1) != ref.argmax(-1)
+    gap = (ref.max(-1).values
+           - ref.gather(-1, out.argmax(-1, keepdim=True))[..., 0])
+    print(f"parity[encode {cfg.name}]: every frame's logits, flash vs plain:"
+          f" 1 layer max_abs_err={err1:.4g} (bound {BF16_TOL}); "
+          f"{cfg.n_layers} layers max_abs_err={err:.4g} against a "
+          f"rounding-noise floor of {noise:.4g} (bound {tol:.4g}), argmax "
+          f"agreement {1 - float(miss.float().mean()):.4f} over "
+          f"{miss.numel()} frames, largest gap of a mismatch "
+          f"{float((gap * miss).max()):.4g}, |logit| max "
+          f"{float(ref.abs().max()):.3f}", flush=True)
+    if err > tol or float((gap * miss).max()) > tol:
+        fail(f"full-depth encode: max abs err {err} or an argmax gap "
+             f"{float((gap * miss).max())} beyond {tol}")
+
+
+def encoder_train(torch, card):
+    """Phase 13's training on hubert-xlarge at full width over frame
+    batches (``synthetic_batch``, 4 x 1024 frames with a label each):
+    one step's loss and gradients, the kernel path (flash forward and
+    backward at hd 80, not causal) against the plain path within a
+    measured rounding-noise floor at 1 layer, ``embed/tokens``'s gradient
+    exactly zero; then at full depth (48 layers, 1.26 B parameters and
+    their Adam state) ``build_train_step`` on one repeated batch, in which
+    the loss falls (step time, frames/s, busy share, peak memory, the Adam
+    pass alone, flash launches a step), and one step with ``remat="full"``
+    (the flash forward twice a layer).  Returns the launches of the
+    runs."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import flatten
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.models.lm import ModelKnobs
+    from repro_torch.optim import make_optimizer
+    from repro_torch.ps.lm_job import (DEFAULT_LM_SETTING,
+                                       setting_to_stepknobs)
+    from repro_torch.ps.stepfn import _grads, build_train_step
+    full = get_config("hubert-xlarge")
+    shape = ShapeConfig("train", ENC_S, ENC_B, "train")
+    cfg = dataclasses.replace(full, n_layers=1)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    batch = synthetic_batch(cfg, shape, seed=0)
+
+    def run():
+        loss, _, g = _grads(params, batch, cfg, ModelKnobs())
+        return float(loss), flatten(g)
+
+    before = LAUNCHES["flash_attention_bwd"]
+    k_loss, (names, k_g) = run()
+    if LAUNCHES["flash_attention_bwd"] - before != 1:
+        fail("encoder train parity: the flash backward did not run once")
+    with plain_attention(torch):
+        p_loss, (_, p_g) = run()
+    with plain_attention(torch, eps=2.0 ** -20):
+        n_loss, (_, n_g) = run()
+
+    def worst(a, b):
+        return max((float((x.float() - y.float()).abs().max()
+                          / y.float().abs().max().clamp_min(1e-30)), n)
+                   for x, y, n in zip(a, b, names) if n != "embed/tokens")
+
+    (err, leaf), (noise, _) = worst(k_g, p_g), worst(n_g, p_g)
+    tol = TRAIN_GRAD_TOL + 1.5 * noise
+    lerr, lnoise = abs(k_loss - p_loss), abs(n_loss - p_loss)
+    ltol = TRAIN_LOSS_TOL + 1.5 * lnoise
+    tokens_g = k_g[names.index("embed/tokens")]
+    proj = float(k_g[names.index("frontend/proj")].abs().max())
+    print(f"parity[train encoder 1 layer, {ENC_B} x {ENC_S} frames]: loss "
+          f"kernel {k_loss:.6f} plain {p_loss:.6f} (|diff| {lerr:.3g}, floor "
+          f"{lnoise:.3g}, bound {ltol:.3g}); gradients: worst leaf ({leaf}) "
+          f"max err {err:.4g} of its largest |value| against a "
+          f"rounding-noise floor of {noise:.4g} (bound {tol:.4g}); "
+          f"frontend/proj's largest |grad| {proj:.4g}, embed/tokens' "
+          f"{float(tokens_g.abs().max()):.1f}", flush=True)
+    if not (err <= tol and lerr <= ltol and proj > 0) or tokens_g.any() or \
+            any(not torch.isfinite(x.float()).all() for x in k_g):
+        fail("encoder train parity")
+    del params, batch, k_g, p_g, n_g, tokens_g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    tc = TrainConfig()
+    params = lm.init_params(full, seed=0, device="cuda")
+    state = {"params": params, "opt": make_optimizer(tc)[0](params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    del params
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    knobs = setting_to_stepknobs(DEFAULT_LM_SETTING)
+    step = build_train_step(full, tc, knobs)
+    batch = synthetic_batch(full, shape, seed=0)
+    losses, walls, evs = [], [], []
+    reset_launches()
+    for _ in range(ENC_TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        evs.append(a.elapsed_time(b))
+    launches = dict(LAUNCHES)
+    n_steps = ENC_TRAIN_STEPS
+    for k_ in ("flash_attention", "flash_attention_bwd"):
+        if launches[k_] != n_steps * full.n_layers:
+            fail(f"encoder fixed run: {launches[k_]} {k_} launches in "
+                 f"{n_steps} steps")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not np.isfinite(losses).all() or not last < first:
+        fail(f"encoder fixed run: the loss did not fall ({first} -> {last})")
+    repeat = itertools.repeat(batch)
+    state, pwall, busy, _, groups = _profile_steps(torch, step, state,
+                                                   repeat, steps=2)
+    opt_ms = time_optimizer(torch, SimpleNamespace(tc=tc), state, reps=2)
+    wall, ev = float(np.median(walls[2:])), float(np.median(evs[2:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train[encoder fixed]: {full.name} full width and depth "
+          f"({full.n_params() / 1e9:.3f} B params), {ENC_B} x {ENC_S} "
+          f"frames, {n_steps} steps of {DEFAULT_LM_SETTING} on one "
+          f"repeated batch: loss {' '.join(f'{x:.4f}' for x in losses)} "
+          f"(mean of the first 3 {first:.4f}, of the last 3 {last:.4f}); "
+          f"flash launches a step: forward "
+          f"{launches['flash_attention'] // n_steps}, backward "
+          f"{launches['flash_attention_bwd'] // n_steps}", flush=True)
+    print(f"train[encoder fixed]: step {wall:.2f} ms wall, {ev:.2f} ms "
+          f"between CUDA events (medians of steps 3-{n_steps}), "
+          f"{ENC_B * ENC_S / wall * 1e3:.0f} frames/s; under torch.profiler "
+          f"{pwall:.2f} ms wall, busy share {busy / pwall:.3f}; by kind: "
+          + ", ".join(f"{g_} {ms:.2f} ms ({k} kernels)" for g_, (ms, k) in
+                      sorted(groups.items(), key=lambda kv: -kv[1][0]))
+          + f"; the Adam pass alone {opt_ms:.2f} ms; state {state_gb:.2f} "
+          f"GB, peak {peak:.2f} GB allocated on {card}", flush=True)
+    step_r = build_train_step(full, tc, dataclasses.replace(knobs,
+                                                            remat="full"))
+    before = dict(LAUNCHES)
+    state, m = step_r(state, batch)
+    loss_r = float(m["loss"])
+    d = {k_: LAUNCHES[k_] - before[k_] for k_ in LAUNCHES}
+    if not np.isfinite(loss_r) or d["flash_attention"] != 2 * full.n_layers \
+            or d["flash_attention_bwd"] != full.n_layers:
+        fail(f"encoder remat=full step: loss {loss_r}, {d['flash_attention']}"
+             f" forward / {d['flash_attention_bwd']} backward flash launches")
+    print(f"train[encoder remat=full]: one step, loss {loss_r:.4f}, flash "
+          f"launches: forward {d['flash_attention']} (2 x {full.n_layers}, "
+          f"the recomputation's included), backward "
+          f"{d['flash_attention_bwd']}", flush=True)
+    for k_ in launches:
+        launches[k_] += d[k_]
+    del state, step, step_r, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def encoder_path(torch, card):
+    """Phase 13 on hubert-xlarge at full width and depth (48 layers,
+    d_model 1280, 16 q = 16 kv heads of hd 80, not causal, SwiGLU d_ff
+    5120, 504 targets, untied head, a frame frontend 512 -> 1280; 1.260 B
+    params): 4 x 1024 frames (``synthetic_batch``, prefill kind) encoded
+    through ``lm.forward(mode="prefill")`` and ``logits_fn`` over every
+    frame (wall and CUDA-event time); the per-layer check of that encode
+    (flash vs plain, each layer within 1.5 x its own one-ulp noise);
+    ``encode_parity`` as the drift bound; the serving engine's refusal;
+    then ``encoder_train``.  Returns the launches of the encode and the
+    training runs."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine
+    t0 = time.perf_counter()
+    cfg = get_config("hubert-xlarge")
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != cfg.n_params():
+        fail(f"hubert-xlarge: {n_params} parameters, the config counts "
+             f"{cfg.n_params()}")
+    print(f"model: {cfg.name} full width and depth, {n_params / 1e9:.3f} B "
+          f"params bf16, init {time.perf_counter() - t0:.1f}s", flush=True)
+    frames = synthetic_batch(cfg, ShapeConfig("encode", ENC_S, ENC_B,
+                                              "prefill"), seed=0)["frontend"]
+
+    def encode():
+        hidden, _ = lm.forward(params, None, cfg, mode="prefill",
+                               frontend=frames)
+        return lm.logits_fn(params, hidden, cfg)
+
+    for _ in range(2):
+        encode()
+    torch.cuda.synchronize()
+    walls, evs = [], []
+    reset_launches()
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        a.record()
+        logits = encode()
+        b.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        evs.append(a.elapsed_time(b))
+    launches = dict(LAUNCHES)
+    if launches["flash_attention"] != 5 * cfg.n_layers:
+        fail(f"encode: {launches['flash_attention']} flash launches in 5 "
+             f"encodes of {cfg.n_layers} layers")
+    if logits.shape != (ENC_B, ENC_S, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        fail(f"encode logits: shape {tuple(logits.shape)} or not finite")
+    wall, ev = float(np.median(walls)), float(np.median(evs))
+    del logits
+    _, pwall, busy, _, groups = _profile_steps(
+        torch, lambda s, _: (s, {"loss": encode()[0, 0, 0]}), None,
+        itertools.repeat(None))
+    print(f"encode[{cfg.name}]: {ENC_B} x {ENC_S} frames -> logits of every "
+          f"frame {(ENC_B, ENC_S, cfg.vocab_size)}, {wall:.2f} ms wall, "
+          f"{ev:.2f} ms between CUDA events (medians of 5), "
+          f"{ENC_B * ENC_S / wall * 1e3:.0f} frames/s, flash launches an "
+          f"encode {launches['flash_attention'] // 5}; under torch.profiler "
+          f"{pwall:.2f} ms wall, busy share {busy / pwall:.3f}; by kind: "
+          + ", ".join(f"{g_} {ms:.2f} ms ({k} kernels)" for g_, (ms, k) in
+                      sorted(groups.items(), key=lambda kv: -kv[1][0]))
+          + f" on {card}", flush=True)
+    x0, run = attn_layer_runs(torch, cfg, params, RouteRecorder(torch),
+                              False, seed=43, frames=frames)
+    layer_by_layer(torch, f"{cfg.name} encode of {ENC_B} x {ENC_S} frames: "
+                   f"flash (not causal) vs plain", x0, cfg.n_layers, run)
+    del x0, run                  # the closure holds the parameters
+    encode_parity(torch, cfg, params, frames)
+    try:
+        ServingEngine(params, cfg, max_seq=64, device="cuda")
+    except NotImplementedError as e:
+        if "encoder-only models have no decode step" not in str(e):
+            fail(f"the engine refused the encoder with another text: {e}")
+        print(f"refusal: ServingEngine({cfg.name}): {e}", flush=True)
+    else:
+        fail("the serving engine accepted an encoder")
+    del params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 13: encode done at {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    lt = encoder_train(torch, card)
+    launches = {k: launches.get(k, 0) + lt.get(k, 0)
+                for k in set(launches) | set(lt)}
+    missing = [k for k in ("flash_attention", "flash_attention_bwd")
+               if not launches.get(k)]
+    if missing:
+        fail(f"the encoder path never launched {missing}: {launches}")
+    print(f"encoder: phase 13 in {time.perf_counter() - t0:.1f}s, launches "
+          f"{launches}, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB", flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -4165,6 +4617,7 @@ def main():
     check_hybrid_kernels(torch, rows)
     check_group_kernels(torch, rows, "moe", MOE_H, MOE_K, HD, seed=21)
     check_group_kernels(torch, rows, "vlm", VLM_H, VLM_H, VLM_HD, seed=23)
+    check_encoder_kernels(torch, rows)
     launches = dict.fromkeys(rows, 0)
     launches.update(dense_path(torch, card))
     # free the dense model (and its engines' pools) before falcon-mamba
@@ -4200,6 +4653,11 @@ def main():
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
           f"allocated", flush=True)
     for name, n in vlm_path(torch, card).items():
+        launches[name] += n
+    # free the vlm model before the encoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in encoder_path(torch, card).items():
         launches[name] += n
 
     line = {"kernels": [

@@ -1,12 +1,13 @@
 """Deterministic synthetic batches (the JAX package's
-``data/synthetic.py``): ``lm_batch_iterator`` and, for one (arch, shape)
+``data/synthetic.py``): ``lm_batch_iterator``; for one (arch, shape)
 cell, ``input_specs`` and ``synthetic_batch`` (the vlm's patches beside
-the tokens).
+the tokens, the encoder's frames in their place); and the paper-workload
+datasets, ``regression_dataset`` (LogR / SVM) and ``image_dataset`` (CNN).
 
 The values come from the same numpy generator calls in the same order, so
 for a seed they equal the JAX package's exactly.  ``synthetic_batch``'s
-decode kind (JAX's dense per-slot cache, which the port does not keep) and
-the paper-workload datasets (LogR / SVM / CNN) are not ported yet.
+decode kind (JAX's dense per-slot cache, which the port does not keep) is
+not ported.
 """
 from __future__ import annotations
 
@@ -29,16 +30,19 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     """{name: (shape, torch dtype)} of one cell's model inputs, without
     allocating: ``tokens`` (and ``labels`` in training) int64 over the
     text positions, and the vlm's ``frontend`` patches (B, frontend_len,
-    frontend_dim) bf16.  The frame frontend (the encoder family) and the
-    decode kind are not ported yet."""
+    frontend_dim) bf16; for the encoder's frame frontend, ``frontend``
+    frames (B, S, frontend_dim) bf16 (and ``labels`` (B, S) in training)
+    and no tokens.  The decode kind is not ported."""
     B, S = shape.global_batch, shape.seq_len
-    if cfg.frontend == "frame":
-        raise NotImplementedError("the frame frontend (the encoder family) "
-                                  "is not ported yet")
     if shape.kind not in ("train", "prefill"):
         raise NotImplementedError(
             f"input_specs kind {shape.kind!r}: the decode kind builds the "
             f"JAX package's dense per-slot cache and is not ported yet")
+    if cfg.frontend == "frame":             # the whole sequence is frames
+        batch = {"frontend": ((B, S, cfg.frontend_dim), torch.bfloat16)}
+        if shape.kind == "train":
+            batch["labels"] = ((B, S), torch.int64)
+        return batch
     T = _text_len(cfg, S)
     batch = {"tokens": ((B, T), torch.int64)}
     if shape.kind == "train":
@@ -53,9 +57,10 @@ def synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
                     device=None) -> dict:
     """One real batch of ``input_specs``'s shapes on ``device`` (default:
     the CUDA device; raises without one unless ``device`` is given):
-    integers uniform over the vocabulary, patches standard normal drawn
-    in f32 and rounded to bf16, drawn in the order of the sorted names
-    (the JAX package's tree order), so the values equal its batch's."""
+    integers uniform over the vocabulary, patches and frames standard
+    normal drawn in f32 and rounded to bf16, drawn in the order of the
+    sorted names (the JAX package's tree order), so the values equal its
+    batch's."""
     specs = input_specs(cfg, shape)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -109,3 +114,45 @@ def lm_batch_iterator(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
             out.copy_(pinned, non_blocking=True)
             copied.record()
         yield {"tokens": out[0], "labels": out[1]}
+
+
+def regression_dataset(n: int = 4096, d: int = 64, seed: int = 0,
+                       task: str = "logreg", noise: float = 0.3,
+                       cond: float = 1.0, device=None):
+    """Synthetic convex workloads matching the paper's LogR / SVM jobs:
+    (X (n, d) f32, y (n,) f32) on ``device`` (default: the CUDA device;
+    raises without one unless ``device`` is given); y in {0, 1} for
+    ``logreg``, else +-1.
+
+    ``cond`` > 1 gives the features a geometric spectrum (ill-conditioning),
+    which is what makes GD genuinely *long-running* as in the paper's jobs.
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    w_true = rng.standard_normal(d) / np.sqrt(d)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    if cond > 1.0:
+        scales = (1.0 / cond) ** (np.arange(d) / max(d - 1, 1))
+        X = (X * scales[None, :]).astype(np.float32)
+        w_true = w_true / scales
+    margin = X @ w_true + noise * rng.standard_normal(n)
+    y = (margin > 0).astype(np.float32) * 2.0 - 1.0          # +-1 labels
+    if task == "logreg":
+        y = (y + 1.0) / 2.0                                   # {0,1}
+    return (torch.from_numpy(X).to(dev),
+            torch.from_numpy(y.astype(np.float32)).to(dev))
+
+
+def image_dataset(n: int = 2048, hw: int = 16, n_classes: int = 10,
+                  seed: int = 0, noise: float = 0.8, device=None):
+    """Tiny synthetic image classification set (the paper's CNN analogue):
+    (images (n, hw, hw, 3) f32, labels (n,) int64) on ``device`` (default:
+    the CUDA device; raises without one unless ``device`` is given)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    protos = rng.standard_normal((n_classes, hw, hw, 3)).astype(np.float32)
+    labels = rng.integers(0, n_classes, size=n)
+    imgs = protos[labels] + noise * rng.standard_normal(
+        (n, hw, hw, 3)).astype(np.float32)
+    return (torch.from_numpy(imgs).to(dev),
+            torch.from_numpy(labels.astype(np.int64)).to(dev))

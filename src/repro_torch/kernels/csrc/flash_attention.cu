@@ -6,7 +6,9 @@
 // (Pallas body `_flash_kernel`).
 //
 // Computes out[b, i, h] = softmax_j(q[b,i,h] . k[b,j,h/G] * hd^-0.5) . v[b,j,h/G]
-// with scores masked to -1e30 where kv_pos[b,j] > q_pos[b,i] when causal.
+// with scores masked to -1e30 where kv_pos[b,j] > q_pos[b,i] when causal,
+// and where kv_pos[b,j] < 0 when not (as the model's chunked attention
+// masks an encoder's keys).
 // Unlike the Pallas version it keeps the position arguments, and it masks
 // ragged tails (keys past Skv, query rows past Sq) instead of halving the
 // block sizes until they divide the sequence.
@@ -26,15 +28,18 @@
 //   past Skv) into shared memory rows padded by 16 bytes, so ldmatrix hits
 //   no bank conflicts, through a ring of two: tile i+1 loads while tile i
 //   computes.  The first tile is in flight before the positions are read.
-// - Head dims 64, 96 and 128 are built.  At hd 96 (phi-3-vision) a row is
-//   12 lines and 6 k16 steps, its padded stride 208 bytes (13 lines: the 8
-//   rows of an ldmatrix land on distinct banks, as at 144 and 272).
+// - Head dims 64, 80, 96 and 128 are built.  At hd 96 (phi-3-vision) a row
+//   is 12 lines and 6 k16 steps, its padded stride 208 bytes (13 lines: the
+//   8 rows of an ldmatrix land on distinct banks, as at 144 and 272); at
+//   hd 80 (hubert) 10 lines, 5 k16 steps and 10 n8 tiles of O, a stride of
+//   176 bytes (11 lines), and a KV tile is 640 lines, 5 a thread.
 // - A first pass takes the min and max kv position of every tile (in
 //   shared memory, one warp reduction per 32 keys).  Tiles past the last
 //   one any row of the CTA sees are never loaded; one that no row sees
 //   (positions out of order) is not computed, as the JAX kernel skips it.
-//   Only a tile that holds keys past Skv or keys in some row's future is
-//   masked, by position.
+//   Only a tile that holds keys past Skv or keys in some row's future (not
+//   causal: keys at a negative position) is masked, by position.  Without
+//   causal every tile is loaded and computed.
 // - S = Q.K^T accumulates in f32 fragments; the online max and sum are
 //   taken on the fragments with a 4-lane shuffle per row, in base 2; P.V
 //   takes P from the same registers (the accumulator layout of two n8 key
@@ -164,6 +169,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   __syncthreads();                             // tmin / tmax initialised
 
   // min and max kv position of every tile: a warp reads 32 keys of one tile
+  static_assert(kBlockK * (HD / 8) % kThreads == 0, "a KV tile's lines split over the threads");
   for (int base0 = warp * 32; base0 < Skv; base0 += kThreads * U) {
     int kv[U];
 #pragma unroll
@@ -225,12 +231,13 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     }
 
     // scale; mask unless every key exists and every row sees it: keys past
-    // Skv get -inf (p = 0), keys in a row's future -1e30
+    // Skv get -inf (p = 0), keys in a row's future (not causal: at a
+    // negative position) -1e30
 #pragma unroll
     for (int n = 0; n < NT_S; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] *= scale2;
-    if ((j + 1) * kBlockK > Skv || (causal && tmax[j] > qmin)) {
+    if ((j + 1) * kBlockK > Skv || (causal ? tmax[j] > qmin : tmin[j] < 0)) {
 #pragma unroll
       for (int n = 0; n < NT_S; ++n) {
 #pragma unroll
@@ -238,10 +245,10 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
           const int key = j * kBlockK + n * 8 + tig * 2 + e;
           if (key >= Skv) {
             s[n][e] = s[n][e + 2] = -INFINITY;
-          } else if (causal) {
+          } else {
             const int kp = __ldg(kvp + key);
-            if (kp > qp0) s[n][e] = port::kMaskValue;
-            if (kp > qp1) s[n][e + 2] = port::kMaskValue;
+            if (causal ? kp > qp0 : kp < 0) s[n][e] = port::kMaskValue;
+            if (causal ? kp > qp1 : kp < 0) s[n][e + 2] = port::kMaskValue;
           }
         }
       }
@@ -352,6 +359,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, cons
   float* l = static_cast<float*>(lse);
   if (hd == 64)
     return launch<64>(q, k, v, q_pos, kv_pos, out, l, B, Sq, Skv, H, K, causal, scale, st);
+  if (hd == 80)
+    return launch<80>(q, k, v, q_pos, kv_pos, out, l, B, Sq, Skv, H, K, causal, scale, st);
   if (hd == 96)
     return launch<96>(q, k, v, q_pos, kv_pos, out, l, B, Sq, Skv, H, K, causal, scale, st);
   if (hd == 128)

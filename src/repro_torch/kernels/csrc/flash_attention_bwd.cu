@@ -6,7 +6,8 @@
 // (src/repro/models/attention.py:37 `chunked_attention`, whose kv block is
 // jax.checkpoint-ed so reverse mode recomputes the probabilities).
 //
-// With s = q.k * scale (masked by position as the forward masks it),
+// With s = q.k * scale (masked by position as the forward masks it: keys in
+// a query's future when causal, keys at a negative position when not),
 // P = exp(s - lse) from the forward's row log-sum-exp, and dO the output's
 // gradient:
 //   delta_i = sum_d dO[i, d] * O[i, d]
@@ -60,20 +61,24 @@
 //   CTA stores its share of the tile in bf16.  Key tiles go out in order,
 //   tile 0 (the one most query tiles see under the causal mask) first.
 // Tiles that no row sees are skipped by position, as the forward skips
-// them; only tiles with keys or queries past the end, or keys in some
-// row's future, are masked element by element.
+// them (causal only); only tiles with keys or queries past the end, or keys
+// in some row's future (not causal: at a negative position), are masked
+// element by element.
 //
-// Head dims 64, 96 and 128 are built.  A tile holds HDP = hd rounded up to
-// 64 columns (tile_cols): hd / 64 boxes at 64 and 128, and at hd 96
-// (phi-3-vision) two boxes whose second is half out of the tensor, since
-// each tensor map's inner dimension is the true hd and TMA fills columns
-// 96-127 with zeros (and counts their bytes, so every tile is 2 boxes of
-// transaction).  Products over hd (S, dP) take only hd / 16 k16 steps; the
-// three whose width is hd (dQ, dV, dK) run at n = 128 with f32 columns
-// 96-127 that are zeros and never stored: a third more work in those
-// three.  The delta prologue reads hd columns of O and dO, and dq, dk and
-// dv are stored at their true hd.  (A 64 + 32 split, the second box with
-// the 64-byte swizzle, would drop the padded columns: later work.)
+// Head dims 64, 80, 96 and 128 are built.  A tile holds HDP = hd rounded up
+// to 64 columns (tile_cols): hd / 64 boxes at 64 and 128, and at hd 96
+// (phi-3-vision) and hd 80 (hubert) two boxes whose second is partly out
+// of the tensor, since each tensor map's inner dimension is the true hd and
+// TMA fills columns hd-127 with zeros (and counts their bytes, so every
+// tile is 2 boxes of transaction).  Products over hd (S, dP) take only
+// hd / 16 k16 steps (at hd 80 the fifth starts at the second box's base);
+// the three whose width is hd (dQ, dV, dK) run at n = 128 with f32 columns
+// hd-127 that are zeros and never stored: a third more work in those three
+// at hd 96, 60% more at hd 80.  The delta prologue reads hd columns of O
+// and dO (hd / 8 16-byte units a row, two threads a row), and dq, dk and dv
+// are stored at their true hd.  (A 64 + 32 or 64 + 16 split, the second box
+// with the 64- or 32-byte swizzle, would drop the padded columns: later
+// work.)
 //
 // Products executed: 7 against the 5 the bound counts (the dK/dV pass
 // recomputes S and dP, the dQ pass's products, since dQ sums over keys and
@@ -337,7 +342,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     const int s = it % kStages, j = vis[it];
     const uint32_t kt = ring + s * 2 * TILE, vt = kt + TILE;
     const int* kp = kpos + s * kBlockK;
-    const bool need_mask = (j + 1) * kBlockK > Skv || (causal && tmax[j] > qmin);
+    const bool need_mask = (j + 1) * kBlockK > Skv || (causal ? tmax[j] > qmin : tmin[j] < 0);
     port::mbar_wait(bar_full(s), (it / kStages) & 1);
     // S = Q K^T, then dP = dO V^T; P is taken while dP is still in flight
     float sc[kBlockK / 2], dp[kBlockK / 2];
@@ -360,7 +365,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
         float p = exp2_approx(sc[4 * n + e] * scale2 - (e < 2 ? lse0 : lse1));
         if (need_mask) {
           const int col = n * 8 + 2 * t4 + (e & 1);
-          if (j * kBlockK + col >= Skv || (causal && kp[col] > (e < 2 ? qp0 : qp1))) p = 0.f;
+          if (j * kBlockK + col >= Skv || (causal ? kp[col] > (e < 2 ? qp0 : qp1) : kp[col] < 0))
+            p = 0.f;
         }
         sc[4 * n + e] = p;
       }
@@ -536,7 +542,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
       const float* ls = rl + s * kBlockQ;
       const float* dl = rd + s * kBlockQ;
       const int* ps = rp + s * kBlockQ;
-      const bool need_mask = q0 + kBlockQ > Sq || (causal && qtmin[t] < kmax);
+      const bool need_mask = q0 + kBlockQ > Sq || (causal ? qtmin[t] < kmax : kmin < 0);
       port::mbar_wait(bar_full(s), (it / kStages) & 1);
 #pragma unroll
       for (int hf = 0; hf < kBlockQ / kDkvWidth; ++hf) {
@@ -562,7 +568,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
           for (int e = 0; e < 4; ++e) {
             const int col = hf * W + n * 8 + 2 * t4 + (e & 1);
             float p = exp2_approx(st[4 * n + e] * scale2 - ls[col]);
-            if (need_mask && (q0 + col >= Sq || (causal && (e < 2 ? kp0 : kp1) > ps[col]))) p = 0.f;
+            const int kp = e < 2 ? kp0 : kp1;
+            if (need_mask && (q0 + col >= Sq || (causal ? kp > ps[col] : kp < 0))) p = 0.f;
             st[4 * n + e] = p;
           }
         }
@@ -729,6 +736,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   auto* dl = static_cast<float*>(delta);
   if (hd == 64)
     return launch<64>(qb, kb, vb, ob, db, lf, qp, kp, dqb, dkb, dvb, dl, B, Sq, Skv, H, K, causal,
+                      scale, st);
+  if (hd == 80)
+    return launch<80>(qb, kb, vb, ob, db, lf, qp, kp, dqb, dkb, dvb, dl, B, Sq, Skv, H, K, causal,
                       scale, st);
   if (hd == 96)
     return launch<96>(qb, kb, vb, ob, db, lf, qp, kp, dqb, dkb, dvb, dl, B, Sq, Skv, H, K, causal,

@@ -15,7 +15,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref,
                                                      default_positions)
 
-HEAD_DIMS = (64, 96, 128)
+HEAD_DIMS = (64, 80, 96, 128)
 
 
 def _check(what, q, k, v, qp, kp):
@@ -38,7 +38,8 @@ def flash_attention(q, k, v, q_positions=None, kv_positions=None, *,
     """q: (B, Sq, H, hd) bf16; k, v: (B, Skv, K, hd) bf16 with H % K == 0.
 
     ``*_positions``: (S,) or (B, S) positions for the causal mask (default:
-    q aligned to the end of kv).  ``block_k`` is the k_chunk knob; the
+    q aligned to the end of kv); without ``causal``, keys at negative
+    positions are masked.  ``block_k`` is the k_chunk knob; the
     kernel takes its own KV tile of 64 keys, so the result does not depend
     on it (nor does the plain version's).  Returns (B, Sq, H, hd) bf16,
     and with ``return_lse`` also the rows' log-sum-exp of the scaled,

@@ -26,7 +26,9 @@ def default_positions(q, k, q_positions=None, kv_positions=None):
 
 
 def _scores(q, k, q_positions, kv_positions, causal):
-    """(B, H, Sq, Skv) f32 scores q.k * hd^-0.5, masked to -1e30."""
+    """(B, H, Sq, Skv) f32 scores q.k * hd^-0.5, masked to -1e30: keys in
+    a query's future when causal, else keys at negative positions (the
+    model's chunked attention masks them so)."""
     B, Sq, H, hd = q.shape
     G = H // k.shape[2]
     qp, kp = default_positions(q, k, q_positions, kv_positions)
@@ -34,8 +36,9 @@ def _scores(q, k, q_positions, kv_positions, causal):
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kh) * (hd ** -0.5)
     if causal:
         mask = qp[:, :, None] >= kp[:, None, :]               # (B, Sq, Skv)
-        s = torch.where(mask[:, None], s, NEG_INF)
-    return s
+    else:
+        mask = (kp >= 0)[:, None, :].expand(B, Sq, kp.shape[1])
+    return torch.where(mask[:, None], s, NEG_INF)
 
 
 def attention_lse_ref(q, k, q_positions=None, kv_positions=None, *,
@@ -60,7 +63,8 @@ def attention_bwd_ref(q, k, v, dout, q_positions=None, kv_positions=None,
 def attention_ref(q, k, v, q_positions=None, kv_positions=None, *,
                   causal: bool = True):
     """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) with H % K == 0 (query head
-    h reads kv head h // (H/K)).  Causal masks kv position > q position.
+    h reads kv head h // (H/K)).  Causal masks kv position > q position;
+    not causal, kv position < 0.
     f32 softmax and P.V; returns (B, Sq, H, hd) in q.dtype."""
     G = q.shape[2] // k.shape[2]
     vh = v.repeat_interleave(G, dim=2).float()

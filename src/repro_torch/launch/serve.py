@@ -48,8 +48,8 @@ reads a store the other wrote: the run starts from the golden incumbent
 of the nearest signature, the tuner absorbs that signature's observations
 and skips init settings, and on exit the store is compacted and its
 ``GOLDEN.json`` rewritten.  The dense, moe, vlm, ssm and hybrid families
-are served (vlm from tokens only); the encoder archs come with a later
-slice of the port and raise ``NotImplementedError``.
+are served (vlm from tokens only); an encoder arch exits before its model
+is built: it has no decode step, as in the JAX package's launcher.
 """
 from __future__ import annotations
 
@@ -185,10 +185,12 @@ def main(argv=None):
         raise SystemExit(f"--prompt-len + --gen ({args.prompt_len}+{args.gen})"
                          f" must fit in --max-seq ({args.max_seq})")
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "encoder":
+        raise SystemExit("encoder-only arch has no decode step")
+    device = resolve_device(args.device)
     params = lm.init_params(cfg, args.seed, device=device)
     space = serving_knob_space(max_batch_ceiling=max(8, args.batch),
                                include_batches=(args.batch,),

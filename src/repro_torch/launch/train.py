@@ -28,7 +28,11 @@ fixed.  Weights are random, drawn from ``--seed``.  The dense, moe and vlm
 families train (moe: the router's load-balancing loss, weighted by
 ``router_aux_weight``, enters the loss; each layer's expert tensors are
 autograd leaves of their own); the ssm and hybrid families' training
-raises (it needs a backward of the selective scan).
+raises (it needs a backward of the selective scan).  An encoder arch
+(hubert) exits before its model is built: the job draws token batches
+(``lm_batch_iterator``, as the JAX package's LMJob does) and an encoder
+reads frames; ``ps.stepfn.build_train_step`` trains it on frame batches
+(``data.synthetic.synthetic_batch``).
 """
 from __future__ import annotations
 
@@ -73,6 +77,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "encoder":
+        raise SystemExit(
+            f"{cfg.name}: the LM job feeds token batches and an encoder "
+            f"reads frames; train it through ps.stepfn.build_train_step on "
+            f"data.synthetic.synthetic_batch frame batches")
     job = LMJob(cfg, batch=args.batch, seq=args.seq, seed=args.seed,
                 device=args.device)
     job.eps = args.eps

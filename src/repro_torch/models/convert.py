@@ -4,7 +4,8 @@ state -> the port's, and the port's train state -> numpy.
 ``params_from_numpy`` takes the tree of ``repro.models.lm.init_params``
 (or a checkpoint of it) with every leaf already a numpy array, and returns
 the port's nested dict of tensors with the same keys, for every family
-the port serves (the hybrid's unstacked ``shared`` block included).
+the port runs (the hybrid's unstacked ``shared`` block and the encoder's
+``frontend/proj`` included).
 Layer weights stay stacked on the leading L axis and matrices keep JAX's
 (in, out) orientation: nothing is transposed, so ``x @ w`` is JAX's
 ``einsum("bsd,dh->bsh")``.

@@ -2,11 +2,12 @@
 the dense family (attention + SwiGLU MLP, paged KV decode), the moe family
 (attention + a top-k routed mixture of SwiGLU experts, ``models/moe.py``,
 paged KV decode), the vlm family (the dense layers behind a patch
-frontend), the ssm family (mamba1 blocks, recurrent-state decode) and the
-hybrid family (zamba2: mamba2 blocks and one shared attention + MLP block
-applied every ``shared_attn_every`` layers, whose KV lives in a dense
-per-slot slab); training runs for the dense, moe and vlm families and
-raises for the other two.
+frontend), the encoder family (the dense layers, not causal, over audio
+frames: no decode), the ssm family (mamba1 blocks, recurrent-state decode)
+and the hybrid family (zamba2: mamba2 blocks and one shared attention +
+MLP block applied every ``shared_attn_every`` layers, whose KV lives in a
+dense per-slot slab); training runs for the dense, moe, vlm and encoder
+families and raises for the other two.
 
 The port of the JAX package's ``models/lm.py``.  Parameters are a nested
 dict of tensors with the JAX tree's keys: layer weights are stacked on a
@@ -31,8 +32,14 @@ The vlm family's prefill and training take an optional ``frontend``:
 image patches (B, P, frontend_dim), projected by ``frontend/proj`` and put
 before the B x T token embeddings, so positions run 0 .. P + T - 1 and the
 loss covers the T text positions; its decode (and so its serving) takes
-tokens only, as the JAX engine's does.  The encoder family is a later
-slice of the port and raises ``NotImplementedError``.
+tokens only, as the JAX engine's does.
+
+The encoder family (hubert) reads no token: its prefill (encode) and
+training take ``frontend`` frames (B, S, frontend_dim) with ``tokens=None``,
+projected by ``frontend/proj``; attention is not causal, the loss covers
+every frame, and ``embed/tokens`` is unused.  It has no decode step, so no
+paged cache and no serving (``init_paged_cache_shapes``, the pools and the
+engine refuse it, as the JAX engine does).
 """
 from __future__ import annotations
 
@@ -75,7 +82,7 @@ class ModelKnobs:
                                # this many positions (0 = at once)
 
 
-ATTN_FAMILIES = ("dense", "moe", "vlm")   # attention layers, paged KV decode
+ATTN_FAMILIES = ("dense", "moe", "vlm", "encoder")   # attention layers
 
 
 def check_family(cfg: ModelConfig):
@@ -84,10 +91,18 @@ def check_family(cfg: ModelConfig):
             or (cfg.family == "hybrid" and cfg.ssm_version == 2)):
         return
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: the port serves the "
-        f"dense, moe and vlm families, the ssm family (mamba1) and the "
-        f"hybrid family (mamba2 + shared attention); the encoder comes "
-        f"with a later slice")
+        f"family {cfg.family!r} is not ported yet: the port runs the "
+        f"dense, moe, vlm and encoder families, the ssm family (mamba1) and "
+        f"the hybrid family (mamba2 + shared attention)")
+
+
+def check_decodes(cfg: ModelConfig):
+    """``check_family``, and refuse the encoder, which has no decode step
+    (the JAX engine's and pool's refusal)."""
+    check_family(cfg)
+    if cfg.family == "encoder":
+        raise NotImplementedError(f"family {cfg.family!r}: encoder-only "
+                                  f"models have no decode step")
 
 
 def _pdt(cfg: ModelConfig):
@@ -347,11 +362,15 @@ def _maybe_remat(fn, knobs: ModelKnobs):
 # ===========================================================================
 
 def _embed(params, cfg: ModelConfig, tokens, frontend=None):
-    """The layers' input in bf16: the token embeddings, or (the vlm's patch
-    frontend, given ``frontend`` (B, P, F)) the patches projected by
-    ``frontend/proj`` in bf16 and put before them, (B, P + T, D).  (The
-    encoder's frame frontend never gets here: ``check_family`` refuses
-    the family.)"""
+    """The layers' input in bf16: the token embeddings; the encoder's
+    frames (B, S, F) projected by ``frontend/proj`` in bf16, no token read;
+    or (the vlm's patch frontend, given ``frontend`` (B, P, F)) the patches
+    projected the same way and put before the tokens, (B, P + T, D)."""
+    if cfg.frontend == "frame":             # audio: the whole sequence
+        if frontend is None:
+            raise ValueError("the frame frontend needs frontend= frames")
+        return (frontend.to(torch.bfloat16)
+                @ params["frontend"]["proj"].to(torch.bfloat16))
     x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
     if cfg.frontend == "patch" and frontend is not None:
         pat = (frontend.to(torch.bfloat16)
@@ -363,21 +382,22 @@ def _embed(params, cfg: ModelConfig, tokens, frontend=None):
 def forward(params, tokens, cfg: ModelConfig,
             knobs: ModelKnobs = ModelKnobs(), mode: str = "prefill",
             cache=None, pos=None, valid_len=None, frontend=None):
-    """tokens: (B, S) int.  Returns (hidden (B, S, D), cache).
+    """tokens: (B, S) int, or None for the encoder, whose B and S come
+    from ``frontend``.  Returns (hidden (B, S, D), cache).
 
-    Dense, moe and vlm: the stacked (L, B, S, K, hd) prefill activations, or
-    the paged pool written in place (``mode="decode"``, ``pos`` (B,) the
-    first write position).  ssm: the stacked prefill state (conv (L, B, Di,
-    K-1), h (L, B, Di, N) f32), or the decode cache written in place
-    (``pos`` is not read).  hybrid: the same with h (L, B, nh, P, N), and
-    the shared block's KV, (n_apps, B, S, K, hd) in prefill or the slab
-    ``shared_k``/``shared_v`` (n_apps, B, max_seq, K, hd) written in place
-    at ``pos`` in decode.
+    Dense, moe, vlm and encoder: the stacked (L, B, S, K, hd) prefill
+    activations, or (not the encoder) the paged pool written in place
+    (``mode="decode"``, ``pos`` (B,) the first write position).  ssm: the
+    stacked prefill state (conv (L, B, Di, K-1), h (L, B, Di, N) f32), or
+    the decode cache written in place (``pos`` is not read).  hybrid: the
+    same with h (L, B, nh, P, N), and the shared block's KV, (n_apps, B,
+    S, K, hd) in prefill or the slab ``shared_k``/``shared_v`` (n_apps, B,
+    max_seq, K, hd) written in place at ``pos`` in decode.
 
-    ``mode="train"`` (dense, moe, vlm): no cache (None), nothing written in
-    place, each layer under ``knobs.remat``; returns (hidden, aux), aux
-    the mean of the layers' router losses (0 for the dense family).  The
-    ssm and hybrid families raise.
+    ``mode="train"`` (dense, moe, vlm, encoder): no cache (None), nothing
+    written in place, each layer under ``knobs.remat``; returns (hidden,
+    aux), aux the mean of the layers' router losses (0 for the dense
+    family).  The ssm and hybrid families raise.
 
     ``valid_len`` (int or (1,) int64 tensor, prefill only): non-pad tokens
     of a right-padded batch.  Attention ignores it (the causal mask and the
@@ -385,12 +405,14 @@ def forward(params, tokens, cfg: ModelConfig,
     token valid_len*, not after the pads.  A tensor stays on the device, so
     a captured prefill serves every valid_len of its bucket.
 
-    ``frontend`` (vlm, prefill and train only): image patches (B, P, F)
-    before the tokens (``_embed``); the hidden states then cover P + S
-    positions."""
+    ``frontend`` (prefill and train only): the vlm's image patches (B, P,
+    F) before the tokens, the hidden states then covering P + S
+    positions, or the encoder's frames (B, S, F) (``_embed``)."""
     check_family(cfg)
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode {mode!r}: prefill | decode | train")
+    if mode == "decode":
+        check_decodes(cfg)
     if frontend is not None and mode == "decode":
         raise ValueError("frontend: a decode step takes tokens only")
     if mode == "train" and cfg.family in ATTN_FAMILIES:
@@ -435,8 +457,8 @@ def forward(params, tokens, cfg: ModelConfig,
 
 def _forward_train(params, tokens, cfg: ModelConfig, knobs: ModelKnobs,
                    frontend=None):
-    """The training forward of the dense, moe and vlm families: no KV
-    kept, nothing written in place; each layer goes through
+    """The training forward of the dense, moe, vlm and encoder families: no
+    KV kept, nothing written in place; each layer goes through
     ``_maybe_remat``.  Returns (hidden, aux): aux the mean of the layers'
     router losses, as JAX's ``auxs.mean()`` (zeros without experts)."""
     x = _embed(params, cfg, tokens, frontend)
@@ -531,10 +553,11 @@ def loss_fn(params, batch, cfg: ModelConfig,
     ``router_aux_weight`` x the mean router aux loss of the moe layers.
     Returns (loss, {"ce", "aux"}) as 0-dim f32 tensors; ``knobs.ce_chunk``
     splits the positions into chunks when it divides S.  With
-    ``batch["frontend"]`` (vlm patches) the loss covers the last S hidden
-    positions, the text's."""
-    hidden, aux = forward(params, batch["tokens"], cfg, knobs, mode="train",
-                          frontend=batch.get("frontend"))
+    ``batch["frontend"]`` vlm patches the loss covers the last S hidden
+    positions, the text's; an encoder batch is ``{"frontend", "labels"}``,
+    frames with a label each, and the loss covers every frame."""
+    hidden, aux = forward(params, batch.get("tokens"), cfg, knobs,
+                          mode="train", frontend=batch.get("frontend"))
     labels = batch["labels"]
     B, S = labels.shape
     if hidden.shape[1] != S:                # vlm: text positions only
@@ -563,9 +586,9 @@ def loss_fn(params, batch, cfg: ModelConfig,
 def init_paged_cache_shapes(cfg: ModelConfig, n_blocks: int,
                             block_size: int) -> dict:
     """Shapes of a paged decode cache: (L, NB, bs, K, hd) for k and v.
-    Attention families only: recurrent state has no sequence axis to
-    page."""
-    check_family(cfg)
+    Attention families with a decode step only: recurrent state has no
+    sequence axis to page, and the encoder does not decode."""
+    check_decodes(cfg)
     if cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"family {cfg.family!r} has no paged KV cache")
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
@@ -604,6 +627,10 @@ def n_shared_apps(cfg: ModelConfig) -> int:
 
 def prefill(params, tokens, cfg: ModelConfig,
             knobs: ModelKnobs = ModelKnobs(), frontend=None):
+    """The last position's logits and the prefill cache, as the JAX
+    package's ``prefill`` (the encoder: ``tokens=None`` and ``frontend``
+    frames; the logits of every frame are ``logits_fn`` of ``forward``'s
+    hidden states)."""
     hidden, cache = forward(params, tokens, cfg, knobs, mode="prefill",
                             frontend=frontend)
     return logits_fn(params, hidden[:, -1:], cfg), cache

@@ -76,8 +76,9 @@ def _grads(params, batch, cfg, mk):
     the end: with the stacked tensor as one leaf, every layer's slice
     would give back a zero-filled gradient of the whole stack, summed L
     times (at full width 30 x 8.6 GB of fills and adds a step).  A leaf
-    the loss does not use (the vlm's ``frontend/proj`` on a text batch)
-    gets a zero gradient, as ``jax.grad`` gives it."""
+    the loss does not use (the vlm's ``frontend/proj`` on a text batch,
+    the encoder's ``embed/tokens`` on frames) gets a zero gradient, as
+    ``jax.grad`` gives it."""
     paths, pl = flatten(params)
     stacked = [p.startswith("layers/") for p in paths]
     with torch.enable_grad():
@@ -115,9 +116,9 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
         adt = ACC_DTYPES[knobs.acc_dtype]
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
                                              device=p.device), params)
-        tot = torch.zeros((), dtype=torch.float32,
-                          device=batch["tokens"].device)
-        mb = batch["tokens"].shape[0] // n
+        labels = batch["labels"]           # every batch kind has labels
+        tot = torch.zeros((), dtype=torch.float32, device=labels.device)
+        mb = labels.shape[0] // n
         for i in range(n):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss, _, g = _grads(params, part, cfg, mk)

@@ -124,7 +124,7 @@ class ServingEngine:
         """``device`` defaults to the CUDA device and raises without one;
         pass ``device="cpu"`` to run the plain versions on the CPU.
         ``params`` must already live on that device."""
-        lm.check_family(cfg)
+        lm.check_decodes(cfg)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg

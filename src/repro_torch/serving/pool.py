@@ -112,7 +112,7 @@ class PagedKVPool(StatePool):
     kind = "paged"
 
     def __init__(self, cfg, setting: dict, max_seq: int, device):
-        lm.check_family(cfg)
+        lm.check_decodes(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.max_seq = max_seq
@@ -920,8 +920,9 @@ class SSMStatePool(StatePool):
 def make_state_pool(cfg, setting: dict, max_seq: int, device):
     """Family dispatch: paged KV for the dense, moe and vlm families,
     recurrent-state slots for the ssm and hybrid families; the encoder
-    raises (a later slice)."""
-    lm.check_family(cfg)
+    raises ``NotImplementedError``: it has no decode step (as in the JAX
+    package)."""
+    lm.check_decodes(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return SSMStatePool(cfg, setting, max_seq, device)
     return PagedKVPool(cfg, setting, max_seq, device)

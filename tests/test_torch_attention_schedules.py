@@ -8,8 +8,10 @@ JAX package's Pallas kernels (interpret mode).
   the splits are merged by log-sum-exp.  The emulation follows the kernel
   split by split and stage by stage.
 - Flash attention walks 64-key tiles for 64-row query tiles, skips a tile
-  whose keys are all past the tile's last query position, and rounds P to
-  bf16 before P.V (scores, row sums and the accumulator stay f32).
+  whose keys are all past the tile's last query position (causal; not
+  causal it computes every tile and masks keys at negative positions), and
+  rounds P to bf16 before P.V (scores, row sums and the accumulator stay
+  f32), at hd 64, 80 (hubert, not causal), 96 and 128.
 - Both at every built head dim, hd 96 (phi-3-vision) included: the paged
   kernel's lane of D = hd / 32 accumulator dims (3 at hd 96, read and
   stored one by one), its q lines (192 bf16 lines at hd 96 for 128
@@ -281,12 +283,17 @@ def test_paged_lanes_and_lines_cover_every_dim(hd, q_bytes, pool_bytes):
 
 def test_head_dims_are_the_kernels_builds():
     """The wrappers' HEAD_DIMS are what the sources dispatch: paged
-    attention at every (hd, block size), the flash forward at every hd."""
+    attention at every (hd, block size), the flash forward and backward at
+    every hd, hubert's 80 among them (paged attention keeps its own: the
+    encoder never decodes)."""
     built = set(re.findall(r"PORT_PAGED_CASE\((\d+), (\d+)\)", PAGED_CU))
     assert built == {(str(h), str(b)) for h in HEAD_DIMS for b in BLOCK_SIZES}
-    assert set(re.findall(r"hd == (\d+)\)", FLASH_CU)) == {
-        str(h) for h in FLASH_HEAD_DIMS}
+    bwd = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    for src in (FLASH_CU, bwd):
+        assert set(re.findall(r"hd == (\d+)\)", src)) == {
+            str(h) for h in FLASH_HEAD_DIMS}
     assert 96 in HEAD_DIMS and 96 in FLASH_HEAD_DIMS
+    assert 80 in FLASH_HEAD_DIMS and 80 not in HEAD_DIMS
 
 
 @pytest.mark.parametrize("S,bs,pos,pool_dt,q_dt", [
@@ -322,8 +329,10 @@ def test_paged_split_kv_at_hd96_matches_plain_and_pallas(S, bs, pos,
 def flash_tiles(q, k, v, qpos, kpos, *, causal=True):
     """The tensor-core flash kernel's schedule in plain torch: 64-row query
     tiles against 64-key tiles, tiles wholly past the query tile's last
-    position skipped (causal), f32 scores and online softmax, P rounded to
-    bf16 for P.V, f32 accumulator; keys past Skv do not exist."""
+    position skipped (causal; not causal, every tile runs and keys at
+    negative positions are masked), f32 scores and online softmax, P
+    rounded to bf16 for P.V, f32 accumulator; keys past Skv do not
+    exist."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
@@ -344,6 +353,8 @@ def flash_tiles(q, k, v, qpos, kpos, *, causal=True):
                     s = qs @ kk[k0:k0 + TILE].T * hd ** -0.5
                     if causal:
                         s = torch.where(kp[None] <= qp[:, None], s, NEG_INF)
+                    else:
+                        s = torch.where(kp[None] >= 0, s, NEG_INF)
                     mx = torch.maximum(m, s.max(1).values)
                     corr = torch.exp(m - mx)
                     p = torch.exp(s - mx[:, None])
@@ -368,6 +379,9 @@ def _bf16(shape):
     (1, 130, 130, 4, 4, 96, True, 0),    # hd 96, MHA (phi-3-vision)
     (2, 70, 200, 2, 1, 96, True, 30),    # hd 96, MQA, shifted suffix
     (1, 64, 100, 2, 2, 96, False, 0),    # hd 96, not causal
+    (1, 130, 130, 4, 4, 80, False, 0),   # hd 80, MHA, not causal (hubert)
+    (2, 100, 250, 2, 1, 80, False, 0),   # hd 80, MQA, not causal, Sq != Skv
+    (2, 150, 150, 2, 2, 80, True, 40),   # hd 80, causal, shifted
 ])
 def test_flash_tiles_match_plain(B, Sq, Skv, H, K, hd, causal, shift):
     """The tiled schedule, with P in bf16, against the port's plain version
@@ -389,7 +403,7 @@ def test_flash_tiles_match_plain(B, Sq, Skv, H, K, hd, causal, shift):
     (128, 192, 96),      # rows 0..95 of the queries see no key at all
 ])
 def test_flash_tiles_match_pallas_at_block_64(Sq, Skv, kv_start, H=4, K=2,
-                                              hd=16):
+                                              hd=16, causal=True):
     """Against the Pallas kernel (interpret mode) at block_q = block_k = 64,
     which skips the same tiles: equal within one bf16 step, all-masked
     rows included — such a row averages V over the keys of the tiles its
@@ -399,13 +413,13 @@ def test_flash_tiles_match_pallas_at_block_64(Sq, Skv, kv_start, H=4, K=2,
         (1, Skv, K, hd))
     qp = torch.arange(Sq) + (Skv - Sq if not kv_start else 0)
     kp = torch.arange(Skv) + kv_start
-    out = flash_tiles(q, k, v, qp[None], kp[None])
+    out = flash_tiles(q, k, v, qp[None], kp[None], causal=causal)
     ker = j_flash(jnp.asarray(f32(q), jnp.bfloat16),
                   jnp.asarray(f32(k), jnp.bfloat16),
                   jnp.asarray(f32(v), jnp.bfloat16),
                   jnp.asarray(qp.numpy(), jnp.int32),
                   jnp.asarray(kp.numpy(), jnp.int32),
-                  block_q=TILE, block_k=TILE, interpret=True)
+                  causal=causal, block_q=TILE, block_k=TILE, interpret=True)
     np.testing.assert_allclose(f32(out), f32(ker), atol=BF16_TOL,
                                rtol=BF16_TOL)
     if kv_start:
@@ -422,6 +436,40 @@ def test_flash_tiles_at_hd96_match_pallas(Sq, Skv, H, K):
     warp): the tiled schedule against the Pallas kernel (interpret mode)
     at block_q = block_k = 64, MHA and MQA, within one bf16 step."""
     test_flash_tiles_match_pallas_at_block_64(Sq, Skv, 0, H, K, hd=96)
+
+
+@pytest.mark.parametrize("Sq,Skv,H,K", [(128, 128, 2, 2), (100, 230, 2, 1)])
+def test_flash_tiles_at_hd80_not_causal_match_pallas(Sq, Skv, H, K):
+    """hubert's head dim, not causal (5 k16 steps, 10 n8 tiles of the
+    output a warp, every tile computed): the tiled schedule against the
+    Pallas kernel (interpret mode) at block_q = block_k = 64, MHA and MQA,
+    within one bf16 step."""
+    test_flash_tiles_match_pallas_at_block_64(Sq, Skv, 0, H, K, hd=80,
+                                              causal=False)
+
+
+@pytest.mark.parametrize("B,S,H,K,start", [(2, 130, 2, 2, -30),
+                                           (1, 100, 4, 1, -70)])
+def test_flash_tiles_mask_negative_keys_when_not_causal(B, S, H, K, start):
+    """Not causal at hd 80, keys at positions ``start`` .. S + start - 1:
+    the keys at negative positions are masked (the whole first tile at
+    -70), so the schedule equals the plain version and the model's CPU
+    attention (``blocked_attention``, the JAX package's chunked attention)
+    within one bf16 step, and a key at a negative position moves
+    nothing."""
+    from repro_torch.models.attention import blocked_attention
+    q, k, v = _bf16((B, S, H, 80)), _bf16((B, S, K, 80)), _bf16(
+        (B, S, K, 80))
+    pos = (torch.arange(S) + start).expand(B, S)
+    out = flash_tiles(q, k, v, pos, pos, causal=False)
+    for ref in (attention_ref(q, k, v, pos, pos, causal=False),
+                blocked_attention(q, k, v, causal=False, q_positions=pos,
+                                  kv_positions=pos, k_chunk=64)):
+        np.testing.assert_allclose(f32(out), f32(ref), atol=BF16_TOL,
+                                   rtol=BF16_TOL)
+    v2 = v.clone()
+    v2[:, :-start] = 100.0
+    assert torch.equal(flash_tiles(q, k, v2, pos, pos, causal=False), out)
 
 
 def test_flash_p_rounding_error_is_inside_the_bf16_output_step():

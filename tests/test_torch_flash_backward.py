@@ -4,7 +4,7 @@ The plain backward (autograd through ``attention_ref``, what
 ``flash_attention_bwd`` runs for CPU tensors) against XLA's autodiff of
 the JAX package's ``chunked_attention`` (whose kv block is
 ``jax.checkpoint``-ed), at group sizes G = 1, 2 and 12, causal and not,
-ragged lengths.
+ragged lengths, hd 80 (hubert, not causal) and 96.
 
 Then the backward kernel's schedule (``csrc/flash_attention_bwd.cu``)
 emulated in plain torch and held to the plain version.  The dq pass
@@ -16,7 +16,8 @@ of G up to kMaxSplit), each CTA summing dK / dV of its 64 keys in f32 over
 its own heads and the query tiles that see its keys, kDkvWidth queries at
 a time (P rounded to bf16 for dV, dS for dK), and the P partials added in
 rank order.  At a head dim that is not whole 64-column TMA boxes (hd 96,
-phi-3-vision) a tile holds hd rounded up to 64 columns, the rest zeros:
+phi-3-vision; hd 80, hubert) a tile holds hd rounded up to 64 columns,
+the rest zeros:
 the schedule runs its products over the padded tiles and stores hd
 columns.  The tile sizes, widths and split are read from the kernel's
 source.  The CUDA kernel runs only on the card
@@ -95,6 +96,8 @@ def _jax_grads(q, k, v, do, qp, kp, causal, k_chunk):
     (1, 64, 24, 2, 16, True, 1024),    # G = 12 at the model's head counts
     (2, 50, 4, 2, 16, False, 32),      # not causal
     (1, 100, 12, 1, 16, False, 64),    # G = 12, not causal, ragged
+    (1, 100, 2, 2, 80, False, 32),     # G = 1 at hubert's hd 80, not causal
+    (2, 70, 4, 4, 80, False, 64),      # hd 80, not causal, ragged
 ])
 def test_plain_backward_matches_xla_autodiff(B, S, H, K, hd, causal,
                                              k_chunk):
@@ -173,6 +176,8 @@ def bwd_schedule(q, k, v, do, qpos, kpos, *, causal=True):
         p = torch.exp(s * scale - ls[:, None])
         if causal:
             p = torch.where(kp[None, :] <= qp[:, None], p, 0.0)
+        else:
+            p = torch.where(kp[None, :] >= 0, p, 0.0)
         dp = dos.float() @ vs.float().T
         return p, p * (dp - dl[:, None])
 
@@ -246,6 +251,9 @@ def bwd_schedule(q, k, v, do, qpos, kpos, *, causal=True):
     (1, 130, 130, 2, 2, 96, True, 0),    # hd 96 (tiles of 128 columns), G = 1
     (2, 70, 70, 4, 2, 96, True, 30),     # hd 96, G = 2: P = 2, shifted
     (1, 50, 130, 6, 1, 96, False, 0),    # hd 96, G = 6: P = 3, not causal
+    (1, 130, 130, 2, 2, 80, False, 0),   # hd 80 (hubert), G = 1, not causal
+    (2, 70, 200, 2, 1, 80, False, 0),    # hd 80, G = 2: P = 2, not causal
+    (1, 77, 77, 4, 4, 80, True, 0),      # hd 80, causal, ragged
 ])
 def test_backward_schedule_matches_plain(B, Sq, Skv, H, K, hd, causal, shift):
     q, k, v, do = _inputs(B, Sq, Skv, H, K, hd, seed=Sq + Skv)
@@ -260,6 +268,21 @@ def test_backward_schedule_matches_plain(B, Sq, Skv, H, K, hd, causal, shift):
         # a key no query sees gets exactly nothing
         unseen = kp[0] > qp.max()
         assert not got[1][:, unseen].any() and not got[2][:, unseen].any()
+
+
+@pytest.mark.parametrize("S,start", [(130, -30), (100, -70)])
+def test_backward_schedule_masks_negative_keys_when_not_causal(S, start):
+    """Not causal at hd 80, keys at positions ``start`` .. S + start - 1:
+    the schedule's gradients equal the plain version's (which masks keys
+    at negative positions, as the model's chunked attention does), and
+    such a key gets exactly no dk and dv."""
+    q, k, v, do = _inputs(1, S, S, 2, 2, 80, seed=S)
+    pos = (torch.arange(S) + start)[None]
+    got = bwd_schedule(q, k, v, do, pos, pos, causal=False)
+    want = attention_bwd_ref(q, k, v, do, pos, pos, causal=False)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(a, b) <= GRAD_RTOL, (name, _rel(a, b))
+    assert not got[1][:, :-start].any() and not got[2][:, :-start].any()
 
 
 def test_schedule_constants_are_the_kernels():
@@ -282,14 +305,17 @@ def test_schedule_constants_are_the_kernels():
 
 def test_padded_tiles_are_the_kernels():
     """The backward builds every head dim the forward does; a tile's
-    columns are hd in whole 64-column boxes (``tile_cols``: 128 at hd 96,
-    two boxes, the second half outside the tensor and zero-filled by TMA,
-    whose map's inner dimension is the true hd); products over hd take
-    hd / 16 k16 steps, and dq, dk, dv are stored at hd columns."""
+    columns are hd in whole 64-column boxes (``tile_cols``: 128 at hd 80
+    and 96, two boxes, the second partly outside the tensor and
+    zero-filled by TMA, whose map's inner dimension is the true hd);
+    products over hd take hd / 16 k16 steps (at hd 80 the fifth starts at
+    the second box's base), and dq, dk, dv are stored at hd columns."""
     assert set(re.findall(r"hd == (\d+)\)", CU)) == {
         str(h) for h in FLASH_HEAD_DIMS}
     assert "return (hd + 63) / 64 * 64;" in CU
-    assert [tile_cols(h) for h in FLASH_HEAD_DIMS] == [64, 128, 128]
+    assert [tile_cols(h) for h in FLASH_HEAD_DIMS] == [64, 128, 128, 128]
+    # kmajor: k16 step kk of a row starts (kk / 4) boxes in
+    assert "tile + (kk / 4) * kBox + row0 * 128 + (kk % 4) * 32" in CU
     assert "const cuuint32_t box[4] = {64, 1, 64, 1};" in CU
     assert "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE" in CU       # zero fill
     assert CU.count("kk < HD / 16; ++kk") == 4            # S, dP twice

@@ -270,12 +270,18 @@ def test_paged_decode_step_matches_jax(arch, S, dtype):
 
 
 def test_vlm_and_encoder_still_raise():
-    """Of the two families the moe slice left, the encoder still raises;
-    vlm is ported since (``test_torch_vlm.py``) and builds its patch
-    projection."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tlm.init_params(get_config("hubert-xlarge").reduced(), 0,
-                        device="cpu")
+    """Of the two families the moe slice left, both are ported since
+    (``test_torch_vlm.py``, ``test_torch_encoder.py``); what still raises
+    is the encoder's serving, which has no decode step: the engine
+    refuses hubert as the JAX engine does.  hubert builds its frame
+    projection, vlm its patch projection."""
+    hubert = get_config("hubert-xlarge").reduced()
+    params = tlm.init_params(hubert, 0, device="cpu")
+    assert params["frontend"]["proj"].shape == (hubert.frontend_dim,
+                                                hubert.d_model)
+    with pytest.raises(NotImplementedError,
+                       match="encoder-only models have no decode step"):
+        ServingEngine(params, hubert, max_seq=32, device="cpu")
     vlm = get_config("phi-3-vision-4.2b").reduced()
     assert tlm.init_params(vlm, 0, device="cpu")["frontend"]["proj"].shape \
         == (vlm.frontend_dim, vlm.d_model)

@@ -19,7 +19,8 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import reconfig
 from repro_torch.core.tuner import TunerConfig, TuningManager
-from repro_torch.data.synthetic import synthetic_batch
+from repro_torch.data.synthetic import (image_dataset, regression_dataset,
+                                        synthetic_batch)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
@@ -81,7 +82,8 @@ CFG = get_config("starcoder2-3b").reduced()
 
 @pytest.mark.parametrize("entry", ["init_params", "engine", "launcher",
                                    "train_launcher", "lm_job",
-                                   "synthetic_batch"])
+                                   "synthetic_batch", "regression_dataset",
+                                   "image_dataset"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, entry):
     params = lm.init_params(CFG, 0, device="cpu")
     assert params["embed"]["tokens"].device.type == "cpu"
@@ -96,6 +98,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, entry):
         "lm_job": lambda: LMJob(CFG),
         "synthetic_batch": lambda: synthetic_batch(
             CFG, ShapeConfig("c", 16, 2, "train")),
+        "regression_dataset": lambda: regression_dataset(n=8, d=4),
+        "image_dataset": lambda: image_dataset(n=8, hw=4),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
@@ -133,11 +137,15 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
                                   "remesh_restore"])
 def test_later_slices_raise_not_implemented(case, tmp_path):
     ssm = get_config("falcon-mamba-7b").reduced()
+    hybrid = get_config("zamba2-1.2b").reduced()
     mesh_plan = reconfig.plan(dict(DEFAULT_LM_SETTING, mesh_split="2x1"),
                               dict(DEFAULT_LM_SETTING, mesh_split="1x2"))
     call = {
-        "family": lambda: lm.init_params(
-            get_config("hubert-xlarge").reduced(), 0, device="cpu"),
+        # every family runs now; the hybrid family's training is left
+        "family": lambda: lm.loss_fn(
+            lm.init_params(hybrid, 0, device="cpu"),
+            {"tokens": torch.zeros((1, 4), dtype=torch.int64),
+             "labels": torch.zeros((1, 4), dtype=torch.int64)}, hybrid),
         "ssm_train": lambda: lm.loss_fn(
             lm.init_params(ssm, 0, device="cpu"),
             {"tokens": torch.zeros((1, 4), dtype=torch.int64),
