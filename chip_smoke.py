@@ -63,6 +63,18 @@ Phases, in order; any failure exits non-zero before the result line:
              columns), bit for bit across two calls; timed at the training
              shape with lse, at the encode without, and the backward by
              launch, beside SDPA (is_causal=False) and its backward.
+             The ssm and hybrid training shapes (4 x 512 tokens):
+             the scan's forward with interval checkpoints (h_chk) and
+             its backward (two launches, no atomics) at falcon-mamba's
+             (D 8192, N 16, bf16 x and dt, Bm/Cm bf16 views) and
+             zamba2's (D 4096, N 64, f32), a ragged S and S <= 8: y and
+             h_last bit for bit with and without h_chk, h_chk against
+             the plain states, every gradient against autograd through
+             the plain recurrence in f64 within twice the f32 plain
+             version's own gap, bit for bit across two calls; both timed
+             beside their bounds and plain versions (no library call);
+             the flash forward and backward at zamba2's shared block in
+             training, (4, 512, 32/32, 64) causal, G = 1, beside SDPA.
 4. parity  — full-width starcoder2-3b decode step: paged kernel against
              the plain dense gather path on one f32 pool, one layer deep
              and all 30 layers (against a measured rounding-noise floor).
@@ -225,9 +237,29 @@ Phases, in order; any failure exits non-zero before the result line:
              Adam pass alone, peak memory, flash launches a step), one
              step with remat="full" (the flash forward twice a layer).
 
+14. ssm train — the encoder is freed; the ssm and hybrid families trained
+             through ``ps.stepfn`` at full width, 4 x 512 tokens, Adam.
+             zamba2-1.2b (38 layers, 1.170 B params): loss and gradients
+             of the kernel path (the scan's forward with h_chk and its
+             backward, flash forward and backward) against the plain path
+             at 1 layer within a measured noise floor; 8 fixed steps at
+             full depth on one repeated batch in which the loss falls (38
+             scan forwards, 38 backwards, 7 flash forwards and 7
+             backwards a step; step time, tokens/s, busy share, device ms
+             by kind, the Adam pass alone, peak memory); remat none /
+             dots / full at 2 layers with the same gradients (the scan's
+             forward twice a layer under dots and full); a checkpoint
+             resume at 2 layers, bit for bit.  falcon-mamba-7b (64 mamba1
+             layers, 7.27 B params at full depth): parity at 1 layer; its
+             depth cut to the deepest that leaves 8 GB of the card free
+             (predicted from the allocator's reserved peaks at 4 and 8
+             layers; the phase fails if a step at that depth runs out of
+             memory), and 8 fixed steps there.
+
 Prints one JSON ``kernels`` line (launches: the serve arms', the training
-runs', the hybrid, moe, vlm and encoder paths'), the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.
+runs', the hybrid, moe, vlm, encoder and ssm training paths'), the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -2086,6 +2118,7 @@ def _profile_steps(torch, step, state, batches, steps=3):
 TRAIN_KERNEL_GROUPS = (
     ("gemm", r"nvjet|gemm|cutlass|sm90_xmma|ampere|Kernel2"),
     ("flash", r"flash_bwd|flash_attention"),
+    ("scan", r"scan_bwd|scan_chunked|scan_direct"),
     ("copy", r"direct_copy|Memcpy|Memset|CatArrayBatched"),
     ("fill", r"FillFunctor|fill_kernel"),
     ("reduce", r"reduce_kernel|softmax|logsumexp|Reduce"),
@@ -2190,12 +2223,13 @@ def fixed_run(torch, job_cls, setting):
     return peak, state_gb, launches
 
 
-def checkpoint_resume(torch, job_cls, setting, depth):
+def checkpoint_resume(torch, job_cls, setting, depth, cfg=None, label=""):
     """Save at step 10, restore into a fresh state (another seed), run step
     11: its loss against the uninterrupted run's, bit for bit (the gap is
-    printed if cuBLAS or an atomic breaks that)."""
+    printed if cuBLAS or an atomic breaks that).  ``cfg``: starcoder2-3b
+    at ``depth`` layers unless given."""
     from repro_torch.checkpoint import CheckpointManager, restore_pytree
-    cfg = _train_cfg(depth)
+    cfg = cfg or _train_cfg(depth)
     d = ROOT / "build" / "ckpt_smoke"
     shutil.rmtree(d, ignore_errors=True)
     job = job_cls(cfg, batch=TRAIN_B, seq=TRAIN_S)
@@ -2225,7 +2259,8 @@ def checkpoint_resume(torch, job_cls, setting, depth):
     size = sum(f.stat().st_size for f in d.rglob("*")) / 1e9
     shutil.rmtree(d, ignore_errors=True)
     same = resumed == loss
-    print(f"train[checkpoint]: {cfg.n_layers} layers at full width, "
+    print(f"train[checkpoint{' ' + label if label else ''}]: "
+          f"{cfg.n_layers} layers at full width, "
           f"{size:.2f} GB on disk (save {t_save:.1f}s, restore "
           f"{t_restore:.1f}s, from step {meta['step']}): step 11 loss "
           f"{resumed!r} resumed vs {loss!r} uninterrupted: "
@@ -4583,6 +4618,589 @@ def encoder_path(torch, card):
     return launches
 
 
+# --------------------------------- phase 3 (ssm and hybrid training shapes)
+SSM_FALCON = ("falcon", 8192, 16)  # d_inner and N of falcon-mamba-7b
+SSM_ZAMBA = ("zamba2", HY_D, HY_N)  # of zamba2-1.2b (64 heads of 64)
+SSM_R = 256                         # falcon-mamba's dt_rank: x_proj's head
+SSM_SCAN_CASES = (                  # (form, B, S, L): the training shapes,
+    ("falcon", 4, 512, 64), ("zamba2", 4, 512, 64),   # a ragged S, S <= 8
+    ("falcon", 2, 333, 32), ("zamba2", 4, 5, 64), ("falcon", 4, 7, 192))
+
+
+def scan_train_inputs(torch, g, form, B, S, dev="cuda"):
+    """The scan's inputs as the model hands them over in training:
+    falcon-mamba's x and dt bf16, Bm and Cm bf16 views of an x_proj output
+    of R + 2N columns, A = -(1..16); zamba2's all f32, Bm and Cm f32 views
+    of a 2N-column projection, dt and A a head's value repeated over its
+    64 channels."""
+    _, D, N = SSM_FALCON if form == "falcon" else SSM_ZAMBA
+    f32 = torch.float32
+    io = torch.bfloat16 if form == "falcon" else f32
+    x = torch.randn((B, S, D), generator=g, device=dev).to(io)
+    if form == "falcon":
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, D), generator=g, device=dev) - 1.0).to(io)
+        A = -torch.arange(1, N + 1, dtype=f32, device=dev).expand(D, N)
+        R = SSM_R
+    else:
+        dt = torch.nn.functional.softplus(torch.randn(
+            (B, S, HY_NH), generator=g, device=dev) - 1.0)
+        dt = dt[..., None].expand(B, S, HY_NH, HY_P).reshape(B, S, D)
+        a = -torch.exp(torch.rand((HY_NH,), generator=g, device=dev))
+        A = a[:, None, None].expand(HY_NH, HY_P, N).reshape(D, N)
+        R = 0
+    proj = torch.randn((B, S, R + 2 * N), generator=g, device=dev).to(io)
+    _, Bm, Cm = proj.split([R, N, N], dim=-1)
+    return x, dt.contiguous(), Bm, Cm, A.contiguous()
+
+
+def scan_grads(torch, ins, gy, dtype):
+    """Gradients of <y, gy> with respect to x, dt, Bm, Cm and A by autograd
+    through the plain recurrence in ``dtype``: f64 (the reference, kept in
+    f64) or f32 (``selective_scan_ref``'s arithmetic; each cast to its
+    input's dtype as the kernel returns it, gB and gC to Bm's)."""
+    leaves = [t.detach().to(dtype).requires_grad_() for t in ins]
+    x, dt, Bm, Cm, A = leaves
+    with torch.enable_grad():
+        h = torch.zeros((x.shape[0], x.shape[2], A.shape[1]), dtype=dtype,
+                        device=x.device)
+        ys = []
+        for t in range(x.shape[1]):
+            h = (torch.exp(dt[:, t, :, None] * A) * h
+                 + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :])
+            ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
+        g = torch.autograd.grad(torch.stack(ys, dim=1), leaves, gy.to(dtype))
+    if dtype == torch.float64:
+        return list(g)
+    return [a.to(t.dtype) for a, t in zip(g, ins[:3] + (ins[2], ins[4]))]
+
+
+def scan_bwd_bound(x, dt, Bm, A, h_chk, clock):
+    """The backward's least time: each input read once (x, dt, the N
+    columns of Bm and Cm a row, A, h_chk, gy f32), each output written once
+    (gx, gdt, gB, gC, gA); operations: the B S D N exponentials a_t it
+    needs (16 per SM per clock), beside its f32 FMAs (about 12 a
+    state-step)."""
+    B, S, D = x.shape
+    N = A.shape[1]
+    io = x.element_size() + dt.element_size()
+    nbytes = (2 * B * S * D * io + 4 * B * S * N * Bm.element_size()
+              + 2 * D * N * 4 + h_chk.numel() * 4 + B * S * D * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_exp = B * S * D * N / (SFU_PER_SM_CLOCK * N_SMS * clock * 1e9) * 1e3
+    t_fma = 12 * B * S * D * N / F32_FLOPS * 1e3
+    b = ((t_bytes, "bytes") if t_bytes >= max(t_exp, t_fma)
+         else (max(t_exp, t_fma), "operations"))
+    return b, t_bytes, t_exp, t_fma
+
+
+def check_ssm_train_kernels(torch, rows):
+    """The selective scan's training pair at falcon-mamba's and zamba2's
+    training shapes (4 x 512 tokens; D 8192, N 16, bf16 x and dt, Bm and Cm
+    bf16 views of an x_proj output; D 4096, N 64, all f32), a ragged S, S
+    <= 8 and other intervals: the forward with ``h_chk`` leaves y and
+    h_last bit for bit as without it, and h_chk within SCAN_TOL of the
+    plain states; the backward (two launches) against autograd through the
+    plain recurrence in f64, each gradient within twice the f32 plain
+    version's own gap to it, bit for bit across two calls.  Then both
+    timed beside their bounds and plain versions (no library call computes
+    either).  Adds the ``selective_scan_bwd`` row to ``rows``."""
+    from repro_torch.kernels.mamba_scan import selective_scan, selective_scan_bwd
+    from repro_torch.kernels.mamba_scan.ref import (scan_checkpoints_ref,
+                                                    selective_scan_bwd_ref)
+    g = torch.Generator(device="cuda").manual_seed(26)
+    names = ("gx", "gdt", "gB", "gC", "gA")
+    ferr, berr, ratio = 0.0, 0.0, 0.0
+    for form, B, S, L in SSM_SCAN_CASES:
+        x, dt, Bm, Cm, A = ins = scan_train_inputs(torch, g, form, B, S)
+        D, N = A.shape
+        what = f"selective_scan_bwd[{form} B={B} S={S} D={D} N={N} L={L}]"
+        y0, hl0 = selective_scan(x, dt, Bm, Cm, A)
+        h_chk = torch.empty((B, -(-S // L), D, N), device="cuda")
+        y1, hl1 = selective_scan(x, dt, Bm, Cm, A, h_chk=h_chk, chunk=L)
+        if not (torch.equal(y0, y1) and torch.equal(hl0, hl1)):
+            fail(f"{what}: the forward's y or h_last moved with h_chk")
+        want_chk = scan_checkpoints_ref(x, dt, Bm, Cm, A, None, L)[2]
+        ferr = max(ferr, check_close(torch, f"{what} h_chk", h_chk,
+                                     want_chk, SCAN_TOL))
+        gy = torch.randn((B, S, D), generator=g, device="cuda")
+        got = selective_scan_bwd(x, dt, Bm, Cm, A, h_chk, gy, chunk=L)[:5]
+        again = selective_scan_bwd(x, dt, Bm, Cm, A, h_chk, gy, chunk=L)[:5]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{what}: two calls differ (the kernel must be "
+                 f"deterministic)")
+        want = scan_grads(torch, ins, gy, torch.float64)
+        plain = scan_grads(torch, ins, gy, torch.float32)
+        parts = []
+        for name, k, w, p in zip(names, got, want, plain):
+            scale = w.abs().max().clamp_min(1e-30)
+            err = float((k.double() - w).abs().max() / scale)
+            floor = float((p.double() - w).abs().max() / scale)
+            if not torch.isfinite(k.float()).all() or err > 2 * floor:
+                fail(f"{what} {name}: max err {err:.3g} of the largest "
+                     f"|value| against f64, the f32 plain version's "
+                     f"{floor:.3g} (bound 2 x that)")
+            berr = max(berr, float((k.double() - w).abs().max()))
+            ratio = max(ratio, err / max(floor, 1e-300))
+            parts.append(f"{name} {err:.3g} (plain f32 {floor:.3g})")
+        print(f"kernel {what}: against f64 autograd, of each gradient's "
+              f"largest |value|: " + ", ".join(parts) + "; bit for bit "
+              f"across two calls; the forward's y and h_last unchanged by "
+              f"h_chk", flush=True)
+        del ins, x, dt, Bm, Cm, A, h_chk, gy, got, again, want, plain
+    print(f"scan training: h_chk max abs err {ferr:.3g} (bound {SCAN_TOL}); "
+          f"backward max abs err {berr:.3g}, at most {ratio:.3f} x the f32 "
+          f"plain version's gap to f64 (bound 2)", flush=True)
+
+    clock = sm_clock_ghz()
+    for form in ("falcon", "zamba2"):
+        B, S, L = TRAIN_B, TRAIN_S, 64
+        x, dt, Bm, Cm, A = scan_train_inputs(torch, g, form, B, S)
+        D, N = A.shape
+        h_chk = torch.empty((B, S // L, D, N), device="cuda")
+        gy = torch.randn((B, S, D), generator=g, device="cuda")
+        serve = timed_ms(torch, lambda: selective_scan(x, dt, Bm, Cm, A))
+        fwd = timed_ms(torch, lambda: selective_scan(
+            x, dt, Bm, Cm, A, h_chk=h_chk, chunk=L))
+        fwd_plain = timed_ms(torch, lambda: scan_checkpoints_ref(
+            x, dt, Bm, Cm, A, None, L), iters=3)
+        bwd = timed_ms(torch, lambda: selective_scan_bwd(
+            x, dt, Bm, Cm, A, h_chk, gy, chunk=L))
+        bwd_plain = timed_ms(torch, lambda: selective_scan_bwd_ref(
+            x, dt, Bm, Cm, A, h_chk, gy, L), iters=3)
+        per = launch_ms(torch, lambda: selective_scan_bwd(
+            x, dt, Bm, Cm, A, h_chk, gy, chunk=L), r"scan_bwd_reduce|scan_bwd")
+        n = B * S * D
+        fb_bytes = (n * (x.element_size() + dt.element_size())
+                    + 2 * B * S * N * Bm.element_size() + D * N * 4 + n * 4
+                    + B * D * N * 4 + h_chk.numel() * 4)
+        t_exp = n * N / (SFU_PER_SM_CLOCK * N_SMS * clock * 1e9) * 1e3
+        t_fb = fb_bytes / HBM_BYTES_PER_S * 1e3
+        fb = (t_fb, "bytes") if t_fb >= t_exp else (t_exp, "operations")
+        bb, tb, te, tf = scan_bwd_bound(x, dt, Bm, A, h_chk, clock)
+        geo = (f"{form} training B={B} S={S} D={D} N={N} L={L}, "
+               f"{'x/dt bf16, Bm/Cm bf16 views' if form == 'falcon' else 'f32'}")
+        print(f"kernel selective_scan[{geo}, with h_chk]: kernel_ms={fwd:.4f}"
+              f" (without h_chk {serve:.4f}) plain_ms={fwd_plain:.4f} "
+              f"bound_ms={fb[0]:.4f} ({fb[1]}; bytes {t_fb:.4f}, exponentials "
+              f"{t_exp:.4f}) library_ms=none", flush=True)
+        print(f"kernel selective_scan_bwd[{geo}]: kernel_ms={bwd:.4f}"
+              + "".join(f" {k}_ms={t:.4f}" for k, t in sorted(per.items()))
+              + f" plain_ms={bwd_plain:.4f} bound_ms={bb[0]:.4f} ({bb[1]}; "
+              f"bytes {tb:.4f}, exponentials {te:.4f} at {clock:.3f} GHz x "
+              f"{N_SMS} SMs x {SFU_PER_SM_CLOCK}/clock, f32 FMAs {tf:.4f}) "
+              f"library_ms=none; forward + backward {fwd + bwd:.4f}",
+              flush=True)
+        if form == "falcon":
+            rows["selective_scan_bwd"] = dict(
+                route="cuda",
+                source="src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+                replaces="src/repro/models/mamba.py:93",
+                max_abs_err=berr, ms=bwd, plain_ms=bwd_plain,
+                library_ms=None, bound=bb)
+        del x, dt, Bm, Cm, A, h_chk, gy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_hybrid_train_flash(torch, rows):
+    """Both flash kernels at zamba2's shared block in training: (4, 512,
+    32 q = 32 kv heads, hd 64), causal, G = 1, with the log-sum-exp,
+    against their plain versions (the backward bit for bit across two
+    calls), then timed beside SDPA and their bounds."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(27)
+    B, S, H_, hd = TRAIN_B, TRAIN_S, HY_H, HY_HD
+    q, k, v, do = (torch.randn((B, S, H_, hd), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    out, lse = flash_attention(q, k, v, pos, pos, return_lse=True)
+    ferr = check_close(torch, "flash_attention hybrid training", out,
+                       attention_ref(q, k, v, pos, pos), BF16_TOL)
+    ref = attention_lse_ref(q, k, pos, pos)
+    if float((lse - ref).abs().max()) > LSE_TOL * max(
+            1.0, float(ref.abs().max())):
+        fail("flash lse at the hybrid training shape")
+    got = flash_attention_bwd(q, k, v, out, do, lse, pos, pos)
+    again = flash_attention_bwd(q, k, v, out, do, lse, pos, pos)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("flash_attention_bwd at the hybrid training shape: two calls "
+             "differ")
+    berr = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, attention_bwd_ref(
+            q, k, v, do, pos, pos)):
+        e = float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max())
+        if not torch.isfinite(a.float()).all() or e > BWD_RTOL:
+            fail(f"flash_attention_bwd hybrid training {name}: max err {e} "
+                 f"of the largest |value| (bound {BWD_RTOL})")
+        berr = max(berr, float((a.float() - b.float()).abs().max()))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    fwd = timed_ms(torch, lambda: flash_attention(q, k, v, pos, pos,
+                                                  return_lse=True))
+    fwd_plain = timed_ms(torch, lambda: attention_ref(q, k, v, pos, pos))
+    with torch.enable_grad():
+        fwd_lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+    bwd = timed_ms(torch, lambda: flash_attention_bwd(q, k, v, out, do, lse,
+                                                      pos, pos))
+    bwd_plain = timed_ms(torch, lambda: attention_bwd_ref(q, k, v, do, pos,
+                                                          pos))
+    lib_out = sdpa(qt, kt, vt, is_causal=True)
+    bwd_lib = timed_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    pairs = B * H_ * S * (S + 1) / 2
+    fb = bound(4 * q.numel() * 2 + B * H_ * S * 4, 4 * hd * pairs,
+               BF16_FLOPS)
+    bb = bound(8 * q.numel() * 2 + B * H_ * S * 4, 10 * hd * pairs,
+               BF16_FLOPS)
+    geo = f"hybrid training B={B} S={S} H=K={H_} hd={hd} G=1 causal"
+    print(f"kernel flash_attention[{geo}, with lse]: max_abs_err {ferr:.3g} "
+          f"kernel_ms={fwd:.4f} plain_ms={fwd_plain:.4f} library_ms="
+          f"{fwd_lib:.4f} (SDPA) bound_ms={fb[0]:.4f} ({fb[1]})", flush=True)
+    print(f"kernel flash_attention_bwd[{geo}]: max_abs_err {berr:.3g} "
+          f"(within {BWD_RTOL} of the largest |gradient|, bit for bit across "
+          f"two calls) kernel_ms={bwd:.4f} plain_ms={bwd_plain:.4f} "
+          f"library_ms={bwd_lib:.4f} (SDPA backward) bound_ms={bb[0]:.4f} "
+          f"({bb[1]})", flush=True)
+
+
+# ------------------------------------------------------------ phase 14
+SSM_TRAIN_STEPS = 8                # fixed steps on one repeated batch
+FALCON_FREE_GB = 8.0               # falcon-mamba's cut: the deepest model
+                                   # whose step leaves this much free
+
+
+@contextlib.contextmanager
+def plain_scan(torch, eps=0.0):
+    """The training scan of ``models/mamba.py`` (``SelectiveScan``)
+    replaced by the plain scan in f32 (autograd through its step loop), dt
+    scaled by (1 + eps): with ``plain_attention``, the parity run's plain
+    path and its rounding-noise floor."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.mamba_scan import selective_scan_ref
+    from repro_torch.models import mamba
+
+    def scan(x, dt, Bm, Cm, A):
+        return selective_scan_ref(x, dt.float() * (1 + eps), Bm, Cm, A)[0]
+
+    real = mamba.SelectiveScan
+    mamba.SelectiveScan = SimpleNamespace(apply=scan)
+    try:
+        yield
+    finally:
+        mamba.SelectiveScan = real
+
+
+def _scan_launches(cfg, d, steps=1, remat="none"):
+    """(scan forwards, scan backwards, flash forwards, flash backwards)
+    ``steps`` steps of ``cfg`` must launch."""
+    from repro_torch.models import lm
+    L = cfg.n_layers
+    apps = lm.n_shared_apps(cfg) if cfg.family == "hybrid" else 0
+    k = 1 if remat == "none" else 2
+    want = (k * L * steps, L * steps, k * apps * steps, apps * steps)
+    got = tuple(d.get(n, 0) for n in ("selective_scan", "selective_scan_bwd",
+                                      "flash_attention",
+                                      "flash_attention_bwd"))
+    return got, want
+
+
+def ssm_train_parity(torch, cfg, label):
+    """One step's loss and gradients of ``cfg`` at 1 layer, full width, 4 x
+    512 tokens: the kernel path (the scan's forward with h_chk and its
+    backward; the hybrid's flash kernels) against the plain path (the
+    plain scan in f32, plain attention), within TRAIN_GRAD_TOL /
+    TRAIN_LOSS_TOL plus 1.5 x the rounding-noise floor measured in the run
+    (the plain path with dt and the scores scaled by 1 + 2^-20)."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.models.lm import ModelKnobs
+    from repro_torch.ps.stepfn import _grads
+    c = dataclasses.replace(cfg, n_layers=1)
+    params = lm.init_params(c, seed=0, device="cuda")
+    batch = next(lm_batch_iterator(c, TRAIN_B, TRAIN_S, seed=0))
+
+    def run():
+        loss, _, g = _grads(params, batch, c, ModelKnobs())
+        return float(loss), list(_leaves(g))
+
+    before = dict(LAUNCHES)
+    k_loss, k_g = run()
+    got, want = _scan_launches(c, {n: LAUNCHES[n] - before[n]
+                                   for n in LAUNCHES})
+    if got != want:
+        fail(f"{label} train parity: launches (scan fwd, bwd, flash fwd, "
+             f"bwd) {got}, want {want}")
+    with plain_scan(torch), plain_attention(torch):
+        p_loss, p_g = run()
+    with plain_scan(torch, 2.0 ** -20), plain_attention(torch, 2.0 ** -20):
+        n_loss, n_g = run()
+
+    def worst(a, b):
+        return max(float((x.float() - y.float()).abs().max()
+                         / y.float().abs().max().clamp_min(1e-30))
+                   for x, y in zip(a, b))
+
+    err, noise = worst(k_g, p_g), worst(n_g, p_g)
+    tol = TRAIN_GRAD_TOL + 1.5 * noise
+    lerr, lnoise = abs(k_loss - p_loss), abs(n_loss - p_loss)
+    ltol = TRAIN_LOSS_TOL + 1.5 * lnoise
+    print(f"parity[train {label} 1 layer, {TRAIN_B} x {TRAIN_S} tokens]: "
+          f"loss kernel {k_loss:.6f} plain {p_loss:.6f} (|diff| {lerr:.3g}, "
+          f"floor {lnoise:.3g}, bound {ltol:.3g}); gradients: worst leaf max "
+          f"err {err:.4g} of its largest |value| against a rounding-noise "
+          f"floor of {noise:.4g} (bound {tol:.4g}); launches {got}",
+          flush=True)
+    if not (err <= tol and lerr <= ltol) or any(
+            not torch.isfinite(x.float()).all() for x in k_g):
+        fail(f"{label} train parity at 1 layer")
+    del params, batch, k_g, p_g, n_g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _default_training(torch, cfg):
+    """(state, step, batch) of DEFAULT_LM_SETTING on ``cfg``: random
+    parameters and their Adam state on the card, and one 4 x 512 batch."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+    from repro_torch.ps.lm_job import DEFAULT_LM_SETTING, setting_to_stepknobs
+    from repro_torch.ps.stepfn import build_train_step
+    tc = TrainConfig()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    state = {"params": params, "opt": make_optimizer(tc)[0](params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    step = build_train_step(cfg, tc, setting_to_stepknobs(DEFAULT_LM_SETTING))
+    return state, step, next(lm_batch_iterator(cfg, TRAIN_B, TRAIN_S, seed=0))
+
+
+def ssm_fixed_run(torch, card, cfg, label):
+    """``build_train_step`` at DEFAULT_LM_SETTING on ``cfg``, Adam, 4 x 512
+    tokens, SSM_TRAIN_STEPS steps on one repeated batch: the loss falls,
+    every layer launches each scan kernel once a step and every application
+    of the shared block each flash kernel once; step time, tokens/s, busy
+    share and device ms by kind under the profiler, the Adam pass alone,
+    state and peak memory.  Returns (launches, peak GB)."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.ps.lm_job import DEFAULT_LM_SETTING
+    torch.cuda.reset_peak_memory_stats()
+    state, step, batch = _default_training(torch, cfg)
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    losses, walls, evs = [], [], []
+    reset_launches()
+    for _ in range(SSM_TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        evs.append(a.elapsed_time(b))
+    launches = dict(LAUNCHES)
+    got, want = _scan_launches(cfg, launches, SSM_TRAIN_STEPS)
+    if got != want:
+        fail(f"{label} fixed run: launches (scan fwd, bwd, flash fwd, bwd) "
+             f"{got} in {SSM_TRAIN_STEPS} steps, want {want}")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not np.isfinite(losses).all() or not last < first:
+        fail(f"{label} fixed run: the loss did not fall ({first} -> {last})")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state, pwall, busy, _, groups = _profile_steps(
+        torch, step, state, itertools.repeat(batch), steps=2)
+    opt_ms = time_optimizer(torch, SimpleNamespace(tc=TrainConfig()), state,
+                            reps=2)
+    wall, ev = float(np.median(walls[2:])), float(np.median(evs[2:]))
+    n = SSM_TRAIN_STEPS
+    print(f"train[{label} fixed]: {cfg.name} at full width, {cfg.n_layers} "
+          f"layers ({n_params / 1e9:.3f} B params), {TRAIN_B} x {TRAIN_S} "
+          f"tokens, {n} steps of {DEFAULT_LM_SETTING} on one repeated batch: "
+          f"loss {' '.join(f'{x:.4f}' for x in losses)} (mean of the first 3 "
+          f"{first:.4f}, of the last 3 {last:.4f}); launches a step: scan "
+          f"forward {got[0] // n}, backward {got[1] // n}, flash forward "
+          f"{got[2] // n}, backward {got[3] // n}", flush=True)
+    print(f"train[{label} fixed]: step {wall:.2f} ms wall, {ev:.2f} ms "
+          f"between CUDA events (medians of steps 3-{n}), "
+          f"{TRAIN_B * TRAIN_S / wall * 1e3:.0f} tokens/s; under "
+          f"torch.profiler {pwall:.2f} ms wall, busy share {busy / pwall:.3f};"
+          f" by kind: " + ", ".join(
+              f"{g_} {ms:.2f} ms ({k} kernels)" for g_, (ms, k) in
+              sorted(groups.items(), key=lambda kv: -kv[1][0]))
+          + f"; the Adam pass alone {opt_ms:.2f} ms; state {state_gb:.2f} "
+          f"GB, peak {peak:.2f} GB allocated of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} on "
+          f"{card}", flush=True)
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, peak
+
+
+def ssm_remat(torch, cfg, label, depth=2):
+    """One step's gradients at ``depth`` layers under remat none, dots and
+    full: the same loss and gradients (bit for bit, or the gap printed and
+    held within f32 rounding), the scan's forward launched twice a layer
+    under dots and full."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.models.lm import ModelKnobs
+    from repro_torch.ps.stepfn import _grads
+    c = dataclasses.replace(cfg, n_layers=depth)
+    params = lm.init_params(c, seed=1, device="cuda")
+    batch = next(lm_batch_iterator(c, TRAIN_B, TRAIN_S, seed=1))
+    base, out, launches = None, [], {}
+    for remat in ("none", "dots", "full"):
+        reset_launches()
+        loss, _, g = _grads(params, batch, c, ModelKnobs(remat=remat))
+        d = dict(LAUNCHES)
+        got, want = _scan_launches(c, d, remat=remat)
+        if got != want:
+            fail(f"{label} remat={remat}: launches {got}, want {want}")
+        for k_, v_ in d.items():
+            launches[k_] = launches.get(k_, 0) + v_
+        leaves = [loss] + list(_leaves(g))
+        if base is None:
+            base = leaves
+            out.append(f"none: scan forward {got[0]}, backward {got[1]}")
+            continue
+        gap = max(float((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp_min(1e-30))
+                  for a, b in zip(leaves, base))
+        same = all(torch.equal(a, b) for a, b in zip(leaves, base))
+        out.append(f"{remat}: scan forward {got[0]}, backward {got[1]}, "
+                   + ("bit for bit" if same else f"GAP {gap:.3g}"))
+        if gap > 1e-5:
+            fail(f"{label} remat={remat}: gradients differ by {gap}")
+        del g, leaves
+    print(f"train[{label} remat, {depth} layers]: loss {float(base[0]):.6f}; "
+          + "; ".join(out), flush=True)
+    del params, batch, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def falcon_depth(torch, cfg):
+    """falcon-mamba-7b's cut: the peak memory the caching allocator holds
+    (reserved, fragmentation included) over two default steps at 4 and 8
+    layers, a line through them, and the deepest model (of 64 layers)
+    whose predicted peak leaves FALCON_FREE_GB of the card free."""
+    import dataclasses
+    peaks = {}
+    for depth in (4, 8):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step, batch = _default_training(
+            torch, dataclasses.replace(cfg, n_layers=depth))
+        for _ in range(2):
+            state, m = step(state, batch)
+            float(m["loss"])
+        peaks[depth] = torch.cuda.max_memory_reserved() / 1e9
+        del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = (peaks[8] - peaks[4]) / 4
+    base = peaks[4] - 4 * per
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    depth = int(min(cfg.n_layers, (total - FALCON_FREE_GB - base) // per))
+    if depth < 1:
+        fail(f"falcon-mamba-7b: no depth leaves {FALCON_FREE_GB} GB free "
+             f"({peaks})")
+    print(f"train[falcon depth]: peak reserved {peaks[4]:.2f} GB at 4 "
+          f"layers, {peaks[8]:.2f} at 8: {per:.3f} GB a layer over "
+          f"{base:.2f}; the card holds {total:.2f} GB, so {depth} of "
+          f"{cfg.n_layers} layers leave >= {FALCON_FREE_GB} GB free "
+          f"(predicted peak {base + depth * per:.2f} GB)", flush=True)
+    return depth
+
+
+def ssm_train_path(torch, card):
+    """Phase 14: training of the ssm and hybrid families at full width.
+    zamba2-1.2b (38 layers, d_inner 4096 in 64 heads, N 64, the shared
+    block after layers 0, 6, ..., 36): parity at 1 layer, the fixed run at
+    full depth, remat none / dots / full at 2 layers and a checkpoint
+    resume at 2 layers; falcon-mamba-7b (d_inner 8192, N 16): parity at 1
+    layer, then the fixed run at the deepest cut that leaves
+    FALCON_FREE_GB free.  Returns the launches of the counted runs (the
+    fixed runs, the remat steps and the resume)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.ps.lm_job import DEFAULT_LM_SETTING, LMJob
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(d):
+        for k_, v_ in d.items():
+            launches[k_] = launches.get(k_, 0) + v_
+
+    zamba = get_config("zamba2-1.2b")
+    ssm_train_parity(torch, zamba, "zamba2-1.2b")
+    add(ssm_fixed_run(torch, card, zamba, "zamba2-1.2b")[0])
+    add(ssm_remat(torch, zamba, "zamba2-1.2b"))
+    reset_launches()
+    checkpoint_resume(torch, LMJob, DEFAULT_LM_SETTING, 2,
+                      cfg=dataclasses.replace(zamba, n_layers=2),
+                      label="zamba2-1.2b")
+    add(LAUNCHES)
+    print(f"phase 14: zamba2-1.2b done at {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    falcon = get_config("falcon-mamba-7b")
+    ssm_train_parity(torch, falcon, "falcon-mamba-7b")
+    depth = falcon_depth(torch, falcon)
+    cut = dataclasses.replace(falcon, n_layers=depth)
+    try:
+        got, peak = ssm_fixed_run(torch, card, cut, "falcon-mamba-7b")
+    except torch.OutOfMemoryError as e:
+        fail(f"falcon-mamba-7b: the predicted cut of {depth} layers ran out "
+             f"of memory: {str(e).splitlines()[0]}")
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"train[falcon cut]: {depth} of {falcon.n_layers} layers at full "
+          f"width ({cut.n_params() / 1e9:.3f} of {falcon.n_params() / 1e9:.3f}"
+          f" B params; dataclasses.replace(cfg, n_layers={depth}), no "
+          f"launcher flag), peak {peak:.2f} GB allocated: "
+          f"{total - peak:.2f} GB free", flush=True)
+    if total - peak < FALCON_FREE_GB:
+        fail(f"falcon-mamba-7b at {depth} layers left {total - peak:.2f} GB")
+    add(got)
+    missing = [k for k in ("selective_scan", "selective_scan_bwd",
+                           "flash_attention", "flash_attention_bwd")
+               if not launches.get(k)]
+    if missing:
+        fail(f"phase 14 never launched {missing}: {launches}")
+    print(f"ssm training: phase 14 in {time.perf_counter() - t0:.1f}s, "
+          f"launches {launches}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -4618,6 +5236,8 @@ def main():
     check_group_kernels(torch, rows, "moe", MOE_H, MOE_K, HD, seed=21)
     check_group_kernels(torch, rows, "vlm", VLM_H, VLM_H, VLM_HD, seed=23)
     check_encoder_kernels(torch, rows)
+    check_ssm_train_kernels(torch, rows)
+    check_hybrid_train_flash(torch, rows)
     launches = dict.fromkeys(rows, 0)
     launches.update(dense_path(torch, card))
     # free the dense model (and its engines' pools) before falcon-mamba
@@ -4658,6 +5278,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     for name, n in encoder_path(torch, card).items():
+        launches[name] += n
+    # free the encoder before the ssm and hybrid training runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in ssm_train_path(torch, card).items():
         launches[name] += n
 
     line = {"kernels": [

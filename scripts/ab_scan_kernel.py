@@ -6,16 +6,15 @@ CUDA source, in one process on one card, in turns (old, new, new, old).
 
 DIR holds the earlier ``mamba_scan.cu`` and ``common.cuh`` (for example
 unpacked with ``git archive <commit> src/repro_torch/kernels/csrc``).  Its
-C interface is the one before the Hopper redesign:
-``selective_scan(x, dt, Bm, Cm, A, h0, y, h_out, B, S, D, N, x_bf16,
-dt_bf16, stream)`` with f32 contiguous Bm and Cm.  Shapes: falcon-mamba-7b's
-decode tick (B = 8, S = 1, D = 8192, N = 16, h0 updated in place) and
-prefills of the serve's buckets (B = 1, S = 16, 96, 256 and 512, no h0).
-Both kernels get the same inputs, in the form the old one takes (x bf16,
-dt f32, Bm and Cm f32); the new kernel is also timed on the inputs the
-model now hands it (dt bf16, Bm and Cm bf16 views of the x_proj output).
-Device time with the L2 flushed before each launch.  Needs a CUDA device
-and nvcc.
+C interface is the one before the training checkpoints (h_chk) were added:
+``selective_scan(x, dt, Bm, Cm, A, h0, y, h_out, B, S, D, N, ng, chunked,
+b_sb, b_st, c_sb, c_st, x_bf16, dt_bf16, bc_bf16, stream)``, the same
+launch plans.  Shapes: falcon-mamba-7b's decode tick (B = 8, S = 1, D =
+8192, N = 16, h0 updated in place) and prefills of the serve's buckets (B
+= 1, S = 16, 96, 256 and 512, no h0), on the inputs the model hands the
+scan (x and dt bf16, Bm and Cm bf16 views of the x_proj output); the new
+kernel is also timed on f32 dt and contiguous f32 Bm, Cm.  Device time
+with the L2 flushed before each launch.  Needs a CUDA device and nvcc.
 
     python3 scripts/ab_scan_kernel.py --phases
 
@@ -110,7 +109,7 @@ def build_cut(tag: str, cuts) -> ctypes.CDLL:
 
 
 def inputs(torch, g, B, S, h0):
-    """(old-form inputs, model-form inputs): x bf16 and A = -(1..N) in
+    """(f32-form inputs, model-form inputs): x bf16 and A = -(1..N) in
     both; dt f32 and contiguous f32 Bm, Cm in the first, dt bf16 and bf16
     views of one (B, S, R + 2N) projection in the second (same values)."""
     dev = torch.device("cuda")
@@ -191,39 +190,43 @@ def main():
         return
 
     fn = build_baseline(args.baseline, "mamba_scan").selective_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    bf16 = torch.bfloat16
 
     def old(a, B, S):
         x, dt, Bm, Cm, A, h = a
         y = torch.empty((B, S, D), dtype=torch.float32, device="cuda")
         h_out = torch.empty((B, D, N), device="cuda") if h is None else h
+        ng, chunked = scan_kernel.launch_plan(S, N)
         _build.check_launch(fn(
             x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             A.data_ptr(), None if h is None else h.data_ptr(), y.data_ptr(),
-            h_out.data_ptr(), B, S, D, N, 1, 0, _build.stream_of(x)),
-            "baseline selective_scan")
+            h_out.data_ptr(), B, S, D, N, ng, int(chunked),
+            *scan_kernel.bc_strides("Bm", Bm),
+            *scan_kernel.bc_strides("Cm", Cm), int(x.dtype == bf16),
+            int(dt.dtype == bf16), int(Bm.dtype == bf16),
+            _build.stream_of(x)), "baseline selective_scan")
         return y
 
-    for label, (B, S, (a_old, a_new)) in cases.items():
-        h = a_old[5]
+    for label, (B, S, (a_f32, a)) in cases.items():
+        h = a[5]
         keep = None if h is None else h.clone()
-        yo = old(a_old, B, S)
+        yo = old(a, B, S)
         if keep is not None:
             h.copy_(keep)
-        yn = new(a_old)
+        yn = new(a)
         torch.cuda.synchronize()
         diff = float((yo - yn).abs().max())
-        t = [timed_ms(torch, f) for f in (lambda: old(a_old, B, S),
-                                          lambda: new(a_old),
-                                          lambda: new(a_old),
-                                          lambda: old(a_old, B, S))]
-        tm = timed_ms(torch, lambda: new(a_new))
+        t = [timed_ms(torch, f) for f in (lambda: old(a, B, S),
+                                          lambda: new(a), lambda: new(a),
+                                          lambda: old(a, B, S))]
+        tm = timed_ms(torch, lambda: new(a_f32))
         print(f"ab[{label}]: old {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f}"
               f" / {t[2]:.4f} ms, speed-up {(t[0] + t[3]) / (t[1] + t[2]):.2f}x"
-              f", max |old - new| y {diff:.3g}; new on the model's inputs "
-              f"(dt bf16, Bm/Cm bf16 views) {tm:.4f} ms", flush=True)
+              f", max |old - new| y {diff:.3g}; new on f32 dt and contiguous "
+              f"f32 Bm/Cm {tm:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -29,13 +29,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd", "quant",
-           "mamba_scan")
+           "mamba_scan", "mamba_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"paged_attention": 0, "flash_attention": 0,
             "flash_attention_bwd": 0, "quantize": 0, "dequantize": 0,
-            "selective_scan": 0}
+            "selective_scan": 0, "selective_scan_bwd": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _N_SMS: dict = {}

@@ -16,6 +16,16 @@
 // place.  A step with dt = 0 passes the state through (exp2(0) = 1 and the
 // update is 0), which the model's right padding relies on.
 //
+// Training adds h_chk: (B, ceil(S / L), D, N) f32, the state *before* each
+// interval of L steps (L a multiple of kChunk), which the backward
+// (mamba_scan_bwd.cu) reloads to recompute an interval instead of saving
+// every step's state.  Each thread stores its NG states from registers when
+// its step count reaches a multiple of L: in scan_chunked at the start of
+// such a chunk (a build of its own, kChk), in scan_direct (S <= 8 < L) once,
+// before its steps.  Serving passes a null h_chk, which changes nothing else
+// (scripts/ab_scan_kernel.py --baseline times it against the source before
+// h_chk).
+//
 // The mamba2 block (zamba2, N = 64) runs the same recurrence with channel
 // d = (head, p): its dt and A are a head's, repeated over the head's P
 // channels by the caller, and its one B/C group is shared by every d.
@@ -194,7 +204,7 @@ template <int G> __device__ __forceinline__ float reduce_scatter(float (&v)[G], 
 template <int N, int NG>
 __global__ void __launch_bounds__(kThreads)
 scan_direct(Inputs in, const float* __restrict__ A, const float* h0, float* __restrict__ y,
-            float* h_out, int B, int S, int D) {
+            float* h_out, float* __restrict__ h_chk, int B, int S, int D) {
   constexpr int G = N / NG;
   const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
   const int g = i % G;
@@ -203,6 +213,8 @@ scan_direct(Inputs in, const float* __restrict__ A, const float* h0, float* __re
   const int b = live ? bd / D : 0, d = live ? bd % D : 0;
   float a2[NG], h[NG];
   load_state<N, NG>(a2, h, A, h0, bd, d, g, live);
+  // S <= L here (the entry point refuses more): one interval, from h0
+  if (h_chk != nullptr && live) store_vec<NG>(h_chk + bd * N + g * NG, h);
   for (int t = 0; t < S; ++t) {
     const size_t row = (size_t)b * S + t;
     const size_t ob = (size_t)b * in.b_sb + (size_t)t * in.b_st;   // row t of Bm, Cm
@@ -241,10 +253,10 @@ template <int N, int G> struct ChunkRing {
   float y[2][kChunk][kYRow];
 };
 
-template <int N, int NG>
+template <int N, int NG, bool kChk>
 __global__ void __launch_bounds__(kDBlock * (N / NG))
 scan_chunked(Inputs in, const float* __restrict__ A, const float* h0, float* __restrict__ y,
-             float* h_out, int S, int D) {
+             float* h_out, float* __restrict__ h_chk, int S, int D, int L) {
   constexpr int G = N / NG;
   constexpr int kT = kDBlock * G;                          // threads
   constexpr int kXPer = kChunk * kDBlock / kT;             // x, dt elements a thread stages
@@ -323,12 +335,17 @@ scan_chunked(Inputs in, const float* __restrict__ A, const float* h0, float* __r
   };
 
   const int n_chunks = (S + kChunk - 1) / kChunk;
+  const int n_chk = kChk ? (S + L - 1) / L : 0;
   fetch(0);
   stash(0);
   __syncthreads();
   for (int c = 0; c < n_chunks; ++c) {
     const int buf = c & 1, t0 = c * kChunk, T = min(kChunk, S - t0);
     if (c + 1 < n_chunks) fetch(c + 1);
+    if constexpr (kChk) {
+      if (live && t0 % L == 0)
+        store_vec<NG>(h_chk + (((size_t)b * n_chk + t0 / L) * D + d) * N + g * NG, h);
+    }
     // -- chunked: staged
     if (T == kChunk) compute(buf, kChunk);
     else compute(buf, T);                                  // the last chunk's own steps
@@ -345,6 +362,25 @@ scan_chunked(Inputs in, const float* __restrict__ A, const float* h0, float* __r
   if (live && h_out != nullptr) store_vec<NG>(h_out + bd * N + g * NG, h);
 }
 
+// scan_chunked on its grid, with (kChk) or without h_chk: serving runs the
+// build without, whose code has no trace of the checkpoints.  Its ring is
+// opted in past 48 KB once per build, on the first (eager) launch.
+template <int N, int NG, bool kChk>
+cudaError_t launch_chunked(const Inputs& in, const float* A, const float* h0, float* y,
+                           float* h_out, float* h_chk, int B, int S, int D, int L,
+                           cudaStream_t stream) {
+  constexpr size_t smem = sizeof(ChunkRing<N, N / NG>);
+  if constexpr (smem > 48 * 1024) {
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        scan_chunked<N, NG, kChk>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (opt_in != cudaSuccess) return opt_in;
+  }
+  const dim3 grid((D + kDBlock - 1) / kDBlock, B);
+  scan_chunked<N, NG, kChk><<<grid, kDBlock * (N / NG), smem, stream>>>(
+      in, A, h0, y, h_out, h_chk, S, D, L);
+  return cudaSuccess;
+}
+
 // The two builds for N states: NG of them a thread as the wrapper's
 // launch_plan picks it (direct: min(8, N); chunked: G = min(8, N / 2) lanes
 // a d, so NG = max(2, N / 8)).  Any other ng is refused, so the two sides
@@ -353,25 +389,22 @@ scan_chunked(Inputs in, const float* __restrict__ A, const float* h0, float* __r
 // the register file.)
 template <int N>
 cudaError_t launch(const Inputs& in, const float* A, const float* h0, float* y, float* h_out,
-                   int B, int S, int D, int ng, int chunked, cudaStream_t stream) {
+                   float* h_chk, int B, int S, int D, int L, int ng, int chunked,
+                   cudaStream_t stream) {
   constexpr int kDirectNG = N < 8 ? N : 8;
   constexpr int kChunkedNG = N / 8 > 2 ? N / 8 : 2;
   if (ng != (chunked ? kChunkedNG : kDirectNG)) return cudaErrorInvalidValue;
   if (chunked) {
-    constexpr size_t smem = sizeof(ChunkRing<N, N / kChunkedNG>);
-    if constexpr (smem > 48 * 1024) {
-      // once per process, on the first (eager) launch
-      static const cudaError_t opt_in = cudaFuncSetAttribute(
-          scan_chunked<N, kChunkedNG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (opt_in != cudaSuccess) return opt_in;
-    }
-    const dim3 grid((D + kDBlock - 1) / kDBlock, B);
-    scan_chunked<N, kChunkedNG><<<grid, kDBlock * (N / kChunkedNG), smem, stream>>>(
-        in, A, h0, y, h_out, S, D);
+    const cudaError_t err =
+        h_chk != nullptr
+            ? launch_chunked<N, kChunkedNG, true>(in, A, h0, y, h_out, h_chk, B, S, D, L, stream)
+            : launch_chunked<N, kChunkedNG, false>(in, A, h0, y, h_out, h_chk, B, S, D, L,
+                                                    stream);
+    if (err != cudaSuccess) return err;
   } else {
     const size_t threads = (size_t)B * D * (N / kDirectNG);
     scan_direct<N, kDirectNG><<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
-                                stream>>>(in, A, h0, y, h_out, B, S, D);
+                                stream>>>(in, A, h0, y, h_out, h_chk, B, S, D);
   }
   return cudaGetLastError();
 }
@@ -382,27 +415,31 @@ cudaError_t launch(const Inputs& in, const float* A, const float* h0, float* y, 
 // f32; Bm, Cm: (B, S, N), bf16 where bc_bf16 is nonzero, else f32, element
 // (b, t, n) at b * b_sb + t * b_st + n (c_sb, c_st for Cm);
 // A: (D, N) f32; h0: (B, D, N) f32 or null; y: (B, S, D) f32; h_out:
-// (B, D, N) f32 (may be h0).  A, h0 and h_out 16-byte aligned.  N in
+// (B, D, N) f32 (may be h0); h_chk: (B, ceil(S / L), D, N) f32 or null, L a
+// positive multiple of kChunk.  A, h0, h_out and h_chk 16-byte aligned.  N in
 // {4, 8, 16, 32, 64}; ng (states a thread) and chunked (which kernel) from the
 // wrapper's launch_plan, which the builds above must match.
 extern "C" int selective_scan(const void* x, const void* dt, const void* Bm, const void* Cm,
-                              const void* A, const void* h0, void* y, void* h_out, int B,
-                              int S, int D, int N, int ng, int chunked, int b_sb, int b_st,
-                              int c_sb, int c_st, int x_bf16, int dt_bf16, int bc_bf16,
-                              void* stream) {
+                              const void* A, const void* h0, void* y, void* h_out,
+                              void* h_chk, int B, int S, int D, int N, int ng, int chunked,
+                              int b_sb, int b_st, int c_sb, int c_st, int x_bf16,
+                              int dt_bf16, int bc_bf16, int L, void* stream) {
   if (B < 1 || D < 1 || S < 0) return cudaErrorInvalidValue;
+  if (h_chk == nullptr) L = kChunk;                        // not read
+  if (L < kChunk || L % kChunk != 0 || (!chunked && S > L)) return cudaErrorInvalidValue;
   const Inputs in{x, dt, Bm, Cm, b_sb, b_st, c_sb, c_st, x_bf16, dt_bf16, bc_bf16};
   const auto* a = static_cast<const float*>(A);
   const auto* h = static_cast<const float*>(h0);
   auto* yo = static_cast<float*>(y);
   auto* ho = static_cast<float*>(h_out);
+  auto* hc = static_cast<float*>(h_chk);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (N) {
-    case 4: return launch<4>(in, a, h, yo, ho, B, S, D, ng, chunked, st);
-    case 8: return launch<8>(in, a, h, yo, ho, B, S, D, ng, chunked, st);
-    case 16: return launch<16>(in, a, h, yo, ho, B, S, D, ng, chunked, st);
-    case 32: return launch<32>(in, a, h, yo, ho, B, S, D, ng, chunked, st);
-    case 64: return launch<64>(in, a, h, yo, ho, B, S, D, ng, chunked, st);
+    case 4: return launch<4>(in, a, h, yo, ho, hc, B, S, D, L, ng, chunked, st);
+    case 8: return launch<8>(in, a, h, yo, ho, hc, B, S, D, L, ng, chunked, st);
+    case 16: return launch<16>(in, a, h, yo, ho, hc, B, S, D, L, ng, chunked, st);
+    case 32: return launch<32>(in, a, h, yo, ho, hc, B, S, D, L, ng, chunked, st);
+    case 64: return launch<64>(in, a, h, yo, ho, hc, B, S, D, L, ng, chunked, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,4 +1,6 @@
-"""Wrapper of the CUDA selective-scan kernel (``csrc/mamba_scan.cu``).
+"""Wrappers of the CUDA selective-scan kernels: the forward
+(``csrc/mamba_scan.cu``) and, for training, its backward
+(``csrc/mamba_scan_bwd.cu``).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version in ``ref.py``.  Bm and Cm are read where they lie: bf16 or f32
@@ -10,11 +12,35 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+from repro_torch.kernels.mamba_scan.ref import (scan_checkpoints_ref,
+                                                selective_scan_bwd_ref,
+                                                selective_scan_ref)
 
 STATE_SIZES = (4, 8, 16, 32, 64)   # N (64: the mamba2 block)
 SHORT_S = 8                        # S at or below: the direct kernel
+SCAN_CHUNK = 32                    # the forward's staged chunk (kChunk)
+# The training forward (models/mamba.py SelectiveScan) keeps the state
+# before every CHK_STEPS steps (h_chk) for the backward, which recomputes
+# each interval from it.  64:
+# h_chk at zamba2's training shape (4 x 512 tokens, D 4096, N 64) is 33.5
+# MB a layer (1.27 GB over 38 layers; 67 MB a layer at 32), and the
+# backward's block keeps an interval's sub-interval starts (every 4 steps)
+# in shared memory, L / 4 x 4 KB beside 32 KB of sums: 96 KB at 64, two
+# blocks an SM.  CHK_MAX is the longest interval whose starts fit the 227
+# KB a block may opt in to (224 KB at 192).
+CHK_STEPS, CHK_MAX = 64, 192
+BWD_THREADS, BWD_NG = 256, 4       # the backward's block and states a thread
 _IO_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def bwd_plan(N: int) -> tuple[int, int]:
+    """(NG, d's a block) of the backward at state size N: BWD_NG states a
+    thread, G = N / NG lanes a d, BWD_THREADS threads a block.  The kernel
+    refuses any other plan."""
+    if N not in STATE_SIZES:
+        raise ValueError(f"selective_scan_bwd: state size N={N} not in "
+                         f"{STATE_SIZES}")
+    return BWD_NG, BWD_THREADS // (N // BWD_NG)
 
 
 def launch_plan(S: int, N: int) -> tuple[int, bool]:
@@ -45,26 +71,42 @@ def bc_strides(name: str, t) -> tuple[int, int]:
     return t.stride(0), t.stride(1)
 
 
-def selective_scan(x, dt, Bm, Cm, A, h0=None, *, h_out=None):
+def selective_scan(x, dt, Bm, Cm, A, h0=None, *, h_out=None, h_chk=None,
+                   chunk: int = CHK_STEPS):
     """x, dt: (B, S, D) f32 or bf16; Bm, Cm: (B, S, N) f32 or bf16 (both
     the same, last stride 1); A: (D, N) f32; h0: (B, D, N) f32 or
     None (zeros).  Returns (y (B, S, D) f32, h_last (B, D, N) f32).
 
     ``h_out`` (B, D, N) f32, optional: the tensor ``h_last`` is written
     into and returned as; it may be ``h0`` itself, so a decode step updates
-    a stored state in place."""
-    if x.device.type == "cpu":
-        y, h = selective_scan_ref(x, dt, Bm, Cm, A, h0)
-        if h_out is not None:
-            h = h_out.copy_(h)
-        return y, h
-    if x.device.type != "cuda":
-        raise ValueError(f"selective_scan: unsupported device {x.device}")
+    a stored state in place.  ``h_chk`` (B, ceil(S / chunk), D, N) f32,
+    optional (training): filled with the state before each interval of
+    ``chunk`` steps (a multiple of SCAN_CHUNK), what
+    ``selective_scan_bwd`` recomputes the intervals from."""
     if x.dim() != 3 or A.dim() != 2:
         raise ValueError(f"selective_scan: need x (B, S, D) and A (D, N), "
                          f"got {tuple(x.shape)} and {tuple(A.shape)}")
     B, S, D = x.shape
     N = A.shape[1]
+    if h_chk is not None:
+        if chunk <= 0 or chunk % SCAN_CHUNK:
+            raise ValueError(f"selective_scan: chunk {chunk} is not a "
+                             f"positive multiple of {SCAN_CHUNK}")
+        want = (B, -(-S // chunk), D, N)
+        if tuple(h_chk.shape) != want or h_chk.dtype != torch.float32:
+            raise ValueError(f"selective_scan: h_chk must be {want} f32, "
+                             f"got {h_chk.dtype}{tuple(h_chk.shape)}")
+    if x.device.type == "cpu":
+        if h_chk is None:
+            y, h = selective_scan_ref(x, dt, Bm, Cm, A, h0)
+        else:
+            y, h, chk = scan_checkpoints_ref(x, dt, Bm, Cm, A, h0, chunk)
+            h_chk.copy_(chk)
+        if h_out is not None:
+            h = h_out.copy_(h)
+        return y, h
+    if x.device.type != "cuda":
+        raise ValueError(f"selective_scan: unsupported device {x.device}")
     ng, chunked = launch_plan(S, N)
     f32 = torch.float32
     want = [("dt", dt, (B, S, D), _IO_DTYPES), ("Bm", Bm, (B, S, N),
@@ -82,25 +124,96 @@ def selective_scan(x, dt, Bm, Cm, A, h0=None, *, h_out=None):
             raise ValueError(f"selective_scan: {name} must be {shape} in "
                              f"{dtypes}, got {t.dtype}{tuple(t.shape)}")
     strides = bc_strides("Bm", Bm) + bc_strides("Cm", Cm)
-    dense = [x, dt, A] + [t for t in (h0, h_out) if t is not None]
+    dense = [x, dt, A] + [t for t in (h0, h_out, h_chk) if t is not None]
     _build.check_cuda("selective_scan", *dense)
     if Bm.device != x.device or Cm.device != x.device:
         raise ValueError(f"selective_scan: tensors on {Bm.device}, "
                          f"{Cm.device} and {x.device}")
-    for name, t in (("A", A), ("h0", h0), ("h_out", h_out)):
+    for name, t in (("A", A), ("h0", h0), ("h_out", h_out),
+                    ("h_chk", h_chk)):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"selective_scan: {name} must start on 16 "
                              f"bytes (its states load as float4)")
     y = torch.empty((B, S, D), dtype=f32, device=x.device)
     if h_out is None:
         h_out = torch.empty((B, D, N), dtype=f32, device=x.device)
-    fn = _build.bind("mamba_scan", "selective_scan", 8, 13)
+    fn = _build.bind("mamba_scan", "selective_scan", 9, 14)
     bf16 = torch.bfloat16
     err = fn(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
              A.data_ptr(), None if h0 is None else h0.data_ptr(),
-             y.data_ptr(), h_out.data_ptr(), B, S, D, N, ng, int(chunked),
-             *strides, int(x.dtype == bf16), int(dt.dtype == bf16),
-             int(Bm.dtype == bf16), _build.stream_of(x))
+             y.data_ptr(), h_out.data_ptr(),
+             None if h_chk is None else h_chk.data_ptr(), B, S, D, N, ng,
+             int(chunked), *strides, int(x.dtype == bf16),
+             int(dt.dtype == bf16), int(Bm.dtype == bf16), chunk,
+             _build.stream_of(x))
     _build.check_launch(err, "selective_scan")
     _build.LAUNCHES["selective_scan"] += 1
     return y, h_out
+
+
+def selective_scan_bwd(x, dt, Bm, Cm, A, h_chk, gy, *, chunk: int,
+                       want_gh0: bool = False):
+    """Gradients of ``selective_scan``'s y for the cotangent gy (B, S, D)
+    f32, from the forward's inputs (as they were given to it: Bm and Cm
+    may be the same views) and its ``h_chk`` at interval ``chunk``.
+    Returns (gx, gdt, gB, gC, gA, gh0): gx and gdt in x's and dt's dtypes,
+    gB and gC (B, S, N) contiguous in Bm's dtype, gA (D, N) f32, gh0 (B, D,
+    N) f32 with ``want_gh0``, else None.  The card runs two launches of
+    ``csrc/mamba_scan_bwd.cu`` (counted once); the CPU the plain version,
+    autograd over each interval recomputed from ``h_chk``."""
+    if x.dim() != 3 or A.dim() != 2:
+        raise ValueError(f"selective_scan_bwd: need x (B, S, D) and A (D, "
+                         f"N), got {tuple(x.shape)} and {tuple(A.shape)}")
+    B, S, D = x.shape
+    N = A.shape[1]
+    if S < 1 or chunk <= 0 or chunk % SCAN_CHUNK or chunk > CHK_MAX:
+        raise ValueError(f"selective_scan_bwd: need S >= 1 and a chunk that "
+                         f"is a multiple of {SCAN_CHUNK} up to {CHK_MAX}, "
+                         f"got S={S}, chunk={chunk}")
+    f32 = torch.float32
+    want = [("x", x, (B, S, D), _IO_DTYPES), ("dt", dt, (B, S, D), _IO_DTYPES),
+            ("Bm", Bm, (B, S, N), _IO_DTYPES),
+            ("Cm", Cm, (B, S, N), (Bm.dtype,)), ("A", A, (D, N), (f32,)),
+            ("h_chk", h_chk, (B, -(-S // chunk), D, N), (f32,)),
+            ("gy", gy, (B, S, D), (f32,))]
+    for name, t, shape, dtypes in want:
+        if tuple(t.shape) != shape or t.dtype not in dtypes:
+            raise ValueError(f"selective_scan_bwd: {name} must be {shape} "
+                             f"in {dtypes}, got {t.dtype}{tuple(t.shape)}")
+    if x.device.type == "cpu":
+        return selective_scan_bwd_ref(x, dt, Bm, Cm, A, h_chk, gy, chunk,
+                                      want_gh0)
+    if x.device.type != "cuda":
+        raise ValueError(f"selective_scan_bwd: unsupported device {x.device}")
+    ng, dblock = bwd_plan(N)
+    strides = bc_strides("Bm", Bm) + bc_strides("Cm", Cm)
+    _build.check_cuda("selective_scan_bwd", x, dt, A, h_chk, gy)
+    if Bm.device != x.device or Cm.device != x.device:
+        raise ValueError(f"selective_scan_bwd: tensors on {Bm.device}, "
+                         f"{Cm.device} and {x.device}")
+    for name, t in (("A", A), ("h_chk", h_chk)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"selective_scan_bwd: {name} must start on 16 "
+                             f"bytes (its states load as float4)")
+    dev = x.device
+    gx = torch.empty((B, S, D), dtype=x.dtype, device=dev)
+    gdt = torch.empty((B, S, D), dtype=dt.dtype, device=dev)
+    gB = torch.empty((B, S, N), dtype=Bm.dtype, device=dev)
+    gC = torch.empty((B, S, N), dtype=Bm.dtype, device=dev)
+    gA = torch.empty((D, N), dtype=f32, device=dev)
+    gh0 = torch.empty((B, D, N), dtype=f32, device=dev) if want_gh0 else None
+    nblk = -(-D // dblock)
+    part = torch.empty(2 * B * nblk * S * N + B * D * N, dtype=f32,
+                       device=dev)
+    fn = _build.bind("mamba_scan_bwd", "selective_scan_bwd", 14, 14)
+    bf16 = torch.bfloat16
+    err = fn(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+             A.data_ptr(), h_chk.data_ptr(), gy.data_ptr(), gx.data_ptr(),
+             gdt.data_ptr(), gB.data_ptr(), gC.data_ptr(), gA.data_ptr(),
+             None if gh0 is None else gh0.data_ptr(), part.data_ptr(), B, S,
+             D, N, chunk, ng, dblock, *strides, int(x.dtype == bf16),
+             int(dt.dtype == bf16), int(Bm.dtype == bf16),
+             _build.stream_of(x))
+    _build.check_launch(err, "selective_scan_bwd")
+    _build.LAUNCHES["selective_scan_bwd"] += 1
+    return gx, gdt, gB, gC, gA, gh0

@@ -10,6 +10,14 @@
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch phi-3-vision-4.2b --batch 4 --seq 512 --steps 10
 
+  # full-width zamba2-1.2b (hybrid: mamba2 + the shared attention block)
+  # or falcon-mamba-7b (ssm) on the card; the scan's forward and backward
+  # kernels (falcon-mamba-7b's 64 layers need ~73 GB of weights and Adam
+  # moments: it fits one H100 only at reduced depth, as chip_smoke.py runs
+  # it); --reduced --device cpu runs either on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --batch 4 --seq 512 --steps 10
+
   # self-tuning (the paper's online tuner over microbatches, remat,
   # gradient compression, staleness and k_chunk), with a Chrome trace and
   # the time-attribution panel:
@@ -24,11 +32,11 @@
       --reduced --device cpu --steps 50 --ckpt-dir /tmp/ck --resume
 
 ``--self-tune`` turns on the tuner; otherwise the default setting runs
-fixed.  Weights are random, drawn from ``--seed``.  The dense, moe and vlm
-families train (moe: the router's load-balancing loss, weighted by
-``router_aux_weight``, enters the loss; each layer's expert tensors are
-autograd leaves of their own); the ssm and hybrid families' training
-raises (it needs a backward of the selective scan).  An encoder arch
+fixed.  Weights are random, drawn from ``--seed``.  The dense, moe, vlm,
+ssm and hybrid families train (moe: the router's load-balancing loss,
+weighted by ``router_aux_weight``, enters the loss; each layer's expert
+tensors are autograd leaves of their own; ssm and hybrid: the selective
+scan's backward kernel on the card).  An encoder arch
 (hubert) exits before its model is built: the job draws token batches
 (``lm_batch_iterator``, as the JAX package's LMJob does) and an encoder
 reads frames; ``ps.stepfn.build_train_step`` trains it on frame batches

@@ -6,8 +6,7 @@ frontend), the encoder family (the dense layers, not causal, over audio
 frames: no decode), the ssm family (mamba1 blocks, recurrent-state decode)
 and the hybrid family (zamba2: mamba2 blocks and one shared attention +
 MLP block applied every ``shared_attn_every`` layers, whose KV lives in a
-dense per-slot slab); training runs for the dense, moe, vlm and encoder
-families and raises for the other two.
+dense per-slot slab); every family trains.
 
 The port of the JAX package's ``models/lm.py``.  Parameters are a nested
 dict of tensors with the JAX tree's keys: layer weights are stacked on a
@@ -23,10 +22,14 @@ family's shared block's KV rows into ``cache["shared_k"]``/
 ``cache["shared_v"]``;
 ``decode_step`` returns the same dict it was given.
 
-Training (``mode="train"``, ``loss_fn``) keeps no KV and writes nothing
-in place; autograd runs through it, with each layer optionally
-recomputed in the backward (``ModelKnobs.remat``); the moe family's
-router aux loss enters the loss.
+Training (``mode="train"``, ``loss_fn``) keeps no KV or recurrent state
+and writes nothing in place; autograd runs through it, with each layer
+optionally recomputed in the backward (``ModelKnobs.remat``); the moe
+family's router aux loss enters the loss.  The ssm and hybrid families'
+scan is differentiated by ``models/mamba.py`` ``SelectiveScan`` (the
+scan's backward kernel on the card) from the states its forward kept
+every ``CHK_STEPS`` steps (the JAX package's ``ssm_chunk`` is not a knob
+here).
 
 The vlm family's prefill and training take an optional ``frontend``:
 image patches (B, P, frontend_dim), projected by ``frontend/proj`` and put
@@ -394,10 +397,10 @@ def forward(params, tokens, cfg: ModelConfig,
     S, K, hd) in prefill or the slab ``shared_k``/``shared_v`` (n_apps, B,
     max_seq, K, hd) written in place at ``pos`` in decode.
 
-    ``mode="train"`` (dense, moe, vlm, encoder): no cache (None), nothing
-    written in place, each layer under ``knobs.remat``; returns (hidden,
-    aux), aux the mean of the layers' router losses (0 for the dense
-    family).  The ssm and hybrid families raise.
+    ``mode="train"``: no cache (None), nothing written in place, each
+    layer under ``knobs.remat`` (the hybrid's shared block with the layer
+    it follows); returns (hidden, aux), aux the mean of the layers' router
+    losses (0 for the families without experts).
 
     ``valid_len`` (int or (1,) int64 tensor, prefill only): non-pad tokens
     of a right-padded batch.  Attention ignores it (the causal mask and the
@@ -417,10 +420,6 @@ def forward(params, tokens, cfg: ModelConfig,
         raise ValueError("frontend: a decode step takes tokens only")
     if mode == "train" and cfg.family in ATTN_FAMILIES:
         return _forward_train(params, tokens, cfg, knobs, frontend)
-    if mode == "train":
-        raise NotImplementedError(
-            f"{cfg.family} training is not ported yet: it needs a backward "
-            f"of the selective scan (a later slice)")
     x = _embed(params, cfg, tokens, frontend)
     if cfg.family in ("ssm", "hybrid"):
         if mode != "prefill" or valid_len is None:
@@ -493,6 +492,8 @@ def _forward_ssm(params, x, cfg: ModelConfig, knobs: ModelKnobs, mode: str,
     cache has none)."""
     block = mamba1_block if cfg.ssm_version == 1 else mamba2_block
     every = cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    if mode == "train":
+        return _forward_ssm_train(params, x, cfg, knobs, block, every)
     if every:
         B, S, _ = x.shape
         ar = torch.arange(S, device=x.device)
@@ -538,6 +539,35 @@ def _forward_ssm(params, x, cfg: ModelConfig, knobs: ModelKnobs, mode: str,
         new_cache = cache
     x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return x, new_cache
+
+
+def _forward_ssm_train(params, x, cfg: ModelConfig, knobs: ModelKnobs,
+                       block, every: int):
+    """``_forward_ssm``'s training branch (JAX's ``want_state = False``): no
+    state kept, nothing written in place; each layer, with the hybrid's
+    shared block after layers 0, k, 2k, ... (attention through
+    ``FlashAttention`` on the card), under ``_maybe_remat``.  Returns (hidden, zero
+    aux), as JAX's ``_forward_ssm``."""
+    rope = positions = None
+    if every:
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
+
+    def body(x, lp, shared):
+        h, _ = block(common.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps),
+                     lp["ssm"], cfg)
+        x = x + h
+        if shared is not None:
+            x, _ = _shared_block(x, shared, cfg, knobs, positions, rope)
+        return x
+
+    body = _maybe_remat(body, knobs)
+    for i in range(cfg.n_layers):
+        shared = params["shared"] if every and i % every == 0 else None
+        x = body(x, _layer(params["layers"], i), shared)
+    return (common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def logits_fn(params, hidden, cfg: ModelConfig):

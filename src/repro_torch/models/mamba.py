@@ -11,6 +11,12 @@ package computes them outside any Pallas kernel.  The mamba2 recurrence
 channels d = (head, p), with a head's dt and A repeated over its P
 channels: the same kernel at N = 64.
 
+Training (autograd on, scan inputs that need a gradient) takes the role
+of the JAX package's chunk-checkpointed ``_scan_seq``: ``SelectiveScan``,
+the forward keeping the state before every interval of CHK_STEPS steps
+and the backward recomputing each interval from it, on the card the two
+kernels, on the CPU their plain versions.  It returns no state.
+
 State is ``{"conv": (B, Di, K-1), "h": (B, Di, N) | (B, nh, P, N) f32}``.
 Where the JAX block returns a new state, decode here writes it into the
 ``state`` tensors it was given, *in place* (the scan kernel writes ``h``
@@ -20,8 +26,40 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.mamba_scan import selective_scan
+from repro_torch.kernels.mamba_scan import (selective_scan,
+                                            selective_scan_bwd)
+from repro_torch.kernels.mamba_scan.kernel import CHK_STEPS
 from repro_torch.models import common
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The scan as one differentiable op, y of (x, dt, Bm, Cm, A) from
+    zeros: ``selective_scan`` with ``h_chk`` (the state before each
+    interval of CHK_STEPS steps), saving its inputs and ``h_chk``;
+    ``selective_scan_bwd`` recomputing each interval from them.  Both
+    wrappers launch their kernels for CUDA tensors and run the plain
+    versions for CPU tensors.  It keeps no state of its own, so it runs
+    again as it ran the first time under ``torch.utils.checkpoint``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, Bm, Cm, A):
+        B, S, D = x.shape
+        h_chk = torch.empty((B, -(-S // CHK_STEPS), D, A.shape[1]),
+                            dtype=torch.float32, device=x.device)
+        y, _ = selective_scan(x, dt, Bm, Cm, A, h_chk=h_chk, chunk=CHK_STEPS)
+        ctx.save_for_backward(x, dt, Bm, Cm, A, h_chk)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, dt, Bm, Cm, A, h_chk = ctx.saved_tensors
+        gx, gdt, gB, gC, gA, _ = selective_scan_bwd(
+            x, dt, Bm, Cm, A, h_chk, gy.contiguous(), chunk=CHK_STEPS)
+        return gx, gdt, gB, gC, gA
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _causal_conv1d(x, w, b, state=None, valid_len=None):
@@ -55,7 +93,8 @@ def _causal_conv1d(x, w, b, state=None, valid_len=None):
 
 def mamba1_block(x, p, cfg, state=None, valid_len=None):
     """Falcon-mamba block.  x: (B, S, D) bf16.  Returns (out, state): a new
-    state for ``state=None``, else ``state`` itself, written in place."""
+    state for ``state=None``, else ``state`` itself, written in place; in
+    training (``state=None`` with autograd on) no state (None)."""
     B, S, D = x.shape
     Di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
 
@@ -76,11 +115,17 @@ def mamba1_block(x, p, cfg, state=None, valid_len=None):
         dt = dt.masked_fill(pad[None, :, None], 0.0)
     A = -torch.exp(p["A_log"].float())                       # (Di, N)
     h0 = None if state is None else state["h"]
-    y, new_h = selective_scan(xs, dt, Bm, Cm, A, h0, h_out=h0)
+    train = state is None and _wants_grad(xs, dt, Bm, Cm, A)
+    if train:
+        y, new_h = SelectiveScan.apply(xs, dt, Bm, Cm, A), None
+    else:
+        y, new_h = selective_scan(xs, dt, Bm, Cm, A, h0, h_out=h0)
 
     y = y + p["Dskip"].float() * xs.float()
     y = y.to(x.dtype) * common.silu(z)
     out = y @ p["out_proj"]
+    if train:
+        return out, None
     if state is None:
         return out, {"conv": new_conv, "h": new_h}
     state["conv"].copy_(new_conv)
@@ -89,9 +134,11 @@ def mamba1_block(x, p, cfg, state=None, valid_len=None):
 
 def mamba2_block(x, p, cfg, state=None, valid_len=None):
     """Zamba2 block (single B/C group, scalar A per head).  x: (B, S, D)
-    bf16.  Returns (out, state) as ``mamba1_block`` does; h is (B, nh, P,
-    N) f32.  Every input of the recurrence is f32, as in the JAX block:
-    rounding x, dt, B or C to bf16 would move the result off it."""
+    bf16.  Returns (out, state) as ``mamba1_block`` does (no state in
+    training); h is (B, nh, P, N) f32.  Every input of the recurrence is
+    f32, as in the JAX block: rounding x, dt, B or C to bf16 would move the
+    result off it.  In training the gradients of ``dt_d`` and ``A_d`` sum
+    back over a head's P channels through their expansions."""
     B, S, D = x.shape
     Di, N = cfg.d_inner, cfg.ssm_state
     P, nh = cfg.ssm_head_dim, cfg.n_ssm_heads
@@ -115,7 +162,11 @@ def mamba2_block(x, p, cfg, state=None, valid_len=None):
     dt_d = dt[..., None].expand(B, S, nh, P).reshape(B, S, Di)
     A_d = A[:, None, None].expand(nh, P, N).reshape(Di, N)
     h0 = None if state is None else state["h"].view(B, Di, N)
-    y, new_h = selective_scan(xf, dt_d, Bm, Cm, A_d, h0, h_out=h0)
+    train = state is None and _wants_grad(xf, dt_d, Bm, Cm, A_d)
+    if train:
+        y, new_h = SelectiveScan.apply(xf, dt_d, Bm, Cm, A_d), None
+    else:
+        y, new_h = selective_scan(xf, dt_d, Bm, Cm, A_d, h0, h_out=h0)
 
     Dskip = p["Dskip2"].float()[:, None].expand(nh, P).reshape(Di)
     y = y + Dskip * xf
@@ -125,6 +176,8 @@ def mamba2_block(x, p, cfg, state=None, valid_len=None):
     y = y * torch.rsqrt(var + cfg.norm_eps)
     y = (y * (1.0 + p["gnorm"].float())).to(x.dtype)
     out = y @ p["out_proj"]
+    if train:
+        return out, None
     if state is None:
         return out, {"conv": new_conv, "h": new_h.view(B, nh, P, N)}
     state["conv"].copy_(new_conv)

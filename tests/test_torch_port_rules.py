@@ -19,11 +19,13 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import reconfig
 from repro_torch.core.tuner import TunerConfig, TuningManager
-from repro_torch.data.synthetic import (image_dataset, regression_dataset,
-                                        synthetic_batch)
+from repro_torch.data.synthetic import (image_dataset, input_specs,
+                                        regression_dataset, synthetic_batch)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
+from repro_torch.models.lm import _layer
+from repro_torch.models.moe import moe_block
 from repro_torch.ps.lm_job import DEFAULT_LM_SETTING, LMJob
 from repro_torch.serving import (DEFAULT_SERVING_SETTING,
                                  SERVING_RELAYOUT_KNOBS, Request,
@@ -136,20 +138,20 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
 @pytest.mark.parametrize("case", ["family", "ssm_train", "mesh_plan",
                                   "remesh_restore"])
 def test_later_slices_raise_not_implemented(case, tmp_path):
-    ssm = get_config("falcon-mamba-7b").reduced()
-    hybrid = get_config("zamba2-1.2b").reduced()
+    moe = get_config("llama4-scout-17b-a16e").reduced()
     mesh_plan = reconfig.plan(dict(DEFAULT_LM_SETTING, mesh_split="2x1"),
                               dict(DEFAULT_LM_SETTING, mesh_split="1x2"))
     call = {
-        # every family runs now; the hybrid family's training is left
-        "family": lambda: lm.loss_fn(
-            lm.init_params(hybrid, 0, device="cpu"),
-            {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64)}, hybrid),
-        "ssm_train": lambda: lm.loss_fn(
-            lm.init_params(ssm, 0, device="cpu"),
-            {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64)}, ssm),
+        # every family serves and trains now (ssm and hybrid training
+        # since the scan's backward); the two cases hold what is left: the
+        # decode kind of input_specs (the JAX package's dense per-slot
+        # cache, A7) and a moe block over a mesh (expert parallelism, A6)
+        "family": lambda: input_specs(CFG, ShapeConfig("d", 16, 2,
+                                                       "decode")),
+        "ssm_train": lambda: moe_block(
+            torch.zeros((4, moe.d_model), dtype=torch.bfloat16),
+            _layer(lm.init_params(moe, 0, device="cpu")["layers"], 0)["moe"],
+            moe, ms=object()),
         "mesh_plan": lambda: LMJob(CFG, device="cpu", n_devices=2)
         .state_adapter({}, mesh_plan),
         "remesh_restore": lambda: restore_pytree({}, str(tmp_path),
