@@ -9,6 +9,8 @@ output, go in without a cast or a copy.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
@@ -21,26 +23,27 @@ SHORT_S = 8                        # S at or below: the direct kernel
 SCAN_CHUNK = 32                    # the forward's staged chunk (kChunk)
 # The training forward (models/mamba.py SelectiveScan) keeps the state
 # before every CHK_STEPS steps (h_chk) for the backward, which recomputes
-# each interval from it.  64:
-# h_chk at zamba2's training shape (4 x 512 tokens, D 4096, N 64) is 33.5
-# MB a layer (1.27 GB over 38 layers; 67 MB a layer at 32), and the
-# backward's block keeps an interval's sub-interval starts (every 4 steps)
-# in shared memory, L / 4 x 4 KB beside 32 KB of sums: 96 KB at 64, two
-# blocks an SM.  CHK_MAX is the longest interval whose starts fit the 227
-# KB a block may opt in to (224 KB at 192).
-CHK_STEPS, CHK_MAX = 64, 192
-BWD_THREADS, BWD_NG = 256, 4       # the backward's block and states a thread
+# each interval from it.  64: h_chk at zamba2's training shape (4 x 512
+# tokens, D 4096, N 64) is 33.5 MB a layer (1.27 GB over 38 layers; 67 MB a
+# layer at 32), and an interval of 64 is the longest the backward stages
+# whole (its kSeg); it takes intervals of SCAN_CHUNK up to CHK_STEPS.
+CHK_STEPS = 64
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def bwd_plan(N: int) -> tuple[int, int]:
-    """(NG, d's a block) of the backward at state size N: BWD_NG states a
-    thread, G = N / NG lanes a d, BWD_THREADS threads a block.  The kernel
-    refuses any other plan."""
-    if N not in STATE_SIZES:
-        raise ValueError(f"selective_scan_bwd: state size N={N} not in "
-                         f"{STATE_SIZES}")
-    return BWD_NG, BWD_THREADS // (N // BWD_NG)
+def bwd_scratch(B: int, S: int, D: int, N: int) -> int:
+    """f32 elements of the backward's scratch, as its build plans it (one
+    gB and one gC row a cluster of blocks along d and a batch row); needs
+    the built library, so only where the card is."""
+    f = _build.library("mamba_scan_bwd").selective_scan_bwd_scratch
+    if f.argtypes is None:
+        f.argtypes = [ctypes.c_int] * 4
+        f.restype = ctypes.c_longlong
+    n = f(B, S, D, N)
+    if n < 0:
+        raise ValueError(f"selective_scan_bwd: no build for B={B}, S={S}, "
+                         f"D={D}, N={N} (N in {STATE_SIZES})")
+    return n
 
 
 def launch_plan(S: int, N: int) -> tuple[int, bool]:
@@ -166,9 +169,9 @@ def selective_scan_bwd(x, dt, Bm, Cm, A, h_chk, gy, *, chunk: int,
                          f"N), got {tuple(x.shape)} and {tuple(A.shape)}")
     B, S, D = x.shape
     N = A.shape[1]
-    if S < 1 or chunk <= 0 or chunk % SCAN_CHUNK or chunk > CHK_MAX:
+    if S < 1 or chunk <= 0 or chunk % SCAN_CHUNK or chunk > CHK_STEPS:
         raise ValueError(f"selective_scan_bwd: need S >= 1 and a chunk that "
-                         f"is a multiple of {SCAN_CHUNK} up to {CHK_MAX}, "
+                         f"is a multiple of {SCAN_CHUNK} up to {CHK_STEPS}, "
                          f"got S={S}, chunk={chunk}")
     f32 = torch.float32
     want = [("x", x, (B, S, D), _IO_DTYPES), ("dt", dt, (B, S, D), _IO_DTYPES),
@@ -185,7 +188,6 @@ def selective_scan_bwd(x, dt, Bm, Cm, A, h_chk, gy, *, chunk: int,
                                       want_gh0)
     if x.device.type != "cuda":
         raise ValueError(f"selective_scan_bwd: unsupported device {x.device}")
-    ng, dblock = bwd_plan(N)
     strides = bc_strides("Bm", Bm) + bc_strides("Cm", Cm)
     _build.check_cuda("selective_scan_bwd", x, dt, A, h_chk, gy)
     if Bm.device != x.device or Cm.device != x.device:
@@ -202,16 +204,14 @@ def selective_scan_bwd(x, dt, Bm, Cm, A, h_chk, gy, *, chunk: int,
     gC = torch.empty((B, S, N), dtype=Bm.dtype, device=dev)
     gA = torch.empty((D, N), dtype=f32, device=dev)
     gh0 = torch.empty((B, D, N), dtype=f32, device=dev) if want_gh0 else None
-    nblk = -(-D // dblock)
-    part = torch.empty(2 * B * nblk * S * N + B * D * N, dtype=f32,
-                       device=dev)
-    fn = _build.bind("mamba_scan_bwd", "selective_scan_bwd", 14, 14)
+    part = torch.empty(bwd_scratch(B, S, D, N), dtype=f32, device=dev)
+    fn = _build.bind("mamba_scan_bwd", "selective_scan_bwd", 14, 12)
     bf16 = torch.bfloat16
     err = fn(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
              A.data_ptr(), h_chk.data_ptr(), gy.data_ptr(), gx.data_ptr(),
              gdt.data_ptr(), gB.data_ptr(), gC.data_ptr(), gA.data_ptr(),
              None if gh0 is None else gh0.data_ptr(), part.data_ptr(), B, S,
-             D, N, chunk, ng, dblock, *strides, int(x.dtype == bf16),
+             D, N, chunk, *strides, int(x.dtype == bf16),
              int(dt.dtype == bf16), int(Bm.dtype == bf16),
              _build.stream_of(x))
     _build.check_launch(err, "selective_scan_bwd")

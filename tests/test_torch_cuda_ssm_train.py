@@ -1,18 +1,24 @@
 """PyTorch port on the card: the ssm and hybrid families' training path —
 the selective scan's forward with interval checkpoints (``h_chk``) and its
 backward kernel against autograd through the plain scan in f64, bit for
-bit across calls; a zero dt passing the gradient through; bf16 views'
+bit across calls, at every state size and at the backward's edges (a
+ragged last block and a cluster with a block wholly past D, one block, S
+ragged against the interval and the sub-interval, Bm and Cm at odd bf16
+and f32 offsets, inputs by cp.async and through registers); the
+backward's scratch the size its build plans; a zero dt passing the gradient through; bf16 views'
 gradients; the kernels' launch counts in a reduced model's training step;
 the remat settings giving equal gradients; and the flash backward at the
 hybrid's training shape.  Every test here needs an NVIDIA GPU and skips
 without one; ``python3 chip_smoke.py`` runs the same checks at full
 width."""
 import dataclasses
+import re
 
 import pytest
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.kernels import _build
 from repro_torch.core.tree import flatten, tree_map
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.flash_attention import (attention_bwd_ref,
@@ -65,10 +71,14 @@ def scan_inputs(dev, B, S, D, N, form, seed=0):
     """x, dt, Bm, Cm, A as the models hand them over: ``views`` is
     falcon-mamba's (x, dt bf16; Bm, Cm bf16 views of an x_proj output),
     ``f32`` zamba2's (everything f32, Bm, Cm f32 views), ``bf16`` all bf16
-    and contiguous.  A = -(1..N) (falcon-mamba's init)."""
+    and contiguous; ``odd`` as ``views`` with 3 columns before Bm, so Bm
+    and Cm start, and their rows step, at odd bf16 offsets (2-byte
+    aligned); ``odd_f32`` as ``f32`` with those 3 columns (4-byte aligned,
+    so the backward stages Bm and Cm through registers).  A = -(1..N)
+    (falcon-mamba's init)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     bf16, f32 = torch.bfloat16, torch.float32
-    io = f32 if form == "f32" else bf16
+    io = f32 if form in ("f32", "odd_f32") else bf16
     x = torch.randn((B, S, D), generator=g, device=dev).to(io)
     dt = torch.nn.functional.softplus(
         torch.randn((B, S, D), generator=g, device=dev) - 1.0).to(io)
@@ -76,8 +86,9 @@ def scan_inputs(dev, B, S, D, N, form, seed=0):
         Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev).to(bf16)
                   for _ in range(2))
     else:
-        proj = torch.randn((B, S, 8 + 2 * N), generator=g, device=dev).to(io)
-        _, Bm, Cm = proj.split([8, N, N], dim=-1)
+        R = 3 if form in ("odd", "odd_f32") else 8
+        proj = torch.randn((B, S, R + 2 * N), generator=g, device=dev).to(io)
+        _, Bm, Cm = proj.split([R, N, N], dim=-1)
     A = -torch.arange(1, N + 1, dtype=f32, device=dev).expand(D, N)
     return x, dt, Bm, Cm, A.contiguous()
 
@@ -130,10 +141,25 @@ SCAN_CASES = {
     "zamba2_f32": (2, 256, 512, 64, "f32", 64),
     "ragged_chunk32": (1, 37, 1024, 16, "views", 32),
     "short_direct": (2, 5, 512, 64, "f32", 64),
-    "bf16_chunk192": (1, 300, 256, 16, "bf16", 192),
+    # named for its earlier interval of 192; the backward takes intervals
+    # of 32 and 64 (CHK_STEPS), the longest it stages whole
+    "bf16_chunk192": (1, 300, 256, 16, "bf16", 64),
     "n4_f32": (2, 70, 512, 4, "f32", 32),
     "n8_views": (1, 90, 256, 8, "views", 64),
-    "n32_f32": (2, 100, 256, 32, "f32", 96),
+    "n32_f32": (2, 100, 256, 32, "f32", 32),
+    # the backward's edges: 21 blocks of 32 d's in clusters of 2, the last
+    # block holding 20 d's and the last cluster's second block wholly past
+    # D; one block (a cluster of one) with D = 42, not a multiple of 4, so
+    # dt, x and gy go through registers while Bm and Cm go by cp.async;
+    # S = 141 ragged against the interval (64) and the sub-interval (8);
+    # Bm, Cm at odd bf16 offsets, and at an f32 offset of 12 bytes (through
+    # registers while dt, x and gy go by cp.async)
+    "ragged_cluster": (2, 70, 660, 32, "f32", 64),
+    "one_block": (2, 50, 42, 8, "f32", 32),
+    "ragged_steps": (2, 141, 1024, 16, "views", 64),
+    "odd_views": (2, 100, 512, 16, "odd", 64),
+    "odd_views_n64": (1, 90, 256, 64, "odd", 32),
+    "odd_f32_n64": (1, 77, 256, 64, "odd_f32", 64),
 }
 
 
@@ -178,6 +204,43 @@ def test_scan_backward_matches_f64(dev, case):
         assert torch.isfinite(k.float()).all(), name
         err, floor = _rel_err(k, w), _rel_err(p, w)
         assert err <= 2 * floor + F32_ULPS, (name, err, floor)
+
+
+@pytest.mark.parametrize("case", ["falcon_views", "ragged_cluster",
+                                  "one_block"])
+def test_scan_backward_scratch_is_the_plans(dev, case, monkeypatch):
+    """The wrapper's one scratch tensor has the elements the build plans
+    (``bwd_scratch``, the kernel's ``selective_scan_bwd_scratch``): one gB
+    and gC row a cluster of blocks along d, as kMaxDB and kCluster in the
+    source give them, and none for gA."""
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    B, S, D, N, form, L = SCAN_CASES[case]
+    ins = scan_inputs(dev, B, S, D, N, form, seed=5)
+    gy = torch.randn((B, S, D), device=dev)
+    h_chk = torch.empty((B, -(-S // L), D, N), device=dev)
+    selective_scan(*ins, h_chk=h_chk, chunk=L)
+    sizes, empty = [], torch.empty
+
+    def spy(*shape, **kw):
+        t = empty(*shape, **kw)
+        sizes.append(tuple(t.shape))
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy)
+    selective_scan_bwd(*ins, h_chk, gy, chunk=L)
+    monkeypatch.setattr(torch, "empty", empty)
+    torch.cuda.synchronize()
+    src = (_build.CSRC / "mamba_scan_bwd.cu").read_text()
+    max_db, max_cluster = (
+        int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+        for n in ("kMaxDB", "kCluster"))
+    nblk = -(-D // min(max_db, 1024 // N))
+    cluster = 1
+    while cluster < max_cluster and cluster < nblk:
+        cluster *= 2
+    want = 2 * B * -(-nblk // cluster) * S * N
+    assert scan_kernel.bwd_scratch(B, S, D, N) == want
+    assert [sz for sz in sizes if len(sz) == 1] == [(want,)]
 
 
 def test_scan_backward_gives_the_initial_states_gradient(dev):
