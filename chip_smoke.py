@@ -256,8 +256,24 @@ Phases, in order; any failure exits non-zero before the result line:
              layers; the phase fails if a step at that depth runs out of
              memory), and 8 fixed steps there.
 
+15. mesh   — the ssm and hybrid states are freed; a world-1 NCCL process
+             group over a file:// store in a temporary directory, a 1x1
+             MeshSpec over its live DeviceMesh (one all-reduce proves the
+             group).  Full-width starcoder2-3b at phase 9's depth (30
+             layers, 4 x 512 tokens): the mesh build_train_step(ms=...)
+             (pull, compute, push, update) against the single-device step
+             from the same state on the same batches, 3 steps with no
+             compression and 3 with the int8 push: every loss and every
+             parameter leaf bit for bit, wall and CUDA-event ms of each
+             step, the flash and quant launches of the mesh steps.  At 4
+             layers: the checkpoint baseline's round trip (save under the
+             1x1 placement, restore_pytree(ms=1x1) into a fresh state)
+             bit for bit, with its seconds.  llama4-scout-17b-a16e at full
+             width, 1 layer: moe_block_ep on the 1x1 mesh against moe_block
+             on the same tokens at T = 8 and 2,048, bit for bit.
+
 Prints one JSON ``kernels`` line (launches: the serve arms', the training
-runs', the hybrid, moe, vlm, encoder and ssm training paths'), the card's
+runs', the hybrid, moe, vlm, encoder, ssm training and mesh paths'), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -5203,6 +5219,204 @@ def ssm_train_path(torch, card):
     return launches
 
 
+# ------------------------------------------------------------ phase 15
+MESH_STEPS = 3                     # steps a mode and arm
+MESH_CKPT_DEPTH = 4                # the baseline's round trip: 4 layers
+
+
+def _bits_equal(torch, a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(a, b))
+
+
+def mesh_steps(torch, ms):
+    """The mesh step against the single-device step at full width and
+    depth, both from seed 0's state on the same batches: no compression,
+    then the int8 push.  Returns the mesh steps' launches."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.ps.lm_job import (DEFAULT_LM_SETTING, LMJob,
+                                       setting_to_stepknobs)
+    from repro_torch.ps.stepfn import build_train_step
+    cfg = _train_cfg()
+    job = LMJob(cfg, batch=TRAIN_B, seq=TRAIN_S)
+    launches = {}
+    for mode in ("none", "int8"):
+        setting = dict(DEFAULT_LM_SETTING, compression=mode)
+        knobs = setting_to_stepknobs(setting)
+        ref = None
+        for arm in ("single", "mesh"):
+            state = job.init_state(setting, seed=0)
+            step = build_train_step(cfg, job.tc, knobs,
+                                    ms=ms if arm == "mesh" else None)
+            batches = job.batches(0)
+            reset_launches()
+            losses, walls, evs = [], [], []
+            for _ in range(MESH_STEPS):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                batch = next(batches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a.record()
+                state, m = step(state, batch)
+                b.record()
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                evs.append(a.elapsed_time(b))
+            leaves = list(_leaves(state["params"]))
+            if leaves[0].device.type != "cuda":
+                fail(f"mesh[{mode}]: the {arm} state is not on the card")
+            print(f"mesh[{mode} {arm}]: {cfg.n_layers} layers, "
+                  f"{TRAIN_B} x {TRAIN_S} tokens: losses {losses}, wall ms "
+                  f"{[round(w, 2) for w in walls]}, CUDA-event ms "
+                  f"{[round(e, 2) for e in evs]}", flush=True)
+            if arm == "single":
+                ref = (losses, [t.clone() for t in leaves])
+            else:
+                for k, n in LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + n
+                diff = [i for i, (x, y) in enumerate(zip(ref[1], leaves))
+                        if not _bits_equal(torch, x, y)]
+                gap = max((float((ref[1][i].float() - leaves[i].float())
+                                 .abs().max()) for i in diff), default=0.0)
+                same = losses == ref[0] and not diff
+                print(f"mesh[{mode}]: 1x1 mesh step vs single-device step: "
+                      f"losses {'equal' if losses == ref[0] else 'DIFFER'}"
+                      f", {len(leaves) - len(diff)} of {len(leaves)} "
+                      f"parameter leaves bit for bit"
+                      + ("" if same else f" (largest |diff| {gap:.3g})"),
+                      flush=True)
+                if not same:
+                    fail(f"mesh[{mode}]: the 1x1 mesh step is not the "
+                         f"single-device step")
+            del state, step, leaves
+            gc.collect()
+            torch.cuda.empty_cache()
+        del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    need = ("flash_attention", "flash_attention_bwd", "quantize",
+            "dequantize")
+    print(f"mesh: launches of the mesh steps {launches}", flush=True)
+    if not all(launches.get(k) for k in need):
+        fail(f"the mesh steps never launched {need}: {launches}")
+    return launches
+
+
+def mesh_checkpoint(torch, ms):
+    """The checkpoint baseline's round trip at full width, 4 layers: a
+    state after one mesh step saved under the 1x1 placement and restored
+    by the elastic re-mesh restore into another seed's state."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.ps.lm_job import DEFAULT_LM_SETTING, LMJob
+    from repro_torch.ps.stepfn import build_train_step
+    cfg = _train_cfg(MESH_CKPT_DEPTH)
+    job = LMJob(cfg, batch=TRAIN_B, seq=TRAIN_S)
+    state = job.init_state(DEFAULT_LM_SETTING, seed=0)
+    state, _ = build_train_step(cfg, job.tc, ms=ms)(state,
+                                                     next(job.batches(0)))
+    specs = job.specs(DEFAULT_LM_SETTING)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pytree(state, d, step=1, ms=ms, specs=specs)
+        t_save = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(d).rglob("*")) / 1e9
+        fresh = job.init_state(DEFAULT_LM_SETTING, seed=1)
+        t0 = time.perf_counter()
+        fresh, meta = restore_pytree(fresh, d, ms=ms)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    a, b = list(_leaves(state)), list(_leaves(fresh))
+    same = sum(_bits_equal(torch, x, y) for x, y in zip(a, b))
+    print(f"mesh[checkpoint]: {cfg.n_layers} layers at full width, "
+          f"{size:.2f} GB: save {t_save:.1f}s, restore_pytree(ms=1x1) "
+          f"{t_restore:.1f}s, from step {meta['step']}: {same} of {len(a)} "
+          f"leaves bit for bit", flush=True)
+    if same != len(a):
+        fail("mesh checkpoint: the restored state differs")
+    del state, fresh, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_moe(torch, ms):
+    """moe_block_ep on the 1x1 mesh against moe_block, full-width
+    llama4-scout-17b-a16e's layer 0, decode- and training-sized T."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm, moe
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              n_layers=1)
+    p = lm._layer(lm.init_params(cfg, seed=0, device="cuda")["layers"],
+                  0)["moe"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for T in (8, TRAIN_B * TRAIN_S):
+        x = torch.randn((T, cfg.d_model), generator=g, device="cuda").to(
+            torch.bfloat16)
+        with torch.no_grad():
+            before = dict(moe.DISPATCH)
+            ep = moe.moe_block_ep(x, p, cfg, ms)
+            if moe.DISPATCH["ep"] - before["ep"] != 1:
+                fail("mesh[moe]: moe_block_ep did not take expert "
+                     "parallelism")
+            ref = moe.moe_block(x, p, cfg)
+            ms_ep = timed_ms(torch, lambda: moe.moe_block_ep(x, p, cfg, ms),
+                             iters=5)
+            ms_ref = timed_ms(torch, lambda: moe.moe_block(x, p, cfg),
+                              iters=5)
+        same = all(_bits_equal(torch, a, b) for a, b in zip(ep, ref))
+        gap = float((ep[0].float() - ref[0].float()).abs().max())
+        print(f"mesh[moe T={T}]: moe_block_ep on 1x1 vs moe_block: "
+              + ("bit for bit" if same else f"|diff| {gap:.3g}")
+              + f" (tolerance: bit for bit; {cfg.n_experts} experts on the "
+              f"one model rank), aux {float(ep[1]):.6f}; {ms_ep:.3f} ms vs "
+              f"{ms_ref:.3f} ms a call", flush=True)
+        if not same:
+            fail(f"mesh[moe T={T}]: moe_block_ep differs from moe_block")
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_path(torch, card):
+    """Phase 15: the mesh over NCCL at world size 1.  Returns the
+    launches of the mesh steps."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_meshspec
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        init_distributed("cuda", f"file://{d}/store", rank=0, world_size=1)
+        try:
+            if dist.get_backend() != "nccl":
+                fail(f"mesh: the process group runs {dist.get_backend()}")
+            ms = make_meshspec(1, 1)
+            one = torch.ones(4, device="cuda")
+            dist.all_reduce(one, group=ms.data_group)
+            torch.cuda.synchronize()
+            print(f"mesh: world 1 over {dist.get_backend()}, "
+                  f"{ms.mesh}, coord {ms.coord}, one all-reduce done",
+                  flush=True)
+            launches = mesh_steps(torch, ms)
+            print(f"phase 15: mesh steps done at "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
+            mesh_checkpoint(torch, ms)
+            mesh_moe(torch, ms)
+        finally:
+            dist.destroy_process_group()
+    print(f"mesh: phase 15 in {time.perf_counter() - t0:.1f}s, launches "
+          f"{launches}, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB", flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -5285,6 +5499,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     for name, n in ssm_train_path(torch, card).items():
+        launches[name] += n
+    # free the ssm and hybrid training states before the mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in mesh_path(torch, card).items():
         launches[name] += n
 
     line = {"kernels": [

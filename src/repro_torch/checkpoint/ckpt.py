@@ -14,8 +14,14 @@ The port streams: ``save_pytree`` copies one leaf at a time to the host
 and into the archive, and ``restore_pytree`` reads one leaf at a time and
 copies it into the template's tensor **in place**, so a full-width state
 (51.7 GB) never needs a second copy on the card or a whole copy in host
-memory.  The elastic re-mesh restore (``ms=`` / ``specs=``) comes with the
-mesh slice and raises.
+memory.
+
+On a mesh (``ms=`` / ``specs=``, the state's placement) each leaf is
+gathered whole, one at a time, and the mesh's first rank writes the
+archive the JAX package writes; the other ranks wait at a barrier.
+``restore_pytree(ms=)`` is the elastic re-mesh restore: every rank of the
+mesh reads each leaf and keeps its shard, on any mesh, a smaller one
+included (a restart on fewer devices).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import flatten
+from repro_torch.distributed.sharding import gather, param_pspec, shard
 
 _NP_DTYPES = {torch.float32: "float32", torch.int32: "int32",
               torch.int64: "int64", torch.bfloat16: "bfloat16",
@@ -50,14 +57,49 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def save_pytree(tree, directory: str, step: int, extras: dict | None = None):
+def _writer(ms) -> bool:
+    return ms is None or ms.n_devices == 1 or not any(ms.coord.values())
+
+
+def _mesh_barrier(ms):
+    """Every rank of the mesh waits for every other (the data axes, then
+    the model axis: a rank past both has seen every rank arrive)."""
+    if ms is None or ms.n_devices == 1:
+        return
+    import torch.distributed as dist
+    for axes, n in ((ms.data_axes, ms.data_size),
+                    (ms.model_axis, ms.model_size)):
+        if n > 1:
+            dist.barrier(group=ms.group(axes))
+
+
+def save_pytree(tree, directory: str, step: int, extras: dict | None = None,
+                ms=None, specs=None):
     """Write ``tree`` (nested dict of tensors) as checkpoint ``step``;
-    returns its directory."""
+    returns its directory.  ``ms`` / ``specs``: the tree is this rank's
+    shards of a state placed per ``specs`` on ``ms``, and every rank of the
+    mesh calls it."""
+    if ms is not None and ms.n_devices > 1:
+        if specs is None:
+            raise ValueError("a sharded save needs the state's specs")
+        paths, lv = flatten(tree)
+        lv = (gather(x, s, ms) for x, s in zip(lv, flatten(specs)[1]))
+        final = os.path.join(directory, f"step_{step}")
+        if _writer(ms):
+            _write(paths, lv, directory, step, extras)
+        else:
+            for _ in lv:                    # take part in every gather
+                pass
+        _mesh_barrier(ms)
+        return final
+    return _write(*flatten(tree), directory, step, extras)
+
+
+def _write(paths, leaves, directory, step, extras):
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f".tmp_step_{step}_{os.getpid()}")
     final = os.path.join(directory, f"step_{step}")
     os.makedirs(tmp, exist_ok=True)
-    paths, leaves = flatten(tree)
     dtypes = []
     # np.savez's own format (an uncompressed zip of .npy members), written
     # a leaf at a time
@@ -93,11 +135,14 @@ def restore_pytree(template, directory: str, step: int | None = None,
     """Restore checkpoint ``step`` (default: the latest) into ``template``
     (nested dict of tensors, the structure and dtypes wanted): every leaf
     is copied into the template's tensor in place, converted to its dtype
-    and device.  Returns (template, meta)."""
-    if ms is not None or specs is not None:
-        raise NotImplementedError(
-            "the elastic re-mesh restore (ms=, specs=) is not ported yet: "
-            "it comes with the mesh slice")
+    and device.  Returns (template, meta).
+
+    ``ms``: the elastic re-mesh restore onto that mesh; the template holds
+    this rank's shards, and each leaf's spec is ``specs``' or, by default,
+    the parameter rule of its path at its stored (whole) shape, as the JAX
+    package places a restored leaf."""
+    if ms is not None and ms.live and ms.coord is None:
+        raise ValueError("this rank is not in the mesh it restores onto")
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -106,12 +151,17 @@ def restore_pytree(template, directory: str, step: int | None = None,
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
     tmpl = flatten(template)[1]
+    sl = flatten(specs)[1] if specs is not None else None
     if len(tmpl) != len(meta["dtypes"]):
         raise ValueError(f"checkpoint has {len(meta['dtypes'])} leaves, "
                          f"template {len(tmpl)}")
     with np.load(os.path.join(d, "arrays.npz")) as data:
         for i, (dt, t) in enumerate(zip(meta["dtypes"], tmpl)):
             src = _from_numpy(data[f"a{i}"], dt)
+            if ms is not None:
+                spec = (sl[i] if sl is not None
+                        else param_pspec(meta["paths"][i], src.shape, ms))
+                src = shard(src, spec, ms)
             if tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"leaf {meta['paths'][i]}: checkpoint "
                                  f"shape {tuple(src.shape)}, template "
@@ -123,16 +173,24 @@ def restore_pytree(template, directory: str, step: int | None = None,
 class CheckpointManager:
     """Periodic checkpointing with retention (fault-tolerance substrate)."""
 
-    def __init__(self, directory: str, every: int = 100, keep: int = 3):
+    def __init__(self, directory: str, every: int = 100, keep: int = 3,
+                 placement=None):
+        """``placement``: for a sharded state, a callable returning the
+        state's current (ms, specs) (``LMJob.placement``); every rank of
+        the mesh then calls ``maybe_save`` and the first one writes."""
         self.directory = directory
         self.every = every
         self.keep = keep
+        self.placement = placement
 
     def maybe_save(self, tree, step: int, extras: dict | None = None):
         if self.every <= 0 or step % self.every:
             return None
-        path = save_pytree(tree, self.directory, step, extras)
-        self._gc()
+        ms, specs = self.placement() if self.placement else (None, None)
+        path = save_pytree(tree, self.directory, step, extras, ms=ms,
+                           specs=specs)
+        if _writer(ms):
+            self._gc()
         return path
 
     def _gc(self):
@@ -145,5 +203,5 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
                           ignore_errors=True)
 
-    def restore_latest(self, template):
-        return restore_pytree(template, self.directory)
+    def restore_latest(self, template, ms=None, specs=None):
+        return restore_pytree(template, self.directory, ms=ms, specs=specs)

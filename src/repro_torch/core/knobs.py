@@ -140,5 +140,29 @@ class KnobSpace:
         return total
 
 
+def default_ps_knob_space(n_devices: int = 1,
+                          include_mesh: bool = True) -> KnobSpace:
+    """The STPS analogue of the paper's Table I knob set; ``mesh_split``
+    as (dp, tp) tuples, every power-of-two dp that divides the devices."""
+    knobs = [
+        Knob("microbatches", "ordinal", (1, 2, 4, 8)),
+        Knob("remat", "nominal", ("none", "dots", "full")),
+        Knob("compression", "nominal", ("none", "bf16", "int8")),
+        Knob("staleness", "ordinal", (0, 1, 2, 4)),
+        Knob("k_chunk", "ordinal", (256, 512, 1024, 2048)),
+        Knob("ce_chunk", "ordinal", (0, 512, 1024)),
+        Knob("scan_unroll", "ordinal", (1, 2)),
+    ]
+    if include_mesh and n_devices > 1:
+        splits = []
+        dp = 1
+        while dp <= n_devices:
+            if n_devices % dp == 0:
+                splits.append((dp, n_devices // dp))
+            dp *= 2
+        knobs.append(Knob("mesh_split", "nominal", tuple(splits)))
+    return KnobSpace(tuple(knobs))
+
+
 def setting_key(setting: dict) -> tuple:
     return tuple(sorted(setting.items()))

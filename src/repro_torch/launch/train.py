@@ -31,6 +31,17 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
       --reduced --device cpu --steps 50 --ckpt-dir /tmp/ck --resume
 
+Under ``torchrun --nproc-per-node N`` it runs one process a device (NCCL
+on the cards, gloo with ``--device cpu``): each rank holds its shards of
+the state, the batch is split over the data axes, rank 0 alone prints,
+tunes and writes the checkpoints and the trace, and ``--self-tune`` adds
+the ``mesh_split`` knob (Type I-b: ODMR or the checkpoint baseline)::
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch starcoder2-3b --reduced --device cpu --self-tune --steps 60
+
+Without torchrun's environment it runs on one device.
+
 ``--self-tune`` turns on the tuner; otherwise the default setting runs
 fixed.  Weights are random, drawn from ``--seed``.  The dense, moe, vlm,
 ssm and hybrid families train (moe: the router's load-balancing loss,
@@ -52,6 +63,7 @@ import numpy as np
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.registry import get_config
 from repro_torch.core.tuner import TunerConfig, TuningManager
+from repro_torch.launch.mesh import init_distributed, launched, world
 from repro_torch.obs import NOP_TRACER, Tracer, write_chrome_trace
 from repro_torch.obs.report import format_attribution, time_attribution
 from repro_torch.ps.lm_job import DEFAULT_LM_SETTING, LMJob, lm_knob_space
@@ -82,6 +94,23 @@ def main(argv=None):
                          "loadable) of the run")
     args = ap.parse_args(argv)
 
+    if launched():
+        init_distributed(args.device or "cuda")
+    try:
+        run(args)
+    finally:
+        if launched():
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def run(args):
+    lead = world()[0] == 0
+
+    def say(*a):
+        if lead:
+            print(*a, flush=True)
+
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -93,21 +122,25 @@ def main(argv=None):
     job = LMJob(cfg, batch=args.batch, seq=args.seq, seed=args.seed,
                 device=args.device)
     job.eps = args.eps
-    print(f"arch={cfg.name} params={cfg.n_params():,} device={job.device}",
-          flush=True)
+    say(f"arch={cfg.name} params={cfg.n_params():,} device={job.device} "
+        f"ranks={job.n_devices}")
 
-    ckpt = (CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
+    ckpt = (CheckpointManager(args.ckpt_dir, every=args.ckpt_every,
+                              placement=job.placement)
             if args.ckpt_dir else None)
     setting = dict(DEFAULT_LM_SETTING)
+    if job.n_devices > 1:                 # the whole world as data ranks
+        setting["mesh_split"] = f"{job.n_devices}x1"
     state = job.init_state(setting, args.seed)
     if args.resume and ckpt is not None:
         try:
-            state, meta = ckpt.restore_latest(state)
-            print(f"resumed from step {meta['step']}", flush=True)
+            ms, specs = job.placement()
+            state, meta = ckpt.restore_latest(state, ms=ms, specs=specs)
+            say(f"resumed from step {meta['step']}")
         except FileNotFoundError:
-            print("no checkpoint found; starting fresh", flush=True)
+            say("no checkpoint found; starting fresh")
 
-    tracer = Tracer() if args.trace else None
+    tracer = Tracer() if args.trace and lead else None
     t_run0 = time.perf_counter()
     if args.self_tune:
         space = lm_knob_space(job.n_devices)
@@ -117,13 +150,14 @@ def main(argv=None):
                               checkpoint_manager=ckpt, tracer=tracer)
         res, state = loop.run(state, job.batches(args.seed),
                               max_iters=args.steps, verbose=True)
-        print(f"done: iters={res.iterations} wall={res.wall_time_s:.1f}s "
-              f"loss={res.final_loss:.4f} converged={res.converged} "
-              f"reconfig_s={res.reconfig_total_s:.1f}", flush=True)
-        print(f"final setting: {tuner.current}", flush=True)
-        rep = tuner.progress_report()
-        print(f"progress indicator: remaining ~{rep['remaining_iters']:.0f} "
-              f"iters / {rep['remaining_time_s']:.1f}s", flush=True)
+        say(f"done: iters={res.iterations} wall={res.wall_time_s:.1f}s "
+            f"loss={res.final_loss:.4f} converged={res.converged} "
+            f"reconfig_s={res.reconfig_total_s:.1f}")
+        if lead:
+            say(f"final setting: {tuner.current}")
+            rep = tuner.progress_report()
+            say(f"progress indicator: remaining ~{rep['remaining_iters']:.0f}"
+                f" iters / {rep['remaining_time_s']:.1f}s")
     else:
         tr = tracer or NOP_TRACER
         step = job.step_builder(setting)
@@ -137,24 +171,24 @@ def main(argv=None):
             if ckpt is not None:
                 ckpt.maybe_save(state, it, {"loss": losses[-1]})
             if it % 20 == 0:
-                print(f"[{it}] loss={np.mean(losses[-20:]):.4f} "
-                      f"({(time.perf_counter()-t0)/it*1000:.0f} ms/it)",
-                      flush=True)
+                say(f"[{it}] loss={np.mean(losses[-20:]):.4f} "
+                    f"({(time.perf_counter()-t0)/it*1000:.0f} ms/it)")
+            # the loss is averaged over the ranks: every rank stops together
             if np.mean(losses[-8:]) <= args.eps and len(losses) >= 8:
-                print("converged", flush=True)
+                say("converged")
                 break
-        print(f"done: iters={len(losses)} loss={losses[-1]:.4f}", flush=True)
+        say(f"done: iters={len(losses)} loss={losses[-1]:.4f}")
     if tracer is not None:
         wall = time.perf_counter() - t_run0
         audit = tuner.audit if args.self_tune else None
         attr = time_attribution(tracer, wall, audit=audit,
                                 extra_keys=("train_step",))
-        print(format_attribution(attr), flush=True)
+        say(format_attribution(attr))
         n_ev = write_chrome_trace(args.trace, tracer,
                                   process_name=f"train:{cfg.name}")
-        print(f"trace: {n_ev} events -> {args.trace} "
-              f"(load in https://ui.perfetto.dev)", flush=True)
-    print("OK", flush=True)
+        say(f"trace: {n_ev} events -> {args.trace} "
+            f"(load in https://ui.perfetto.dev)")
+    say("OK")
 
 
 if __name__ == "__main__":

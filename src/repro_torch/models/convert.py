@@ -10,6 +10,9 @@ Layer weights stay stacked on the leading L axis and matrices keep JAX's
 (in, out) orientation: nothing is transposed, so ``x @ w`` is JAX's
 ``einsum("bsd,dh->bsh")``.
 
+``params_to_mesh`` places such a tree on a mesh, each rank keeping its
+shards.
+
 ``torch.from_numpy`` rejects ml_dtypes' bfloat16, so bf16 leaves go
 through float32 (exact for bf16 values) and are cast back.
 
@@ -45,6 +48,24 @@ def params_from_numpy(tree: dict, device=None) -> dict:
                 else _to_tensor(t, dev))
 
     return conv(tree)
+
+
+def params_to_mesh(tree: dict, ms, device=None, specs=None) -> dict:
+    """The JAX package's parameters (a nested dict of numpy arrays) placed
+    on a mesh: this rank's shard of every leaf, per ``specs`` (default:
+    ``param_specs`` of the whole shapes), each its own tensor on
+    ``device``."""
+    from repro_torch.distributed.sharding import param_specs, shard
+    dev = resolve_device(device)
+    specs = specs if specs is not None else param_specs(tree, ms)
+
+    def conv(t, s):
+        if isinstance(t, dict):
+            return {k: conv(v, s[k]) for k, v in t.items()}
+        return shard(_to_tensor(t, "cpu"), s, ms).to(dev).clone(
+            memory_format=torch.contiguous_format)
+
+    return conv(tree, specs)
 
 
 def train_state_from_numpy(state: dict, device=None) -> dict:

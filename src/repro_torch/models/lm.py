@@ -284,12 +284,13 @@ def _mlp_apply(x, p):
 
 def _attn_layer(x, lp, cfg: ModelConfig, knobs: ModelKnobs, positions,
                 rope, cache=None, pos=None, block_tables=None, rows=None,
-                want_aux: bool = False):
+                want_aux: bool = False, ms=None):
     """One layer of the dense and moe families: attention, then the SwiGLU
     MLP or (moe) the routed experts over the B*S tokens.  Returns (x, kv,
     aux): kv as ``_attn_apply``'s; aux the router's load-balancing loss
     with ``want_aux`` (training), else None (the serving paths, where the
-    JAX package discards it)."""
+    JAX package discards it).  ``ms``: the training mesh, for the moe
+    block's expert parallelism."""
     B, S, D = x.shape
     h, kv = _attn_apply(common.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps),
                         lp["attn"], cfg, knobs, positions, rope, cache, pos,
@@ -298,7 +299,7 @@ def _attn_layer(x, lp, cfg: ModelConfig, knobs: ModelKnobs, positions,
     xn = common.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps)
     if not cfg.uses_moe:
         return x + _mlp_apply(xn, lp["mlp"]), kv, None
-    y, aux = moe_block(xn.reshape(B * S, D), lp["moe"], cfg,
+    y, aux = moe_block(xn.reshape(B * S, D), lp["moe"], cfg, ms=ms,
                        want_aux=want_aux)
     return x + y.reshape(B, S, D), kv, aux
 
@@ -384,7 +385,7 @@ def _embed(params, cfg: ModelConfig, tokens, frontend=None):
 
 def forward(params, tokens, cfg: ModelConfig,
             knobs: ModelKnobs = ModelKnobs(), mode: str = "prefill",
-            cache=None, pos=None, valid_len=None, frontend=None):
+            cache=None, pos=None, valid_len=None, frontend=None, ms=None):
     """tokens: (B, S) int, or None for the encoder, whose B and S come
     from ``frontend``.  Returns (hidden (B, S, D), cache).
 
@@ -410,7 +411,11 @@ def forward(params, tokens, cfg: ModelConfig,
 
     ``frontend`` (prefill and train only): the vlm's image patches (B, P,
     F) before the tokens, the hidden states then covering P + S
-    positions, or the encoder's frames (B, S, F) (``_embed``)."""
+    positions, or the encoder's frames (B, S, F) (``_embed``).
+
+    ``ms`` (train only): the mesh of a mesh step, handed to the moe
+    block (expert parallelism); the rest of the forward is the rank's own
+    (its batch shard, the pulled parameters)."""
     check_family(cfg)
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode {mode!r}: prefill | decode | train")
@@ -419,7 +424,7 @@ def forward(params, tokens, cfg: ModelConfig,
     if frontend is not None and mode == "decode":
         raise ValueError("frontend: a decode step takes tokens only")
     if mode == "train" and cfg.family in ATTN_FAMILIES:
-        return _forward_train(params, tokens, cfg, knobs, frontend)
+        return _forward_train(params, tokens, cfg, knobs, frontend, ms)
     x = _embed(params, cfg, tokens, frontend)
     if cfg.family in ("ssm", "hybrid"):
         if mode != "prefill" or valid_len is None:
@@ -455,7 +460,7 @@ def forward(params, tokens, cfg: ModelConfig,
 
 
 def _forward_train(params, tokens, cfg: ModelConfig, knobs: ModelKnobs,
-                   frontend=None):
+                   frontend=None, ms=None):
     """The training forward of the dense, moe, vlm and encoder families: no
     KV kept, nothing written in place; each layer goes through
     ``_maybe_remat``.  Returns (hidden, aux): aux the mean of the layers'
@@ -467,7 +472,7 @@ def _forward_train(params, tokens, cfg: ModelConfig, knobs: ModelKnobs,
 
     def body(x, lp):
         x, _, aux = _attn_layer(x, lp, cfg, knobs, positions, rope,
-                                want_aux=True)
+                                want_aux=True, ms=ms)
         return x, aux
 
     body = _maybe_remat(body, knobs)
@@ -577,7 +582,7 @@ def logits_fn(params, hidden, cfg: ModelConfig):
 
 
 def loss_fn(params, batch, cfg: ModelConfig,
-            knobs: ModelKnobs = ModelKnobs()):
+            knobs: ModelKnobs = ModelKnobs(), ms=None):
     """Mean cross entropy of ``batch["tokens"]`` against ``batch["labels"]``
     (pre-shifted by the data pipeline), with f32 logits, plus
     ``router_aux_weight`` x the mean router aux loss of the moe layers.
@@ -585,9 +590,12 @@ def loss_fn(params, batch, cfg: ModelConfig,
     splits the positions into chunks when it divides S.  With
     ``batch["frontend"]`` vlm patches the loss covers the last S hidden
     positions, the text's; an encoder batch is ``{"frontend", "labels"}``,
-    frames with a label each, and the loss covers every frame."""
+    frames with a label each, and the loss covers every frame.  ``ms``:
+    the mesh of a mesh step (``forward``); the loss is the rank's, over
+    its batch shard."""
     hidden, aux = forward(params, batch.get("tokens"), cfg, knobs,
-                          mode="train", frontend=batch.get("frontend"))
+                          mode="train", frontend=batch.get("frontend"),
+                          ms=ms)
     labels = batch["labels"]
     B, S = labels.shape
     if hidden.shape[1] != S:                # vlm: text positions only

@@ -15,8 +15,15 @@ allocator's warm-up.  The step is not captured as a CUDA graph: a captured
 training step would keep a private pool of full-width activations (several
 GB) for every setting the cache holds.
 
-Type I-b (placement over a mesh) comes with the mesh slice: ``LMJob``'s
-adapter raises on such a plan.
+  Type I-b  — relocate the state onto another mesh (``LMJob``'s adapter:
+              ODMR or the checkpoint + restore baseline).
+
+Multi-controller (one process a device, a process group up): rank 0
+alone measures, feeds the tuner and decides; it broadcasts whether to go
+on and every plan, so every rank applies the same plan at the same
+iteration (the ranks' step times differ, and a tuner a rank would
+diverge).  Every rank calls the checkpoint manager (a sharded save
+gathers on every rank; the mesh's first rank writes).
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from repro_torch.core.lru import LRUCache
 from repro_torch.core.reconfig import ReconfigPlan
 from repro_torch.core.tree import leaves
 from repro_torch.device import synchronize
+from repro_torch.launch.mesh import world
 from repro_torch.obs.trace import NOP_TRACER
 
 
@@ -75,25 +83,39 @@ class SelfTuningLoop:
     def run(self, state, batch_iter, max_iters: int = 10_000,
             verbose: bool = False) -> tuple[LoopResult, object]:
         tuner = self.tuner
+        rank, size = world()
+        lead = rank == 0
+        verbose = verbose and lead
+
+        def from_lead(obj):
+            if size == 1:
+                return obj
+            import torch.distributed as dist
+            box = [obj]
+            dist.broadcast_object_list(box, src=0)
+            return box[0]
+
         dev = _device_of(state)
         batch = next(batch_iter)
         step = self._get_step(tuner.current)
         t_start = time.perf_counter()
         reconfig_total = 0.0
         it = 0
-        while it < max_iters and not tuner.converged:
+        loss = float("nan")
+        while from_lead(lead and it < max_iters and not tuner.converged):
             t0 = time.perf_counter()
             with self.tracer.span("train.step", it=it):
                 state, metrics = step(state, batch)
                 loss = float(metrics["loss"])      # waits for the step
             dt = time.perf_counter() - t0
             it += 1
-            tuner.record_iteration(loss, dt)
+            if lead:
+                tuner.record_iteration(loss, dt)
             if self.ckpt is not None:
                 self.ckpt.maybe_save(state, it, {"loss": loss})
             batch = next(batch_iter)
 
-            plan = tuner.maybe_advance()
+            plan = from_lead(tuner.maybe_advance() if lead else None)
             if plan is not None:
                 with self.tracer.span("reconfig.apply",
                                       kinds=",".join(plan.kinds)):
@@ -105,7 +127,8 @@ class SelfTuningLoop:
                     synchronize(dev)
                     rcost = time.perf_counter() - r0
                 reconfig_total += rcost
-                tuner.record_reconfig(plan, rcost)
+                if lead:
+                    tuner.record_reconfig(plan, rcost)
                 if verbose:
                     print(f"[reconfig@{it}] {plan.kinds} -> {tuner.current} "
                           f"({rcost:.3f}s)", flush=True)
@@ -113,12 +136,14 @@ class SelfTuningLoop:
                 print(f"[{it}] loss={loss:.4f} setting={tuner.current}",
                       flush=True)
         wall = time.perf_counter() - t_start
+        # the other ranks' tuners saw nothing: they report their own loss
+        # and the lead's verdict
         return LoopResult(
             iterations=it, wall_time_s=wall,
-            final_loss=tuner.repo.latest_loss,
-            converged=tuner.converged,
+            final_loss=tuner.repo.latest_loss if lead else loss,
+            converged=from_lead(tuner.converged if lead else None),
             reconfig_total_s=reconfig_total,
-            history=tuner.history,
+            history=tuner.history if lead else [],
         ), state
 
 

@@ -19,6 +19,8 @@ from repro.optim import make_optimizer as j_make_optimizer
 from repro_torch.checkpoint import (CheckpointManager, latest_step,
                                     restore_pytree, save_pytree)
 from repro_torch.core.tree import flatten, tree_map
+from repro_torch.distributed.sharding import single_device_meshspec
+from repro_torch.launch.mesh import make_meshspec
 from repro_torch.models.convert import (train_state_from_numpy,
                                         train_state_to_numpy)
 from repro_torch.ps.lm_job import DEFAULT_LM_SETTING, LMJob
@@ -106,8 +108,14 @@ def test_restore_refuses_another_structure_and_a_mesh(tmp_path):
     with pytest.raises(ValueError, match="shape"):
         restore_pytree({"a": torch.ones(4), "b": {"c": torch.zeros(2)}},
                        str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        restore_pytree(state, str(tmp_path), ms=object())
+    # the re-mesh restore: onto the one-device mesh every leaf is whole;
+    # a mesh larger than the world cannot be laid
+    fresh = {"a": torch.zeros(3), "b": {"c": torch.ones(2, dtype=torch.int32)}}
+    got, _ = restore_pytree(fresh, str(tmp_path), ms=single_device_meshspec())
+    assert torch.equal(got["a"], state["a"]) and torch.equal(
+        got["b"]["c"], state["b"]["c"])
+    with pytest.raises(ValueError, match="needs 2 ranks; the world has 1"):
+        restore_pytree(state, str(tmp_path), ms=make_meshspec(2, 1))
     with pytest.raises(FileNotFoundError):
         restore_pytree(state, str(tmp_path / "none"))
 

@@ -165,9 +165,20 @@ def test_capacity_matches_jax(T, k, E, cf):
 
 
 def test_moe_block_over_a_mesh_is_not_ported():
+    """Over the one-device mesh moe_block takes the single-device path
+    (as the JAX package's does) and moe_block_ep, all experts on the one
+    model rank, gives the same bits; a larger mesh needs its ranks
+    (tests/test_torch_mesh.py runs them)."""
+    from repro_torch.distributed.sharding import single_device_meshspec
+    from repro_torch.launch.mesh import make_meshspec
     _, tcfg, _, tp, _, tx = _block_case(ARCHS[0], 1, 4.0, "f32", False)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmoe.moe_block(tx, tp, tcfg, ms=object())
+    want, waux = tmoe.moe_block(tx, tp, tcfg)
+    ms = single_device_meshspec()
+    for out, aux in (tmoe.moe_block(tx, tp, tcfg, ms=ms),
+                     tmoe.moe_block_ep(tx, tp, tcfg, ms)):
+        assert torch.equal(out, want) and torch.equal(aux, waux)
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        make_meshspec(2, 2)
 
 
 def test_serving_skips_the_aux_loss():

@@ -138,27 +138,36 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
 @pytest.mark.parametrize("case", ["family", "ssm_train", "mesh_plan",
                                   "remesh_restore"])
 def test_later_slices_raise_not_implemented(case, tmp_path):
-    moe = get_config("llama4-scout-17b-a16e").reduced()
-    mesh_plan = reconfig.plan(dict(DEFAULT_LM_SETTING, mesh_split="2x1"),
-                              dict(DEFAULT_LM_SETTING, mesh_split="1x2"))
-    call = {
-        # every family serves and trains now (ssm and hybrid training
-        # since the scan's backward); the two cases hold what is left: the
-        # decode kind of input_specs (the JAX package's dense per-slot
-        # cache, A7) and a moe block over a mesh (expert parallelism, A6)
-        "family": lambda: input_specs(CFG, ShapeConfig("d", 16, 2,
-                                                       "decode")),
-        "ssm_train": lambda: moe_block(
-            torch.zeros((4, moe.d_model), dtype=torch.bfloat16),
-            _layer(lm.init_params(moe, 0, device="cpu")["layers"], 0)["moe"],
-            moe, ms=object()),
-        "mesh_plan": lambda: LMJob(CFG, device="cpu", n_devices=2)
-        .state_adapter({}, mesh_plan),
-        "remesh_restore": lambda: restore_pytree({}, str(tmp_path),
-                                                 ms=object()),
-    }[case]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        call()
+    """What is left unported raises NotImplementedError: the decode kind
+    of input_specs (the JAX package's dense per-slot cache, A7).  The
+    mesh (since its slice) runs at one device on the CPU, and a mesh
+    larger than the world raises a clear error: a moe block over the
+    one-device mesh is the single-device block, a Type I-b plan needs its
+    ranks, a re-mesh restore onto one device restores every leaf whole."""
+    if case == "family":
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            input_specs(CFG, ShapeConfig("d", 16, 2, "decode"))
+        return
+    from repro_torch.checkpoint import save_pytree
+    from repro_torch.distributed.sharding import single_device_meshspec
+    ms = single_device_meshspec()
+    if case == "ssm_train":
+        moe = get_config("llama4-scout-17b-a16e").reduced()
+        x = torch.randn((4, moe.d_model)).to(torch.bfloat16)
+        p = _layer(lm.init_params(moe, 0, device="cpu")["layers"], 0)["moe"]
+        got, want = moe_block(x, p, moe, ms=ms), moe_block(x, p, moe)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    elif case == "mesh_plan":
+        plan = reconfig.plan(dict(DEFAULT_LM_SETTING, mesh_split="2x1"),
+                             dict(DEFAULT_LM_SETTING, mesh_split="1x2"))
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            LMJob(CFG, device="cpu", n_devices=2).state_adapter({}, plan)
+    else:
+        save_pytree({"w": torch.arange(6.0)}, str(tmp_path), step=3)
+        got, meta = restore_pytree({"w": torch.zeros(6)}, str(tmp_path),
+                                   ms=ms)
+        assert meta["step"] == 3 and torch.equal(got["w"],
+                                                 torch.arange(6.0))
 
 
 @pytest.mark.parametrize("case", ["tuner", "selftune", "space",

@@ -182,12 +182,16 @@ def test_real_tuner_drives_the_port_loop():
 
 def test_mesh_plans_raise_not_ported(monkeypatch):
     """A plan with Type I-b (mesh_split, only in a multi-device space)
-    comes with the mesh slice."""
+    needs as many ranks as its meshes have devices: in a one-process
+    world the job says so (tests/test_torch_mesh.py runs such plans over
+    four ranks); a one-device job takes the single-device step."""
     _, tcfg, _, _ = dense_models(0)
     job = LMJob(tcfg, batch=2, seq=8, device="cpu", n_devices=2)
     assert "mesh_split" in lm_knob_space(2).names()
     plan = trc.plan(dict(DEFAULT_LM_SETTING, mesh_split="2x1"),
                     dict(DEFAULT_LM_SETTING, mesh_split="1x2"))
     assert "I-b" in plan.kinds
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="needs 2 ranks; the world has 1"):
         job.state_adapter({}, plan)
+    one = LMJob(tcfg, batch=2, seq=8, device="cpu")
+    assert one.n_devices == 1 and one.meshspec(DEFAULT_LM_SETTING).n_devices == 1
