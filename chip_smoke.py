@@ -271,9 +271,27 @@ Phases, in order; any failure exits non-zero before the result line:
              bit for bit, with its seconds.  llama4-scout-17b-a16e at full
              width, 1 layer: moe_block_ep on the 1x1 mesh against moe_block
              on the same tokens at T = 8 and 2,048, bit for bit.
+16. serve  — on phase 15's world-1 mesh, full-width starcoder2-3b (30
+             layers) through ``ps.stepfn``'s serve steps:
+             build_prefill_step over 8 prompts of 320 tokens, the rows
+             copied into lm.init_cache(cfg, 8, 1024), then 32 greedy steps
+             of build_decode_step over that dense per-slot cache (paged
+             attention over it viewed as blocks, G = 12), against
+             lm.prefill / lm.decode_step with no mesh: every step's logits
+             and the cache bit for bit, 30 flash launches a prefill and 30
+             paged launches a decode step; each layer of a dense-cache
+             decode step against the plain path within 1.5 x its one-ulp
+             noise; paged attention over the dense cache, (8, 1, 24, 128)
+             over (8, 1024, 2, 128), checked and timed beside its plain
+             version, SDPA with a mask and its bound; the dry run's
+             prediction (launch/dryrun.py: meta tensors on the host, no
+             card) of phase 9's fixed run's peak and transient allocated
+             bytes against what phase 9 measured (within 10%, else the
+             miss is printed), and its collective bytes (0 at one rank).
 
 Prints one JSON ``kernels`` line (launches: the serve arms', the training
-runs', the hybrid, moe, vlm, encoder, ssm training and mesh paths'), the card's
+runs', the hybrid, moe, vlm, encoder, ssm training, mesh and serve-step
+paths'), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -2167,17 +2185,21 @@ def time_optimizer(torch, job, state, reps=3):
 def fixed_run(torch, job_cls, setting):
     """DEFAULT_LM_SETTING at full width and depth, 4 x 512 tokens, 30 steps:
     the loss falls; step time (wall and CUDA events), tokens/s, busy share,
-    the model FLOP share, flash launches a step, peak memory."""
+    the model FLOP share, flash launches a step, peak memory.  Returns
+    (peak GB, state GB, launches, memory): memory the allocated bytes
+    before the state, with it and at the peak over the steps, and the
+    setting (what phase 16's dry run predicts)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     cfg = _train_cfg()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     job = job_cls(cfg, batch=TRAIN_B, seq=TRAIN_S)
     state = job.init_state(setting, seed=0)
     torch.cuda.synchronize()
     state_gb = torch.cuda.memory_allocated() / 1e9
     step = job.step_builder(setting)
     batches = job.batches(0)
-    losses, walls, evs = [], [], []
+    losses, walls, evs, peaks = [], [], [], []
     reset_launches()
     for it in range(TRAIN_STEPS):
         a = torch.cuda.Event(enable_timing=True)
@@ -2189,6 +2211,7 @@ def fixed_run(torch, job_cls, setting):
         losses.append(float(m["loss"]))
         walls.append((time.perf_counter() - t0) * 1e3)
         evs.append(a.elapsed_time(b))
+        peaks.append(torch.cuda.max_memory_allocated())
         if it == 0:
             per_step = dict(LAUNCHES)
     launches = dict(LAUNCHES)
@@ -2196,6 +2219,10 @@ def fixed_run(torch, job_cls, setting):
             == cfg.n_layers):
         fail(f"fixed run: flash launches a step {per_step}")
     peak = torch.cuda.max_memory_allocated() / 1e9
+    memory = dict(base=base, state=state_gb * 1e9, peak=peak * 1e9,
+                  setting=dict(setting))
+    print(f"train[fixed]: allocated peak after each step (GB): "
+          f"{[round(x / 1e9, 3) for x in peaks]}", flush=True)
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     if not np.isfinite(losses).all() or not last < first:
         fail(f"fixed run: the loss did not fall ({first} -> {last})")
@@ -2236,7 +2263,7 @@ def fixed_run(torch, job_cls, setting):
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
-    return peak, state_gb, launches
+    return peak, state_gb, launches, memory
 
 
 def checkpoint_resume(torch, job_cls, setting, depth, cfg=None, label=""):
@@ -2434,12 +2461,14 @@ def selftuned_run(torch, job_cls, space, default, depth):
 
 def train_path(torch):
     """Phase 9 on full-width starcoder2-3b.  Returns the launch counts of
-    the training runs (fixed, sweep, self-tuned)."""
+    the training runs (fixed, sweep, self-tuned) and the fixed run's
+    memory (``fixed_run``)."""
     from repro_torch.ps.lm_job import (DEFAULT_LM_SETTING, LMJob,
                                        lm_knob_space)
     t0 = time.perf_counter()
     train_parity(torch)
-    peak, state_gb, launches = fixed_run(torch, LMJob, DEFAULT_LM_SETTING)
+    peak, state_gb, launches, memory = fixed_run(torch, LMJob,
+                                                 DEFAULT_LM_SETTING)
     checkpoint_resume(torch, LMJob, DEFAULT_LM_SETTING, CKPT_DEPTH)
     depth = sweep_depth(torch, peak, state_gb)
     space = lm_knob_space(1)
@@ -2450,7 +2479,7 @@ def train_path(torch):
             launches[k] += n
     print(f"train: phase 9 in {time.perf_counter() - t0:.1f}s, launches "
           f"{launches}", flush=True)
-    return launches
+    return launches, memory
 
 
 # ------------------------------------------------------------ phase 3 (hybrid shapes)
@@ -2813,7 +2842,7 @@ def layer_by_layer(torch, label, x0, n_layers, run):
 
 
 def attn_layer_runs(torch, cfg, params, rec, decode, seed, patches=0,
-                    frames=None):
+                    frames=None, slab=False):
     """(x0, run) for ``layer_by_layer`` over the dense, moe, vlm and
     encoder families' layers (``lm._attn_layer``): a 320-token prefill
     (flash against the plain chunked attention; with ``patches``, that
@@ -2822,8 +2851,11 @@ def attn_layer_runs(torch, cfg, params, rec, decode, seed, patches=0,
     frontend (flash not causal against the plain chunked attention), or a
     decode step of 8 slots at 289-373 tokens of context over a random
     bf16 pool (paged attention against the gather path), the step's KV
-    rows written before they are read."""
+    rows written before they are read; with ``slab``, over a random bf16
+    dense per-slot cache of 1,024 rows a slot (``lm.init_cache``'s, read
+    as blocks under identity tables) instead of the pool."""
     from repro_torch.models import common, lm
+    from repro_torch.models.attention import identity_tables
     from repro_torch.models.lm import ModelKnobs
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -2840,16 +2872,19 @@ def attn_layer_runs(torch, cfg, params, rec, decode, seed, patches=0,
     kw = {}
     if decode:
         bs, mb = 16, 64
-        shape = lm.init_paged_cache_shapes(cfg, B * mb + 1, bs)["k"]
+        shape = (lm.init_cache_shapes(cfg, B, bs * mb) if slab else
+                 lm.init_paged_cache_shapes(cfg, B * mb + 1, bs))["k"]
         kv = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
               for _ in range(2)]
-        tables = (torch.arange(B * mb, device=dev).reshape(B, mb) + 1
-                  ).to(torch.int32)
+        tables = (identity_tables(B, bs * mb, dev) if slab else
+                  (torch.arange(B * mb, device=dev).reshape(B, mb) + 1
+                   ).to(torch.int32))
         pos = torch.tensor([300, 317, 333, 351, 288, 299, 345, 372],
                            dtype=torch.int32, device=dev)
         positions = pos.long()[:, None]
-        kw = dict(pos=pos, block_tables=tables,
-                  rows=lm.paged_rows(positions, tables, bs))
+        kw = dict(pos=pos, block_tables=tables, slab=slab,
+                  rows=(lm.slab_rows(positions, bs * mb) if slab else
+                        lm.paged_rows(positions, tables, bs)))
     else:
         positions = torch.arange(S, device=dev)[None].expand(B, S)
     rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
@@ -5383,9 +5418,10 @@ def mesh_moe(torch, ms):
     torch.cuda.empty_cache()
 
 
-def mesh_path(torch, card):
-    """Phase 15: the mesh over NCCL at world size 1.  Returns the
-    launches of the mesh steps."""
+def mesh_path(torch, card, rows, phase9):
+    """Phase 15: the mesh over NCCL at world size 1; then phase 16, the
+    serve steps on the same mesh (``phase9``: the fixed run's memory).
+    Returns the launches of both."""
     import tempfile
 
     import torch.distributed as dist
@@ -5409,11 +5445,201 @@ def mesh_path(torch, card):
                   f"{time.perf_counter() - t0:.1f}s", flush=True)
             mesh_checkpoint(torch, ms)
             mesh_moe(torch, ms)
+            print(f"mesh: phase 15 in {time.perf_counter() - t0:.1f}s, "
+                  f"launches {launches}, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+                  flush=True)
+            for k, n in serve_path(torch, ms, rows, phase9).items():
+                launches[k] = launches.get(k, 0) + n
         finally:
             dist.destroy_process_group()
-    print(f"mesh: phase 15 in {time.perf_counter() - t0:.1f}s, launches "
-          f"{launches}, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
-          f" GiB", flush=True)
+    return launches
+
+# ------------------------------------------------------------ phase 16
+SERVE_B, SERVE_P, SERVE_MAX, SERVE_STEPS = 8, 320, 1024, 32
+SLAB_POS = 336                     # the slots' position mid-run (timing)
+DRYRUN_TOL = 0.10                  # predicted against measured peak bytes
+
+
+def serve_steps_mesh(torch, ms):
+    """Full-width starcoder2-3b (30 layers) through the serve steps on the
+    1x1 mesh: ``build_prefill_step`` over 8 prompts of 320 tokens, the
+    rows copied into ``lm.init_cache(cfg, 8, 1024)``, then 32 greedy steps
+    of ``build_decode_step`` over that dense cache; the same through the
+    single-device ``lm.prefill`` / ``lm.decode_step`` (no mesh).  Logits of
+    every step and the final cache bit for bit; 30 flash launches a
+    prefill and 30 paged-attention launches a decode step.  Returns the
+    mesh arm's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.ps.stepfn import build_decode_step, build_prefill_step
+    cfg = get_config("starcoder2-3b")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_P), generator=g,
+                           device="cuda")
+    arms = {"mesh": (build_prefill_step(cfg, ms),
+                     build_decode_step(cfg, ms, max_seq=SERVE_MAX)),
+            "single": (lambda p, b: lm.prefill(p, b["tokens"], cfg),
+                       lambda p, c, t, pos: lm.decode_step(p, c, t, pos,
+                                                           cfg))}
+    out, launches = {}, {}
+    for arm, (prefill, decode) in arms.items():
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, pc = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t_pre = (time.perf_counter() - t0) * 1e3
+        n_pre = dict(LAUNCHES)
+        cache = lm.init_cache(cfg, SERVE_B, SERVE_MAX, device="cuda")
+        for k in ("k", "v"):
+            cache[k][:, :, :SERVE_P] = pc[k]
+        del pc
+        seq, walls = [logits], []
+        reset_launches()
+        for i in range(SERVE_STEPS):
+            nt = seq[-1][:, -1].argmax(-1, keepdim=True)
+            pos = torch.full((SERVE_B,), SERVE_P + i, dtype=torch.int32,
+                             device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, c = decode(params, cache, nt, pos)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if c is not cache:
+                fail(f"serve[{arm}]: the decode step did not write its cache "
+                     f"in place")
+            seq.append(lg)
+        n_dec = dict(LAUNCHES)
+        print(f"serve[{arm}]: {cfg.name} 30 layers, prefill {SERVE_B} x "
+              f"{SERVE_P} tokens {t_pre:.1f} ms (eager, first call), "
+              f"{SERVE_STEPS} decode steps over the dense cache ({SERVE_B}, "
+              f"{SERVE_MAX}): median {float(np.median(walls[1:])):.2f} ms "
+              f"wall (eager); launches: prefill {n_pre}, decode {n_dec}",
+              flush=True)
+        if (n_pre["flash_attention"] != cfg.n_layers
+                or n_dec["paged_attention"] != cfg.n_layers * SERVE_STEPS):
+            fail(f"serve[{arm}]: want {cfg.n_layers} flash launches a "
+                 f"prefill and {cfg.n_layers * SERVE_STEPS} paged launches "
+                 f"over {SERVE_STEPS} steps, got {n_pre}, {n_dec}")
+        if arm == "mesh":
+            launches = {k: n_pre[k] + n_dec[k] for k in n_pre}
+        if not all(torch.isfinite(x.float()).all() for x in seq):
+            fail(f"serve[{arm}]: logits not finite")
+        out[arm] = (seq, cache)
+    (ms_seq, ms_cache), (sd_seq, sd_cache) = out["mesh"], out["single"]
+    same = [_bits_equal(torch, a, b) for a, b in zip(ms_seq, sd_seq)]
+    cache_same = all(_bits_equal(torch, ms_cache[k], sd_cache[k])
+                     for k in ("k", "v"))
+    toks = torch.stack([x[:, -1].argmax(-1) for x in ms_seq[:-1]], 1)
+    print(f"serve[1x1 mesh vs single-device]: {sum(same)} of {len(same)} "
+          f"logits (prefill + {SERVE_STEPS} steps) and the cache "
+          f"{'bit for bit' if cache_same else 'DIFFER'} (tolerance: bit "
+          f"for bit, every collective skipped at one rank); greedy tokens "
+          f"of slot 0: {toks[0, :12].tolist()}...", flush=True)
+    if not (all(same) and cache_same):
+        fail("serve: the 1x1 mesh serve steps are not the single-device "
+             "steps")
+    del out, ms_seq, sd_seq, ms_cache, sd_cache
+    x0, run = attn_layer_runs(torch, cfg, params, RouteRecorder(torch),
+                              True, seed=16, slab=True)
+    layer_by_layer(torch, f"{cfg.name} dense-cache decode", x0,
+                   cfg.n_layers, run)
+    del params, x0, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_dense_slab(torch, rows):
+    """Paged attention over the dense per-slot cache of phase 16's decode,
+    (8, 1, 24, 128) queries over (8, 1024, 2, 128) bf16 k and v (G = 12)
+    viewed as blocks of 16, every slot at position SLAB_POS: against the
+    plain dense ``decode_attention``, then timed beside it, SDPA over the
+    slab with a boolean mask (GQA), and its bound."""
+    from repro_torch.models.attention import (decode_attention,
+                                              identity_tables,
+                                              slab_decode_attention)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    bf16 = torch.bfloat16
+    B, T = SERVE_B, SERVE_MAX
+    q = torch.randn((B, 1, H, HD), generator=g, device=dev).to(bf16)
+    ks, vs = (torch.randn((B, T, K, HD), generator=g, device=dev).to(bf16)
+              for _ in range(2))
+    tables = identity_tables(B, T, dev)
+    pos = torch.full((B,), SLAB_POS, dtype=torch.int32, device=dev)
+    out = slab_decode_attention(q, ks, vs, tables, pos=pos)
+    err = check_close(torch, "paged_attention over the dense cache", out,
+                      decode_attention(q, ks, vs, pos=pos), BF16_TOL)
+    ms = timed_ms(torch, lambda: slab_decode_attention(q, ks, vs, tables,
+                                                       pos=pos))
+    plain = timed_ms(torch, lambda: decode_attention(q, ks, vs, pos=pos))
+    mask = (torch.arange(T, device=dev)[None, None, None, :]
+            <= pos.long()[:, None, None, None])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, ks, vs))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                       enable_gqa=True))
+    seen = B * (SLAB_POS + 1)
+    b = bound(seen * K * HD * 2 * 2 + 2 * q.numel() * 2 + tables.numel() * 4,
+              4 * seen * H * HD, BF16_FLOPS)
+    rows["paged_attention"]["max_abs_err"] = max(
+        rows["paged_attention"]["max_abs_err"], err)
+    print(f"kernel paged_attention[dense cache decode B={B} S=1 H={H} K={K} "
+          f"hd={HD} G={H // K}, cache ({B}, {T}) bf16 as blocks of 16, ctx "
+          f"{SLAB_POS + 1}]: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+          f"library_ms={lib:.4f} (SDPA, GQA, boolean mask over the cache) "
+          f"bound_ms={b[0]:.4f} ({b[1]}) max_abs_err={err:.3g}", flush=True)
+
+
+def dryrun_vs_card(torch, m):
+    """The dry run's prediction of phase 9's fixed run (starcoder2-3b, 30
+    layers, 4 x 512 tokens, its setting, one card), traced on meta tensors
+    on the host, against what phase 9 measured: the peak of allocated
+    bytes over its steps (less what was allocated before its state) and
+    the step's transient part (the peak less the state); each within
+    DRYRUN_TOL, else the miss is printed.  ``m``: phase 9's measurement
+    (``fixed_run``'s memory).  The prediction's collective bytes are 0 at
+    one rank."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.ps.lm_job import setting_to_stepknobs
+    setting = m["setting"]
+    t0 = time.perf_counter()
+    r = run_cell("starcoder2-3b", ShapeConfig("phase9", TRAIN_S, TRAIN_B,
+                                              "train"),
+                 mesh=(1, 1), knobs=setting_to_stepknobs(setting),
+                 save=False)
+    t = time.perf_counter() - t0
+    mem, coll = r["memory"], r["collectives"]
+    if coll["total"] != 0:
+        fail(f"dry run: {coll['total']} collective bytes at one rank")
+    pairs = [("total peak", mem["peak_estimate_bytes"], m["peak"] - m["base"]),
+             ("transient", mem["temp_bytes"], m["peak"] - m["state"])]
+    for what, pred, meas in pairs:
+        err = pred / meas - 1
+        print(f"dryrun[phase 9 cell]: {what} predicted {pred / 1e9:.3f} GB, "
+              f"measured {meas / 1e9:.3f} GB allocated ({err * 100:+.1f}%; "
+              f"{'held' if abs(err) <= DRYRUN_TOL else 'MISSED'} within "
+              f"{DRYRUN_TOL:.0%})", flush=True)
+    print(f"dryrun[phase 9 cell]: traced on the host in {t:.1f}s (meta "
+          f"tensors, no card): state {mem['argument_bytes'] / 1e9:.3f} GB "
+          f"(measured {(m['state'] - m['base']) / 1e9:.3f}), collective "
+          f"bytes {coll['total']} (one rank), counted FLOPs "
+          f"{r['flops_counted_dev']:.4g}, fits={mem['fits']}", flush=True)
+
+
+def serve_path(torch, ms, rows, phase9):
+    """Phase 16 on phase 15's world-1 mesh.  Returns its launches."""
+    t0 = time.perf_counter()
+    launches = serve_steps_mesh(torch, ms)
+    time_dense_slab(torch, rows)
+    dryrun_vs_card(torch, phase9)
+    print(f"serve mesh: phase 16 in {time.perf_counter() - t0:.1f}s, "
+          f"launches {launches}", flush=True)
     return launches
 
 
@@ -5466,7 +5692,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     print(f"serve launches {launches}", flush=True)
-    trained = train_path(torch)
+    trained, phase9 = train_path(torch)
     for name in rows:
         launches[name] += trained.get(name, 0)
     # free the training state before the hybrid model
@@ -5503,7 +5729,7 @@ def main():
     # free the ssm and hybrid training states before the mesh
     gc.collect()
     torch.cuda.empty_cache()
-    for name, n in mesh_path(torch, card).items():
+    for name, n in mesh_path(torch, card, rows, phase9).items():
         launches[name] += n
 
     line = {"kernels": [

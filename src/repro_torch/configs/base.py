@@ -1,6 +1,9 @@
-"""Model architecture config (a copy of the JAX package's ``ModelConfig``).
+"""Model architecture config (a copy of the JAX package's ``ModelConfig``)
+and the input shape cells.
 
-Every assigned architecture is expressed as a ``ModelConfig``.
+Every assigned architecture is expressed as a ``ModelConfig``; the four
+assigned input shapes are ``ShapeConfig``s.  A (ModelConfig, ShapeConfig)
+pair is one dry-run *cell* (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -180,3 +183,24 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def applicable_shapes(cfg: ModelConfig) -> tuple[ShapeConfig, ...]:
+    """The shape cells that are defined for this architecture, as the JAX
+    package's: an encoder has no decode step, so no decode cells; only
+    ssm and hybrid (sub-quadratic in the sequence) run ``long_500k``."""
+    shapes: list[ShapeConfig] = [TRAIN_4K, PREFILL_32K]
+    if cfg.family != "encoder":
+        shapes.append(DECODE_32K)
+        if cfg.family in ("ssm", "hybrid"):
+            shapes.append(LONG_500K)
+    return tuple(shapes)

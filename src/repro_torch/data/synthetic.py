@@ -5,9 +5,7 @@ the tokens, the encoder's frames in their place); and the paper-workload
 datasets, ``regression_dataset`` (LogR / SVM) and ``image_dataset`` (CNN).
 
 The values come from the same numpy generator calls in the same order, so
-for a seed they equal the JAX package's exactly.  ``synthetic_batch``'s
-decode kind (JAX's dense per-slot cache, which the port does not keep) is
-not ported.
+for a seed they equal the JAX package's exactly.
 """
 from __future__ import annotations
 
@@ -16,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import lm
 
 
 def _text_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -32,12 +31,18 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     text positions, and the vlm's ``frontend`` patches (B, frontend_len,
     frontend_dim) bf16; for the encoder's frame frontend, ``frontend``
     frames (B, S, frontend_dim) bf16 (and ``labels`` (B, S) in training)
-    and no tokens.  The decode kind is not ported."""
+    and no tokens.  The decode kind: one new token against a cache of S
+    positions, ``tokens`` (B, 1) int64, ``pos`` (B,) int32 and ``cache``
+    {name: (shape, dtype)} of ``lm.init_cache_shapes`` in
+    ``lm.cache_dtype``'s dtypes."""
     B, S = shape.global_batch, shape.seq_len
-    if shape.kind not in ("train", "prefill"):
-        raise NotImplementedError(
-            f"input_specs kind {shape.kind!r}: the decode kind builds the "
-            f"JAX package's dense per-slot cache and is not ported yet")
+    if shape.kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"input_specs kind {shape.kind!r}: train | "
+                         f"prefill | decode")
+    if shape.kind == "decode":
+        return {"tokens": ((B, 1), torch.int64), "pos": ((B,), torch.int32),
+                "cache": {k: (s, lm.cache_dtype(k)) for k, s in
+                          lm.init_cache_shapes(cfg, B, S).items()}}
     if cfg.frontend == "frame":             # the whole sequence is frames
         batch = {"frontend": ((B, S, cfg.frontend_dim), torch.bfloat16)}
         if shape.kind == "train":
@@ -60,15 +65,33 @@ def synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
     integers uniform over the vocabulary, patches and frames standard
     normal drawn in f32 and rounded to bf16, drawn in the order of the
     sorted names (the JAX package's tree order), so the values equal its
-    batch's."""
+    batch's.  The decode kind's cache is zeros and ``pos`` is S - 1, as
+    the JAX package sets them after drawing them: its normals for every
+    cache leaf and its integers for ``pos`` are drawn and dropped first,
+    so ``tokens`` comes from the same place in the stream."""
     specs = input_specs(cfg, shape)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     out = {}
+
+    def draw_int(dims):
+        return rng.integers(0, max(2, min(cfg.vocab_size, 1 << 30)), dims)
+
     for name in sorted(specs):
+        if name == "cache":
+            out[name] = {}
+            for k in sorted(specs[name]):
+                dims, dtype = specs[name][k]
+                rng.standard_normal(dims)             # drawn, then dropped
+                out[name][k] = torch.zeros(dims, dtype=dtype, device=dev)
+            continue
         dims, dtype = specs[name]
-        if dtype == torch.int64:
-            a = rng.integers(0, max(2, min(cfg.vocab_size, 1 << 30)), dims)
+        if name == "pos":
+            draw_int(dims)
+            out[name] = torch.full(dims, shape.seq_len - 1, dtype=dtype,
+                                   device=dev)
+        elif dtype == torch.int64:
+            a = draw_int(dims)
             out[name] = torch.from_numpy(a.astype(np.int64)).to(dev)
         else:
             a = rng.standard_normal(dims).astype(np.float32)

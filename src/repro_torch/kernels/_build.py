@@ -14,6 +14,12 @@ within f32 rounding of its own.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per launch, nowhere
 else), so a run can show that its path went through the kernels.
+
+Each wrapper reaches its kernel through a ``torch.library`` operator of
+the ``repro_torch`` namespace (``define_op``): the CUDA implementation
+allocates, launches and counts; the fake implementation gives only the
+outputs' shapes and dtypes, for meta tensors (the dry run's trace of a
+step, ``launch/dryrun.py``), and launches nothing.
 """
 from __future__ import annotations
 
@@ -39,6 +45,30 @@ LAUNCHES = {"paged_attention": 0, "flash_attention": 0,
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _N_SMS: dict = {}
+_OPS = torch.library.Library("repro_torch", "DEF")
+TRACED_DEVICES = ("cuda", "meta")    # the wrappers' card path: launch or trace
+
+
+def define_op(schema: str, cuda_impl, fake_impl, flops=None):
+    """The operator ``torch.ops.repro_torch.<name>`` of ``schema``: its
+    CUDA implementation ``cuda_impl`` (checks, allocation, launch, launch
+    count) and its fake implementation ``fake_impl`` (empty outputs of the
+    right shapes and dtypes, for meta and fake tensors).  ``flops``: its
+    formula for ``torch.utils.flop_counter.FlopCounterMode``, called with
+    the arguments' shapes (tensors) and values (the rest).  Returns the
+    operator."""
+    name = schema.split("(", 1)[0]
+    _OPS.define(schema)
+    _OPS.impl(name, cuda_impl, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake_impl, lib=_OPS)
+    packet = getattr(torch.ops.repro_torch, name)
+    if flops is not None:
+        from torch.utils.flop_counter import register_flop_formula
+
+        def formula(*args, out_shape=None, **kwargs):
+            return flops(*args, **kwargs)
+        register_flop_formula(packet)(formula)
+    return packet.default
 
 
 def reset_launches():

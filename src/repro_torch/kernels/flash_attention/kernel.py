@@ -2,8 +2,10 @@
 (``csrc/flash_attention.cu``), optionally with the row log-sum-exp, and the
 backward (``csrc/flash_attention_bwd.cu``).
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version in ``ref.py``.
+A CUDA tensor launches the kernel (or raises) through the operators
+``torch.ops.repro_torch.flash_attention`` and ``flash_attention_bwd``,
+whose fake implementations give a meta tensor (the dry run's trace) the
+outputs' shapes; a CPU tensor runs the plain version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -52,19 +54,27 @@ def flash_attention(q, k, v, q_positions=None, kv_positions=None, *,
             return out
         return out, attention_lse_ref(q, k, q_positions, kv_positions,
                                       causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in _build.TRACED_DEVICES:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    B, Sq, H, hd = q.shape
-    Skv, K = k.shape[1], k.shape[2]
     qp, kp = default_positions(q, k, q_positions, kv_positions)
     qp = qp.to(torch.int32).contiguous()
     kp = kp.to(torch.int32).contiguous()
     _check("flash_attention", q, k, v, qp, kp)
     if block_k < 1:
         raise ValueError(f"flash_attention: block_k={block_k}")
-    out = torch.empty_like(q)
+    B, Sq, H, _ = q.shape
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    out = _FWD(q, k, v, qp, kp, causal, lse)
+    return (out, lse) if return_lse else out
+
+
+def _launch_fwd(q, k, v, qp, kp, causal: bool, lse):
+    """The forward operator's CUDA implementation: one launch, counted;
+    the rows' log-sum-exp written into ``lse`` when given."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
     fn = _build.bind("flash_attention", "flash_attention", 7, 7, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
              kp.data_ptr(), out.data_ptr(),
@@ -72,7 +82,22 @@ def flash_attention(q, k, v, q_positions=None, kv_positions=None, *,
              int(causal), hd ** -0.5, _build.stream_of(q))
     _build.check_launch(err, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
-    return (out, lse) if return_lse else out
+    return out
+
+
+def fwd_flops(q, k, v, qp, kp, causal: bool, lse) -> int:
+    """QK^T and PV over every (query, key) pair (shapes; the masked half
+    of a causal square counted, as the cost model and SDPA's formula
+    count it): 4 * B * Sq * Skv * H * hd."""
+    B, Sq, H, hd = q
+    return 4 * B * Sq * k[1] * H * hd
+
+
+_FWD = _build.define_op(
+    "flash_attention(Tensor q, Tensor k, Tensor v, Tensor qp, Tensor kp, "
+    "bool causal, Tensor(a!)? lse) -> Tensor", _launch_fwd,
+    lambda q, k, v, qp, kp, causal, lse: torch.empty_like(q),
+    flops=fwd_flops)
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, q_positions=None,
@@ -91,11 +116,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, q_positions=None,
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, dout, q_positions, kv_positions,
                                  causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in _build.TRACED_DEVICES:
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
     B, Sq, H, hd = q.shape
-    Skv, K = k.shape[1], k.shape[2]
     qp, kp = default_positions(q, k, q_positions, kv_positions)
     qp = qp.to(torch.int32).contiguous()
     kp = kp.to(torch.int32).contiguous()
@@ -109,6 +133,14 @@ def flash_attention_bwd(q, k, v, out, dout, lse, q_positions=None,
                          f"{out.dtype}{tuple(out.shape)}, "
                          f"{dout.dtype}{tuple(dout.shape)}, "
                          f"{lse.dtype}{tuple(lse.shape)}")
+    return tuple(_BWD(q, k, v, out, dout, lse, qp, kp, causal))
+
+
+def _launch_bwd(q, k, v, out, dout, lse, qp, kp, causal: bool):
+    """The backward operator's CUDA implementation: two launches (dq with
+    delta, then dk/dv), counted once."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
@@ -122,3 +154,19 @@ def flash_attention_bwd(q, k, v, out, dout, lse, q_positions=None,
     _build.check_launch(err, "flash_attention_bwd")
     _build.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
+
+
+def bwd_flops(q, k, v, out, dout, lse, qp, kp, causal: bool) -> int:
+    """The five products of the backward (S = QK^T recomputed, dV, dP,
+    dQ, dK), over every pair as ``fwd_flops``: 2.5 x the forward's."""
+    B, Sq, H, hd = q
+    return 10 * B * Sq * k[1] * H * hd
+
+
+_BWD = _build.define_op(
+    "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+    "Tensor dout, Tensor lse, Tensor qp, Tensor kp, bool causal) -> "
+    "(Tensor, Tensor, Tensor)", _launch_bwd,
+    lambda q, k, v, out, dout, lse, qp, kp, causal: (
+        torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)),
+    flops=bwd_flops)

@@ -2,10 +2,12 @@
 (``csrc/mamba_scan.cu``) and, for training, its backward
 (``csrc/mamba_scan_bwd.cu``).
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version in ``ref.py``.  Bm and Cm are read where they lie: bf16 or f32
-views with a last stride of 1, such as slices of the model's ``x_proj``
-output, go in without a cast or a copy.
+A CUDA tensor launches the kernel (or raises) through the operators
+``torch.ops.repro_torch.selective_scan`` and ``selective_scan_bwd``, whose
+fake implementations give a meta tensor (the dry run's trace) the outputs'
+shapes; a CPU tensor runs the plain version in ``ref.py``.  Bm and Cm are
+read where they lie: bf16 or f32 views with a last stride of 1, such as
+slices of the model's ``x_proj`` output, go in without a cast or a copy.
 """
 from __future__ import annotations
 
@@ -108,9 +110,9 @@ def selective_scan(x, dt, Bm, Cm, A, h0=None, *, h_out=None, h_chk=None,
         if h_out is not None:
             h = h_out.copy_(h)
         return y, h
-    if x.device.type != "cuda":
+    if x.device.type not in _build.TRACED_DEVICES:
         raise ValueError(f"selective_scan: unsupported device {x.device}")
-    ng, chunked = launch_plan(S, N)
+    launch_plan(S, N)                  # refuses a state size with no build
     f32 = torch.float32
     want = [("dt", dt, (B, S, D), _IO_DTYPES), ("Bm", Bm, (B, S, N),
                                                  _IO_DTYPES),
@@ -126,7 +128,8 @@ def selective_scan(x, dt, Bm, Cm, A, h0=None, *, h_out=None, h_chk=None,
         if tuple(t.shape) != shape or t.dtype not in dtypes:
             raise ValueError(f"selective_scan: {name} must be {shape} in "
                              f"{dtypes}, got {t.dtype}{tuple(t.shape)}")
-    strides = bc_strides("Bm", Bm) + bc_strides("Cm", Cm)
+    bc_strides("Bm", Bm)
+    bc_strides("Cm", Cm)
     dense = [x, dt, A] + [t for t in (h0, h_out, h_chk) if t is not None]
     _build.check_cuda("selective_scan", *dense)
     if Bm.device != x.device or Cm.device != x.device:
@@ -137,9 +140,19 @@ def selective_scan(x, dt, Bm, Cm, A, h0=None, *, h_out=None, h_chk=None,
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"selective_scan: {name} must start on 16 "
                              f"bytes (its states load as float4)")
-    y = torch.empty((B, S, D), dtype=f32, device=x.device)
     if h_out is None:
         h_out = torch.empty((B, D, N), dtype=f32, device=x.device)
+    return _SCAN(x, dt, Bm, Cm, A, h0, h_out, h_chk, chunk), h_out
+
+
+def _launch_scan(x, dt, Bm, Cm, A, h0, h_out, h_chk, chunk: int):
+    """The forward operator's CUDA implementation: y allocated, h_out
+    (and h_chk) written, one launch, counted."""
+    B, S, D = x.shape
+    N = A.shape[1]
+    ng, chunked = launch_plan(S, N)
+    strides = bc_strides("Bm", Bm) + bc_strides("Cm", Cm)
+    y = torch.empty((B, S, D), dtype=torch.float32, device=x.device)
     fn = _build.bind("mamba_scan", "selective_scan", 9, 14)
     bf16 = torch.bfloat16
     err = fn(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
@@ -151,7 +164,15 @@ def selective_scan(x, dt, Bm, Cm, A, h0=None, *, h_out=None, h_chk=None,
              _build.stream_of(x))
     _build.check_launch(err, "selective_scan")
     _build.LAUNCHES["selective_scan"] += 1
-    return y, h_out
+    return y
+
+
+_SCAN = _build.define_op(
+    "selective_scan(Tensor x, Tensor dt, Tensor Bm, Tensor Cm, Tensor A, "
+    "Tensor? h0, Tensor(a!) h_out, Tensor(b!)? h_chk, int chunk) -> Tensor",
+    _launch_scan,
+    lambda x, dt, Bm, Cm, A, h0, h_out, h_chk, chunk: torch.empty(
+        x.shape, dtype=torch.float32, device=x.device))
 
 
 def selective_scan_bwd(x, dt, Bm, Cm, A, h_chk, gy, *, chunk: int,
@@ -186,9 +207,10 @@ def selective_scan_bwd(x, dt, Bm, Cm, A, h_chk, gy, *, chunk: int,
     if x.device.type == "cpu":
         return selective_scan_bwd_ref(x, dt, Bm, Cm, A, h_chk, gy, chunk,
                                       want_gh0)
-    if x.device.type != "cuda":
+    if x.device.type not in _build.TRACED_DEVICES:
         raise ValueError(f"selective_scan_bwd: unsupported device {x.device}")
-    strides = bc_strides("Bm", Bm) + bc_strides("Cm", Cm)
+    bc_strides("Bm", Bm)
+    bc_strides("Cm", Cm)
     _build.check_cuda("selective_scan_bwd", x, dt, A, h_chk, gy)
     if Bm.device != x.device or Cm.device != x.device:
         raise ValueError(f"selective_scan_bwd: tensors on {Bm.device}, "
@@ -197,14 +219,31 @@ def selective_scan_bwd(x, dt, Bm, Cm, A, h_chk, gy, *, chunk: int,
         if t.data_ptr() % 16:
             raise ValueError(f"selective_scan_bwd: {name} must start on 16 "
                              f"bytes (its states load as float4)")
+    gh0 = (torch.empty((B, D, N), dtype=torch.float32, device=x.device)
+           if want_gh0 else None)
+    return tuple(_SCAN_BWD(x, dt, Bm, Cm, A, h_chk, gy, chunk, gh0)) + (gh0,)
+
+
+def _grads(x, dt, Bm, N: int):
+    """gx, gdt, gB, gC and gA, uninitialised."""
+    B, S, D = x.shape
     dev = x.device
-    gx = torch.empty((B, S, D), dtype=x.dtype, device=dev)
-    gdt = torch.empty((B, S, D), dtype=dt.dtype, device=dev)
-    gB = torch.empty((B, S, N), dtype=Bm.dtype, device=dev)
-    gC = torch.empty((B, S, N), dtype=Bm.dtype, device=dev)
-    gA = torch.empty((D, N), dtype=f32, device=dev)
-    gh0 = torch.empty((B, D, N), dtype=f32, device=dev) if want_gh0 else None
-    part = torch.empty(bwd_scratch(B, S, D, N), dtype=f32, device=dev)
+    return (torch.empty((B, S, D), dtype=x.dtype, device=dev),
+            torch.empty((B, S, D), dtype=dt.dtype, device=dev),
+            torch.empty((B, S, N), dtype=Bm.dtype, device=dev),
+            torch.empty((B, S, N), dtype=Bm.dtype, device=dev),
+            torch.empty((D, N), dtype=torch.float32, device=dev))
+
+
+def _launch_scan_bwd(x, dt, Bm, Cm, A, h_chk, gy, chunk: int, gh0):
+    """The backward operator's CUDA implementation: the scratch and two
+    launches, counted once; gh0 (when given) written."""
+    B, S, D = x.shape
+    N = A.shape[1]
+    strides = bc_strides("Bm", Bm) + bc_strides("Cm", Cm)
+    gx, gdt, gB, gC, gA = _grads(x, dt, Bm, N)
+    part = torch.empty(bwd_scratch(B, S, D, N), dtype=torch.float32,
+                       device=x.device)
     fn = _build.bind("mamba_scan_bwd", "selective_scan_bwd", 14, 12)
     bf16 = torch.bfloat16
     err = fn(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
@@ -216,4 +255,12 @@ def selective_scan_bwd(x, dt, Bm, Cm, A, h_chk, gy, *, chunk: int,
              _build.stream_of(x))
     _build.check_launch(err, "selective_scan_bwd")
     _build.LAUNCHES["selective_scan_bwd"] += 1
-    return gx, gdt, gB, gC, gA, gh0
+    return gx, gdt, gB, gC, gA
+
+
+_SCAN_BWD = _build.define_op(
+    "selective_scan_bwd(Tensor x, Tensor dt, Tensor Bm, Tensor Cm, "
+    "Tensor A, Tensor h_chk, Tensor gy, int chunk, Tensor(a!)? gh0) -> "
+    "(Tensor, Tensor, Tensor, Tensor, Tensor)", _launch_scan_bwd,
+    lambda x, dt, Bm, Cm, A, h_chk, gy, chunk, gh0: _grads(
+        x, dt, Bm, A.shape[1]))

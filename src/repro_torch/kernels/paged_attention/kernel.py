@@ -2,8 +2,10 @@
 
 Consumes the PagedKVPool layout in place: physical KV blocks
 (NB, bs, K, hd), per-request block tables (B, MB) and first-query
-positions (B,).  A CUDA tensor launches the kernel (or raises); a CPU
-tensor runs the plain version in ``ref.py``.
+positions (B,).  A CUDA tensor launches the kernel (or raises) through the
+operator ``torch.ops.repro_torch.paged_attention``, whose fake
+implementation gives a meta tensor (the dry run's trace) its output's
+shape; a CPU tensor runs the plain version in ``ref.py``.
 
 The kernel splits the KV axis over CTAs (``split_plan``) and merges the
 splits in the same launch; the wrapper allocates the f32 partials and
@@ -76,7 +78,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos, *,
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool,
                                    block_tables[:, :n_vis], pos)
-    if q.device.type != "cuda":
+    if q.device.type not in _build.TRACED_DEVICES:
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     _build.check_cuda("paged_attention", q, k_pool, v_pool, block_tables,
                       pos)
@@ -94,6 +96,15 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos, *,
             f"pool={tuple(k_pool.shape)} tables={tuple(block_tables.shape)} "
             f"pos={tuple(pos.shape)} (hd in {HEAD_DIMS}, bs in "
             f"{BLOCK_SIZES})")
+    return _OP(q, k_pool, v_pool, block_tables, pos, n_vis)
+
+
+def _launch(q, k_pool, v_pool, block_tables, pos, n_vis: int):
+    """The operator's CUDA implementation: the split plan, the partials,
+    one launch, counted."""
+    B, S, H, hd = q.shape
+    NB, bs, K, _ = k_pool.shape
+    MB = block_tables.shape[1]
     out = torch.empty_like(q)
     tiles, n_split, split_keys = split_plan(B, S, H, K, bs, n_vis,
                                             _build.n_sms(q.device))
@@ -113,3 +124,17 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos, *,
     _build.check_launch(err, "paged_attention")
     _build.LAUNCHES["paged_attention"] += 1
     return out
+
+
+def paged_flops(q, k_pool, v_pool, block_tables, pos, n_vis: int) -> int:
+    """The two products over the visible keys (shapes): QK^T and PV,
+    2 x 2 * B * S * H * (n_vis * bs) * hd."""
+    B, S, H, hd = q
+    return 4 * B * S * H * n_vis * k_pool[1] * hd
+
+
+_OP = _build.define_op(
+    "paged_attention(Tensor q, Tensor k_pool, Tensor v_pool, "
+    "Tensor block_tables, Tensor pos, int n_vis) -> Tensor", _launch,
+    lambda q, k_pool, v_pool, block_tables, pos, n_vis: torch.empty_like(q),
+    flops=paged_flops)

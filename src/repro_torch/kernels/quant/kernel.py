@@ -1,7 +1,9 @@
 """Wrappers of the CUDA int8 quantization kernels (``csrc/quant.cu``).
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version in ``ref.py``.  Inputs are read where they lie: x in f32 or bf16,
+A CUDA tensor launches the kernel (or raises) through the operators
+``torch.ops.repro_torch.quantize`` and ``dequantize``, whose fake
+implementations give a meta tensor (the dry run's trace) the outputs'
+shapes; a CPU tensor runs the plain version in ``ref.py``.  Inputs are read where they lie: x in f32 or bf16,
 u as an (n,) array or one value expanded to (n,) (stride 0, read once), and
 the dequantizer writes f32 or bf16.  Ragged blocks and views at an odd
 offset go through the kernel file's scalar kernels, never the plain
@@ -46,7 +48,7 @@ def quantize(x, rand_u01, *, block: int = 256):
     f32 (n//block,))."""
     if x.device.type == "cpu":
         return quantize_ref(x, rand_u01, block=block)
-    if x.device.type != "cuda":
+    if x.device.type not in _build.TRACED_DEVICES:
         raise ValueError(f"quantize: unsupported device {x.device}")
     _check_n(x.numel(), "quantize")
     one_u = is_one_value(rand_u01)
@@ -58,10 +60,21 @@ def quantize(x, rand_u01, *, block: int = 256):
         raise ValueError(f"quantize: need (n,) f32/bf16 x and (n,) f32 u, "
                          f"got {x.dtype}{tuple(x.shape)} and "
                          f"{rand_u01.dtype}{tuple(rand_u01.shape)}")
+    _check_block(x.shape[0], block, "quantize")
+    return tuple(_QUANTIZE(x, rand_u01, block, one_u))
+
+
+def _quantized(x, block: int):
     n = x.shape[0]
-    _check_block(n, block, "quantize")
-    q = torch.empty(n, dtype=torch.int8, device=x.device)
-    scales = torch.empty(n // block, dtype=torch.float32, device=x.device)
+    return (torch.empty(n, dtype=torch.int8, device=x.device),
+            torch.empty(n // block, dtype=torch.float32, device=x.device))
+
+
+def _launch_quantize(x, rand_u01, block: int, one_u: bool):
+    """The quantize operator's CUDA implementation: the grid-wide path's
+    scratch and one launch, counted."""
+    n = x.shape[0]
+    q, scales = _quantized(x, block)
     if n == 0:
         return q, scales
     n_sms = _build.n_sms(x.device)
@@ -77,12 +90,18 @@ def quantize(x, rand_u01, *, block: int = 256):
     return q, scales
 
 
+_QUANTIZE = _build.define_op(
+    "quantize(Tensor x, Tensor rand_u01, int block, bool one_u) -> "
+    "(Tensor, Tensor)", _launch_quantize,
+    lambda x, rand_u01, block, one_u: _quantized(x, block))
+
+
 def dequantize(q, scales, *, block: int = 256, out_dtype=torch.float32):
     """int8 (n,) and f32 (n//block,) -> (n,) in ``out_dtype`` (f32, or bf16
     rounded to nearest even)."""
     if q.device.type == "cpu":
         return dequantize_ref(q, scales, block=block, out_dtype=out_dtype)
-    if q.device.type != "cuda":
+    if q.device.type not in _build.TRACED_DEVICES:
         raise ValueError(f"dequantize: unsupported device {q.device}")
     _check_n(q.numel(), "dequantize")
     _build.check_cuda("dequantize", q, scales)
@@ -95,13 +114,30 @@ def dequantize(q, scales, *, block: int = 256, out_dtype=torch.float32):
                          f"{scales.dtype}{tuple(scales.shape)} into "
                          f"{out_dtype}")
     _check_block(n, block, "dequantize")
-    x = torch.empty(n, dtype=out_dtype, device=q.device)
+    return _DEQUANTIZE(q, scales, block, out_dtype == torch.bfloat16)
+
+
+def _dequantized(q, bf16_out: bool):
+    return torch.empty(q.shape[0], device=q.device, dtype=torch.bfloat16
+                       if bf16_out else torch.float32)
+
+
+def _launch_dequantize(q, scales, block: int, bf16_out: bool):
+    """The dequantize operator's CUDA implementation: one launch,
+    counted."""
+    n = q.shape[0]
+    x = _dequantized(q, bf16_out)
     if n == 0:
         return x
     fn = _build.bind("quant", "dequantize", 3, 4)
     err = fn(q.data_ptr(), scales.data_ptr(), x.data_ptr(), n, block,
-             int(out_dtype == torch.bfloat16), _build.n_sms(q.device),
-             _build.stream_of(q))
+             int(bf16_out), _build.n_sms(q.device), _build.stream_of(q))
     _build.check_launch(err, "dequantize")
     _build.LAUNCHES["dequantize"] += 1
     return x
+
+
+_DEQUANTIZE = _build.define_op(
+    "dequantize(Tensor q, Tensor scales, int block, bool bf16_out) -> "
+    "Tensor", _launch_dequantize,
+    lambda q, scales, block, bf16_out: _dequantized(q, bf16_out))

@@ -3,7 +3,9 @@ hybrid's slab decode (the paged path over a dense slab viewed as blocks)
 and the plain dense decode path.
 
 CUDA tensors go to the hand-written kernels (``repro_torch.kernels``);
-CPU tensors run plain PyTorch versions.  In training (autograd on) the
+CPU tensors run plain PyTorch versions.  Meta tensors (the dry run's trace
+of a step, ``launch/dryrun.py``) take the card's path, where the kernels'
+operators give only their outputs' shapes.  In training (autograd on) the
 prefill path is differentiable: on CUDA an ``autograd.Function`` whose
 forward is the flash kernel (with the rows' log-sum-exp) and whose
 backward is the flash backward kernel; on the CPU autograd runs through
@@ -104,7 +106,7 @@ def chunked_attention(q, k, v, *, causal: bool, q_positions, kv_positions,
     with autograd on, ``FlashAttention`` (forward and backward kernels);
     on the CPU ``blocked_attention`` (the JAX package's numerics), through
     which autograd runs."""
-    if q.is_cuda:
+    if q.device.type != "cpu":
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return FlashAttention.apply(q.contiguous(), k.contiguous(),
@@ -128,7 +130,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, *, pos,
     CUDA tensors go to the paged-attention kernel, which reads the blocks
     in place.  CPU tensors gather the visible blocks and run one masked
     softmax over them (the JAX package's CPU schedule)."""
-    if q.is_cuda:
+    if q.device.type != "cpu":
         return paged_attention(q, k_pool, v_pool, block_tables,
                                pos.to(torch.int32), ctx_cols=ctx_cols)
     B, S, H, hd = q.shape

@@ -15,12 +15,15 @@ leading L axis and weight matrices keep JAX's (in, out) orientation, so
 of the stacked tensors.
 
 Decode writes the new state into the cache it is given *in place* (JAX
-returns rebuilt arrays): the dense and moe families' KV rows into the
-paged pool's ``cache["k"]``/``cache["v"]``, the ssm family's conv window
-and SSM state into ``cache["conv"]``/``cache["h"]``, and the hybrid
-family's shared block's KV rows into ``cache["shared_k"]``/
-``cache["shared_v"]``;
-``decode_step`` returns the same dict it was given.
+returns rebuilt arrays): the dense, moe and vlm families' KV rows into the
+paged pool's ``cache["k"]``/``cache["v"]`` (with ``block_tables``), or
+into the JAX package's dense per-slot cache (``init_cache``: (L, B,
+max_seq, K, hd), no tables), the ssm family's conv window and SSM state
+into ``cache["conv"]``/``cache["h"]``, and the hybrid family's shared
+block's KV rows into ``cache["shared_k"]``/``cache["shared_v"]``;
+``decode_step`` returns the same dict it was given.  A dense per-slot
+cache is read as the hybrid's slab is: viewed as blocks under identity
+tables, through the paged-attention kernel on the card.
 
 Training (``mode="train"``, ``loss_fn``) keeps no KV or recurrent state
 and writes nothing in place; autograd runs through it, with each layer
@@ -284,17 +287,18 @@ def _mlp_apply(x, p):
 
 def _attn_layer(x, lp, cfg: ModelConfig, knobs: ModelKnobs, positions,
                 rope, cache=None, pos=None, block_tables=None, rows=None,
-                want_aux: bool = False, ms=None):
+                want_aux: bool = False, ms=None, slab: bool = False):
     """One layer of the dense and moe families: attention, then the SwiGLU
     MLP or (moe) the routed experts over the B*S tokens.  Returns (x, kv,
     aux): kv as ``_attn_apply``'s; aux the router's load-balancing loss
     with ``want_aux`` (training), else None (the serving paths, where the
-    JAX package discards it).  ``ms``: the training mesh, for the moe
-    block's expert parallelism."""
+    JAX package discards it).  ``ms``: the mesh of a mesh step, for the
+    moe block's expert parallelism.  ``slab``: the cache is the dense
+    per-slot cache of one layer (B, max_seq, K, hd)."""
     B, S, D = x.shape
     h, kv = _attn_apply(common.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps),
                         lp["attn"], cfg, knobs, positions, rope, cache, pos,
-                        block_tables=block_tables, rows=rows)
+                        block_tables=block_tables, rows=rows, slab=slab)
     x = x + h
     xn = common.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps)
     if not cfg.uses_moe:
@@ -310,6 +314,18 @@ def slab_rows(positions, max_seq: int):
     them (a request never reads a row past its own position)."""
     b = torch.arange(positions.shape[0], device=positions.device)[:, None]
     return b, torch.clamp(positions, max=max_seq - 1)
+
+
+def _slab_index(cache, key: str, positions):
+    """(rows, tables) of a decode step over a dense per-slot cache, whose
+    leaf ``cache[key]`` is (L, B, max_seq, K, hd): the rows ``slab_rows``
+    writes and the block tables it is read through, the cache's own
+    ``slab_tables`` or its identity tables."""
+    B, max_seq = positions.shape[0], cache[key].shape[2]
+    tables = cache.get("slab_tables")
+    if tables is None:
+        tables = identity_tables(B, max_seq, positions.device)
+    return slab_rows(positions, max_seq), tables
 
 
 def _shared_block(x, p, cfg: ModelConfig, knobs: ModelKnobs, positions,
@@ -390,8 +406,12 @@ def forward(params, tokens, cfg: ModelConfig,
     from ``frontend``.  Returns (hidden (B, S, D), cache).
 
     Dense, moe, vlm and encoder: the stacked (L, B, S, K, hd) prefill
-    activations, or (not the encoder) the paged pool written in place
-    (``mode="decode"``, ``pos`` (B,) the first write position).  ssm: the
+    activations, or (not the encoder) the cache written in place
+    (``mode="decode"``, ``pos`` (B,) the first write position): the paged
+    pool with its ``block_tables``, or the dense per-slot cache
+    (``init_cache``) without, whose rows are written at ``pos`` clamped to
+    max_seq - 1 (``slab_rows``) and read through ``identity_tables`` (or
+    the cache's own ``slab_tables``).  ssm: the
     stacked prefill state (conv (L, B, Di, K-1), h (L, B, Di, N) f32), or
     the decode cache written in place (``pos`` is not read).  hybrid: the
     same with h (L, B, nh, P, N), and the shared block's KV, (n_apps, B,
@@ -413,9 +433,9 @@ def forward(params, tokens, cfg: ModelConfig,
     F) before the tokens, the hidden states then covering P + S
     positions, or the encoder's frames (B, S, F) (``_embed``).
 
-    ``ms`` (train only): the mesh of a mesh step, handed to the moe
-    block (expert parallelism); the rest of the forward is the rank's own
-    (its batch shard, the pulled parameters)."""
+    ``ms``: the mesh of a mesh step (training or serving), handed to the
+    moe block (expert parallelism); the rest of the forward is the rank's
+    own (its batch shard, the pulled parameters, its cache gathered)."""
     check_family(cfg)
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode {mode!r}: prefill | decode | train")
@@ -435,11 +455,15 @@ def forward(params, tokens, cfg: ModelConfig,
                             valid_len)
     B, S, D = x.shape
     ar = torch.arange(S, device=x.device)
+    slab = mode == "decode" and "block_tables" not in cache
     if mode == "decode":
         positions = pos.long()[:, None] + ar[None, :]
-        bt = cache["block_tables"]
         pos = pos.to(torch.int32)
-        rows = paged_rows(positions, bt, cache["k"].shape[2])
+        if slab:                            # the dense per-slot cache
+            rows, bt = _slab_index(cache, "k", positions)
+        else:
+            bt = cache["block_tables"]
+            rows = paged_rows(positions, bt, cache["k"].shape[2])
     else:
         positions = ar[None, :].expand(B, S)
         bt = rows = None
@@ -449,7 +473,7 @@ def forward(params, tokens, cfg: ModelConfig,
         c = (cache["k"][i], cache["v"][i]) if mode == "decode" else None
         x, kv, _ = _attn_layer(x, _layer(params["layers"], i), cfg, knobs,
                                positions, rope, c, pos, block_tables=bt,
-                               rows=rows)
+                               rows=rows, ms=ms, slab=slab)
         if mode == "prefill":
             ks.append(kv[0])
             vs.append(kv[1])
@@ -506,11 +530,7 @@ def _forward_ssm(params, x, cfg: ModelConfig, knobs: ModelKnobs, mode: str,
         if mode == "decode":
             positions = pos.long()[:, None] + ar[None, :]
             pos = pos.to(torch.int32)
-            max_seq = cache["shared_k"].shape[2]
-            rows = slab_rows(positions, max_seq)
-            tables = cache.get("slab_tables")
-            if tables is None:
-                tables = identity_tables(B, max_seq, x.device)
+            rows, tables = _slab_index(cache, "shared_k", positions)
         else:
             positions = ar[None, :].expand(B, S)
         rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
@@ -635,16 +655,22 @@ def init_paged_cache_shapes(cfg: ModelConfig, n_blocks: int,
 
 def init_cache_shapes(cfg: ModelConfig, batch: int,
                       max_seq: int | None = None) -> dict:
-    """Shapes of the ssm and hybrid families' per-slot decode state: conv
-    (L, B, Di, K-1) (the pool's dtype) and h (L, B, Di, N) or, for mamba2,
-    (L, B, nh, P, N) (always f32); the hybrid adds its shared block's KV
-    slab ``shared_k`` / ``shared_v`` (n_apps, B, max_seq, K, hd), the one
-    state with a sequence axis, so it needs ``max_seq``.  The dense and moe
-    families decode from the paged pool (``init_paged_cache_shapes``)."""
+    """Shapes of the per-slot decode cache, as the JAX package's: the
+    attention families' dense k and v (L, B, max_seq, K, hd); the ssm and
+    hybrid families' conv (L, B, Di, K-1) and h (L, B, Di, N) or, for
+    mamba2, (L, B, nh, P, N), the hybrid adding its shared block's KV slab
+    ``shared_k`` / ``shared_v`` (n_apps, B, max_seq, K, hd).  ``max_seq``
+    is needed wherever a state has a sequence axis.  (The engine's dense
+    and moe pools page their KV instead: ``init_paged_cache_shapes``.)"""
     check_family(cfg)
-    if cfg.family not in ("ssm", "hybrid"):
-        raise ValueError(f"family {cfg.family!r} decodes from the paged pool")
-    L, Di, B = cfg.n_layers, cfg.d_inner, batch
+    L, B = cfg.n_layers, batch
+    if cfg.family in ATTN_FAMILIES:
+        if max_seq is None:
+            raise ValueError(f"family {cfg.family!r}: the KV cache needs "
+                             f"max_seq")
+        kv = (L, B, max_seq, cfg.n_kv_heads, cfg.hd)
+        return {"k": kv, "v": kv}
+    Di = cfg.d_inner
     out = {"conv": (L, B, Di, cfg.ssm_conv - 1),
            "h": ((L, B, Di, cfg.ssm_state) if cfg.ssm_version == 1 else
                  (L, B, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state))}
@@ -656,6 +682,22 @@ def init_cache_shapes(cfg: ModelConfig, batch: int,
     return out
 
 
+def cache_dtype(name: str):
+    """A decode cache leaf's dtype, the JAX package's: the SSM state ``h``
+    f32, the rest (KV, the conv window) bf16."""
+    return torch.float32 if name == "h" else torch.bfloat16
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int | None = None,
+               device=None) -> dict:
+    """The zeroed per-slot decode cache of ``init_cache_shapes`` on
+    ``device`` (default: the CUDA device; raises without one unless
+    ``device`` is given), in ``cache_dtype``'s dtypes."""
+    dev = resolve_device(device)
+    return {k: torch.zeros(s, dtype=cache_dtype(k), device=dev)
+            for k, s in init_cache_shapes(cfg, batch, max_seq).items()}
+
+
 def n_shared_apps(cfg: ModelConfig) -> int:
     """Applications of the hybrid's shared block: after layers 0, k, 2k,
     ... (k = ``shared_attn_every``)."""
@@ -664,22 +706,25 @@ def n_shared_apps(cfg: ModelConfig) -> int:
 
 
 def prefill(params, tokens, cfg: ModelConfig,
-            knobs: ModelKnobs = ModelKnobs(), frontend=None):
+            knobs: ModelKnobs = ModelKnobs(), frontend=None, ms=None):
     """The last position's logits and the prefill cache, as the JAX
     package's ``prefill`` (the encoder: ``tokens=None`` and ``frontend``
     frames; the logits of every frame are ``logits_fn`` of ``forward``'s
-    hidden states)."""
+    hidden states).  ``ms``: the mesh of a serve step (the moe block's
+    expert parallelism)."""
     hidden, cache = forward(params, tokens, cfg, knobs, mode="prefill",
-                            frontend=frontend)
+                            frontend=frontend, ms=ms)
     return logits_fn(params, hidden[:, -1:], cfg), cache
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
-                knobs: ModelKnobs = ModelKnobs()):
+                knobs: ModelKnobs = ModelKnobs(), ms=None):
     """tokens: (B, S); pos: (B,) write position of the first token (S > 1
     = chunked prefill against the cache).  ``cache``: the paged pool
-    (``k``, ``v``, ``block_tables``) or the ssm state (``conv``, ``h``),
-    updated in place.  Returns (logits, cache)."""
+    (``k``, ``v``, ``block_tables``), the dense per-slot cache (``k``,
+    ``v``: ``init_cache``) or the ssm state (``conv``, ``h``), updated in
+    place.  ``ms``: the mesh of a serve step (the moe block's expert
+    parallelism).  Returns (logits, cache)."""
     hidden, cache = forward(params, tokens, cfg, knobs, mode="decode",
-                            cache=cache, pos=pos)
+                            cache=cache, pos=pos, ms=ms)
     return logits_fn(params, hidden, cfg), cache

@@ -1,6 +1,7 @@
-"""The training step of one system setting (the JAX package's
-``ps/stepfn.py`` ``StepKnobs``, ``train_state_shapes`` and
-``build_train_step``).
+"""The training and serving steps of one system setting (the JAX
+package's ``ps/stepfn.py``: ``StepKnobs``, ``train_state_shapes``,
+``build_train_step`` and ``jit_train_step``; ``build_prefill_step``,
+``build_decode_step`` and ``jit_serve_step``).
 
 A setting's Type II knobs are baked into the step closure: microbatches
 and their accumulator dtype, layer recomputation, gradient compression,
@@ -28,9 +29,18 @@ the state (``state_specs``):
 4. **update**: the optimizer in place on the local shards.
 
 At one device every collective is skipped and every shard is the whole
-tensor, so the mesh step at 1x1 is the single-device step.  The serve
-steps (``jit_serve_step``, ``build_prefill_step``, ``build_decode_step``)
-are not ported.
+tensor, so the mesh step at 1x1 is the single-device step.
+
+The serve steps (prefill, and decode over the dense per-slot cache of
+``lm.init_cache``) under a mesh: the parameters placed by ``param_specs``
+(``serve_params="fsdp"``) or over ``model`` only (``"tp_only"``: the pull
+then gathers over ``model`` alone), the cache by ``cache_specs`` (batch
+over the data axes, the sequence (attention) or the channels (ssm) over
+``model``).  A step pulls the parameters, computes on the rank's shard of
+the batch, and for the cache rows it holds over ``model`` gathers each
+layer's cache whole before the layer and keeps its own shard of what the
+layer wrote (``_GatheredLayers``).  It returns the rank's rows of the
+logits and its shards of the cache.
 """
 from __future__ import annotations
 
@@ -39,25 +49,30 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core.tree import flatten, leaves, tree_map, unflatten
 from repro_torch.distributed.sharding import (MeshSpec, fit_act_spec, gather,
-                                              param_specs, shape_of, shard)
+                                              is_whole, param_specs, shape_of,
+                                              shard)
 from repro_torch.models import lm
 from repro_torch.models.lm import ModelKnobs
 from repro_torch.optim import make_optimizer, opt_state_shapes
 from repro_torch.ps.compression import compress_grads
 
 ACC_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# the JAX package's StepKnobs fields the port's steps do not carry
+NOT_CARRIED = ("scan_unroll", "q_chunk", "ssm_chunk", "attn_skip_masked",
+               "seq_shard", "donate")
 
 
 @dataclass(frozen=True)
 class StepKnobs:
-    """The system setting X of a training step (paper §III): the Type II
-    knobs the port's step reads.  The JAX package's mesh and scan knobs
-    (``scan_unroll``, ``q_chunk``, ``ssm_chunk``, ``attn_skip_masked``,
-    ``serve_params``, ``seq_shard``, ``donate``) have no meaning in an
-    eager single-device step and are not carried."""
+    """The system setting X of a step (paper §III): the Type II knobs the
+    port's steps read, and the serve steps' parameter placement.  The JAX
+    package's compiler and scan knobs (``scan_unroll``, ``q_chunk``,
+    ``ssm_chunk``, ``attn_skip_masked``, ``seq_shard``, ``donate``) have no
+    meaning in the port's eager steps and are not carried
+    (``NOT_CARRIED``)."""
     microbatches: int = 1
     remat: str = "none"              # none | dots | full
     compression: str = "none"        # none | bf16 | int8
@@ -65,6 +80,7 @@ class StepKnobs:
     k_chunk: int = 1024
     ce_chunk: int = 0
     acc_dtype: str = "f32"           # microbatch grad-accumulator precision
+    serve_params: str = "fsdp"       # fsdp | tp_only (serve placement)
 
     def model_knobs(self) -> ModelKnobs:
         return ModelKnobs(k_chunk=self.k_chunk, remat=self.remat,
@@ -162,6 +178,14 @@ def _grads(params, batch, cfg, mk, ms=None):
         unflatten(paths, grads)
 
 
+def _pull(params, pspecs, ms):
+    """The PS pull: each parameter all-gathered whole over the axes its
+    spec names (the parameters themselves off a mesh)."""
+    if ms is None:
+        return params
+    return tree_map(lambda p, s: gather(p, s, ms), params, pspecs)
+
+
 def _local_batch(batch, ms):
     """This rank's part of a (micro)batch under ``batch_specs`` and the
     MeshSpec the forward sees, whose ``batch_axes`` say how the part lies
@@ -170,7 +194,9 @@ def _local_batch(batch, ms):
         return batch, None
     specs = batch_specs(batch, ms)
     part = tree_map(lambda x, s: shard(x, s, ms), batch, specs)
-    b = specs["labels"][0]           # every batch kind has labels
+    # every training batch has labels; a serving batch tokens or frames
+    key = next(k for k in ("labels", "tokens", "frontend") if k in specs)
+    b = specs[key][0]
     axes = () if b is None else ((b,) if isinstance(b, str) else tuple(b))
     return part, dataclasses.replace(ms, batch_axes=axes)
 
@@ -200,12 +226,6 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
         ospecs = out_specs or (specs if out_ms is ms
                                else state_specs(shapes, out_ms))
     relocating = ms is not None and (out_ms is not ms or ospecs is not specs)
-
-    def pull(params):
-        if ms is None:
-            return params
-        return tree_map(lambda p, s: gather(p, s, ms), params,
-                        specs["params"])
 
     def push(tensors):
         """Each tensor (whole gradients, the losses) averaged over the data
@@ -268,7 +288,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
 
     @torch.no_grad()
     def train_step(state, batch):
-        params = pull(state["params"])
+        params = _pull(state["params"], None if ms is None
+                       else specs["params"], ms)
         loss, aux, grads = compute_grads(params, batch)
         push(leaves(grads) + [loss, aux["ce"]])
         grads = compress_grads(
@@ -309,3 +330,140 @@ def jit_train_step(cfg: ModelConfig, tc: TrainConfig, ms: MeshSpec,
     step = build_train_step(cfg, tc, knobs, ms=ms, out_specs=out_state_specs)
     sshapes = train_state_shapes(cfg, tc, opt_dtype, knobs)
     return step, sshapes, state_specs(sshapes, ms)
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+def serve_param_specs(cfg: ModelConfig, ms: MeshSpec,
+                      knobs: StepKnobs = StepKnobs()):
+    """Specs of the serving parameters: ``param_specs`` on ``ms``
+    (``"fsdp"``), or on ``ms`` with no data axes (``"tp_only"``: sharded
+    over ``model`` only, whole along the data axes)."""
+    if knobs.serve_params not in ("fsdp", "tp_only"):
+        raise ValueError(f"serve_params {knobs.serve_params!r}: fsdp | "
+                         f"tp_only")
+    pms = (dataclasses.replace(ms, data_axes=())
+           if knobs.serve_params == "tp_only" else ms)
+    return param_specs(lm.param_shapes(cfg), pms)
+
+
+def _model_only(spec: tuple, ms: MeshSpec) -> tuple:
+    """The entries of ``spec`` over ``model`` (the rest None): the part of
+    a cache leaf's placement that the rank's batch shard does not already
+    hold."""
+    return tuple(e if e == ms.model_axis else None for e in spec)
+
+
+class _GatheredLayers:
+    """The layer views of a stacked cache leaf whose rank holds a shard
+    over ``model``: ``[i]`` all-gathers layer i whole (the step writes its
+    new rows there in place), after writing the previously opened layer's
+    shard back into the rank's cache; ``close()`` writes the last one.
+    ``shape`` is the whole leaf's, as the forward reads it."""
+
+    def __init__(self, local, spec: tuple, ms: MeshSpec):
+        self.local, self.ms = local, ms
+        self.spec = spec[1:]                # a layer view's
+        self.shape = (local.shape[0],) + tuple(
+            n * ms.size_of(e) for n, e in zip(local.shape[1:], self.spec))
+        self.open = None
+
+    def __getitem__(self, i: int):
+        self.close()
+        whole = gather(self.local[i], self.spec, self.ms)
+        self.open = (i, whole)
+        return whole
+
+    def close(self):
+        if self.open is not None:
+            i, whole = self.open
+            self.local[i].copy_(shard(whole, self.spec, self.ms))
+            self.open = None
+
+
+def build_prefill_step(cfg: ModelConfig, ms: MeshSpec = None,
+                       knobs: StepKnobs = StepKnobs()):
+    """Returns ``prefill_step(params, batch) -> (logits, cache)``: the
+    last position's logits and the prefill cache, ``lm.prefill`` of
+    ``batch["tokens"]`` (and ``batch["frontend"]``, the vlm's patches or
+    the encoder's frames).  Under a mesh every rank calls it with its
+    parameter shards (``serve_param_specs``) and the whole batch; it
+    computes on its data shard and returns its logits rows and its shards
+    of the cache (``cache_specs`` of the whole cache)."""
+    mk = knobs.model_knobs()
+    pspecs = None if ms is None else serve_param_specs(cfg, ms, knobs)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        p = _pull(params, pspecs, ms)
+        part, act = _local_batch(batch, ms)
+        logits, cache = lm.prefill(p, part.get("tokens"), cfg, mk,
+                                   frontend=part.get("frontend"), ms=act)
+        if ms is not None:
+            # the batch dims are the rank's already; keep its model shard
+            lead = batch.get("tokens", batch.get("frontend"))
+            whole = {k: (v.shape[0], lead.shape[0]) + tuple(v.shape[2:])
+                     for k, v in cache.items()}
+            specs = cache_specs(whole, ms)
+            cache = {k: shard(v, _model_only(specs[k], ms), ms).contiguous()
+                     for k, v in cache.items()}
+        return logits, cache
+
+    return prefill_step
+
+
+def build_decode_step(cfg: ModelConfig, ms: MeshSpec = None,
+                      knobs: StepKnobs = StepKnobs(), max_seq: int = None):
+    """Returns ``serve_step(params, cache, tokens, pos) -> (logits,
+    cache)``: ``lm.decode_step`` over the dense per-slot cache, written in
+    place.  Under a mesh every rank calls it with its parameter shards,
+    its shards of the whole cache ``lm.init_cache_shapes(cfg, B,
+    max_seq)`` under ``cache_specs`` (``max_seq``: where a cache leaf has a
+    sequence axis), and the whole tokens (B, S) and pos (B,); it computes
+    on its data shard, gathering each layer's cache over ``model``
+    (``_GatheredLayers``), and returns its logits rows."""
+    mk = knobs.model_knobs()
+    pspecs = None if ms is None else serve_param_specs(cfg, ms, knobs)
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos):
+        p = _pull(params, pspecs, ms)
+        if ms is None:
+            return lm.decode_step(p, cache, tokens, pos, cfg, mk)
+        part, act = _local_batch({"tokens": tokens, "pos": pos}, ms)
+        specs = cache_specs(lm.init_cache_shapes(cfg, tokens.shape[0],
+                                                 max_seq), ms)
+        views = {}
+        for k, v in cache.items():
+            spec = _model_only(specs[k], ms)
+            views[k] = (_GatheredLayers(v, spec, ms)
+                        if not is_whole(spec, ms) else v)
+        logits, _ = lm.decode_step(p, views, part["tokens"], part["pos"],
+                                   cfg, mk, ms=act)
+        for v in views.values():
+            if isinstance(v, _GatheredLayers):
+                v.close()
+        return logits, cache
+
+    return serve_step
+
+
+def jit_serve_step(cfg: ModelConfig, shape: ShapeConfig, ms: MeshSpec,
+                   knobs: StepKnobs = StepKnobs()):
+    """The serve step of a prefill or decode cell with its shapes, as the
+    JAX package's: (prefill step, parameter shapes), or (decode step,
+    (parameter shapes, cache shapes)).  ``knobs.serve_params ==
+    "tp_only"`` keeps the parameters sharded on ``model`` only, so decode
+    gathers over ``model`` alone instead of all-gathering the FSDP shards
+    every step.  (The port's steps are eager: nothing is compiled.)"""
+    pshapes = lm.param_shapes(cfg)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, ms, knobs), pshapes
+    if shape.kind != "decode":
+        raise ValueError(f"jit_serve_step: kind {shape.kind!r} is not a "
+                         f"serve step")
+    cshapes = lm.init_cache_shapes(cfg, shape.global_batch, shape.seq_len)
+    return (build_decode_step(cfg, ms, knobs, max_seq=shape.seq_len),
+            (pshapes, cshapes))

@@ -1,8 +1,8 @@
 """Draft-token proposers for speculative decoding: the port of the JAX
 package's ``serving/drafter.py``.
 
-A drafter proposes ``k`` cheap continuation tokens per live slot; the
-engine verifies all of them in ONE multi-token decode step against the
+A drafter (``Drafter``, the protocol the engine needs) proposes ``k``
+cheap continuation tokens per live slot; the engine verifies all of them in ONE multi-token decode step against the
 target model and rolls the rejected tail back.  Drafters keep only host
 token histories (and the truncated one its own captured step), never the
 engine's pool state, so the ``drafter`` knob is a Type II policy swap.
@@ -26,6 +26,7 @@ speculation efficiency.
 from __future__ import annotations
 
 import dataclasses
+from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -33,6 +34,31 @@ import torch
 from repro_torch.core.lru import aot_compile
 from repro_torch.device import Staging
 from repro_torch.models import lm
+
+
+@runtime_checkable
+class Drafter(Protocol):
+    """What the engine needs from a draft-token proposer (the JAX
+    package's protocol).  ``update`` is idempotent per (slot, rid,
+    progress): the engine calls it every speculative tick with the slot's
+    whole request context and the drafter takes only what it has not
+    seen, so a drafter swapped in mid-run, or handed a reused slot,
+    resyncs itself."""
+
+    name: str
+
+    def update(self, slot: int, rid, prompt: np.ndarray,
+               tokens_out: list) -> None:
+        """Sync the slot's context: ``prompt`` + committed ``tokens_out``."""
+        ...
+
+    def propose(self, slot: int, k: int) -> np.ndarray:
+        """Return exactly ``k`` draft tokens (int32) for the slot."""
+        ...
+
+    def release(self, slot: int) -> None:
+        """The slot's request finished; drop per-slot state."""
+        ...
 
 
 class _SlotContexts:

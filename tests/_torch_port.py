@@ -76,3 +76,40 @@ def f32(x) -> np.ndarray:
     if hasattr(x, "detach"):
         return x.detach().float().cpu().numpy()
     return np.asarray(x, np.float32)
+
+
+def assert_decode_batch_matches_jax(arch: str, B: int = 2, S: int = 20,
+                                    seed: int = 9):
+    """The decode kind of ``input_specs`` / ``synthetic_batch`` against
+    the JAX package's, bit for bit: tokens (B, 1) and pos (B,) = S - 1,
+    and the cache of ``init_cache_shapes`` all zeros, the JAX draws spent
+    in its tree order (cache, pos, tokens) so the tokens agree."""
+    import torch
+
+    from repro.configs.base import ShapeConfig as JShapeConfig
+    from repro.data.synthetic import input_specs as j_input_specs
+    from repro.data.synthetic import synthetic_batch as j_synthetic_batch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import input_specs, synthetic_batch
+    cfg, tcfg = get_config(arch).reduced(), torch_get_config(arch).reduced()
+    jshape, shape = JShapeConfig("d", S, B, "decode"), ShapeConfig(
+        "d", S, B, "decode")
+    want, jspecs = j_synthetic_batch(cfg, jshape, seed), j_input_specs(
+        cfg, jshape)
+    got, specs = synthetic_batch(tcfg, shape, seed, device="cpu"), \
+        input_specs(tcfg, shape)
+    assert sorted(got) == sorted(want) == sorted(specs) == [
+        "cache", "pos", "tokens"]
+    assert sorted(got["cache"]) == sorted(want["cache"])
+    assert specs["tokens"] == ((B, 1), torch.int64)
+    assert specs["pos"] == ((B,), torch.int32)
+    for k, v in got["cache"].items():
+        j = jspecs["cache"][k]
+        assert (tuple(v.shape), v.dtype) == specs["cache"][k]
+        assert tuple(v.shape) == tuple(j.shape)
+        assert str(v.dtype).replace("torch.", "") == str(j.dtype)
+        assert not v.any()
+    for k in ("tokens", "pos"):
+        assert tuple(got[k].shape) == tuple(want[k].shape)
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    assert (got["pos"] == S - 1).all()

@@ -8,10 +8,11 @@ import numpy as np
 import pytest
 
 from repro.models import lm as jlm
+from repro.serving.drafter import Drafter as JDrafter
 from repro.serving.drafter import NgramDrafter as JNgram
 from repro.serving.drafter import TruncatedDrafter as JTruncated
-from repro_torch.serving.drafter import (NgramDrafter, TruncatedDrafter,
-                                         make_drafter)
+from repro_torch.serving.drafter import (Drafter, NgramDrafter,
+                                         TruncatedDrafter, make_drafter)
 
 from _torch_port import dense_models, ssm_models
 
@@ -85,3 +86,28 @@ def test_truncated_drafter_matches_jax(family):
             ties += 1
             break                   # the continuations legitimately differ
     assert compared >= 20 and ties <= 1
+
+
+@pytest.mark.parametrize("name", ["ngram", "truncated"])
+def test_drafters_satisfy_the_protocol(name):
+    """Both drafters are ``Drafter``s (``runtime_checkable``: ``name``,
+    ``update``, ``propose``, ``release``), as the JAX package's are its
+    ``Drafter``s; an object without ``propose`` is not one."""
+    cfg, tcfg, jp, tp = dense_models(0)
+    d = make_drafter(name, tp, tcfg, vocab=tcfg.vocab_size, device="cpu")
+    assert isinstance(d, Drafter) and d.name == name
+    j = (JNgram(cfg.vocab_size) if name == "ngram"
+         else JTruncated(jp, cfg, vocab=cfg.vocab_size))
+    assert isinstance(j, JDrafter)
+    members = {m for m in dir(Drafter) if not m.startswith("_")}
+    assert members == {m for m in dir(JDrafter) if not m.startswith("_")}
+
+    class NoPropose:
+        name = "none"
+
+        def update(self, slot, rid, prompt, tokens_out):
+            pass
+
+        def release(self, slot):
+            pass
+    assert not isinstance(NoPropose(), Drafter)

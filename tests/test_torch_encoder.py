@@ -50,7 +50,8 @@ from repro_torch.ps.stepfn import StepKnobs, build_train_step
 from repro_torch.serving import ServingEngine
 from repro_torch.serving.pool import PagedKVPool, make_state_pool
 
-from _torch_port import LOGIT_TOL, _models, f32
+from _torch_port import (LOGIT_TOL, _models, assert_decode_batch_matches_jax,
+                         f32)
 
 ARCH = "hubert-xlarge"
 CONFIGS = {"gqa": {}, "hd80": {"head_dim": 80, "n_kv_heads": 4}}
@@ -311,7 +312,9 @@ def test_noncausal_attention_matches_pallas_at_hd80(Sq, Skv):
 def test_synthetic_frame_batch_matches_jax(kind):
     """The frame kinds: ``{frontend (B, S, F) bf16, labels (B, S)}`` in
     training and ``{frontend}`` in prefill, no tokens, drawn as the JAX
-    package draws them, bit for bit; the decode kind is not ported."""
+    package draws them, bit for bit; the decode kind (a shape cell the
+    dry run never takes for the encoder, which has no decode step) as the
+    JAX package builds it, bit for bit."""
     cfg, tcfg = jget_config(ARCH).reduced(), get_config(ARCH).reduced()
     want = j_synthetic_batch(cfg, JShapeConfig("c", 20, 3, kind), seed=9)
     got = synthetic_batch(tcfg, ShapeConfig("c", 20, 3, kind), seed=9,
@@ -323,8 +326,7 @@ def test_synthetic_frame_batch_matches_jax(kind):
         assert (tuple(v.shape), v.dtype) == specs[k]
         np.testing.assert_array_equal(f32(v), f32(want[k]))
     assert got["frontend"].shape == (3, 20, cfg.frontend_dim)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        synthetic_batch(tcfg, ShapeConfig("d", 20, 2, "decode"), device="cpu")
+    assert_decode_batch_matches_jax(ARCH)
 
 
 @pytest.mark.parametrize("task,cond", [("logreg", 1.0), ("logreg", 100.0),

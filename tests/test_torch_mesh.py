@@ -14,7 +14,10 @@ against a step and ``relocate_now``; (f) ``LMJob``'s ODMR and baseline
 Type I-b plans; (g) the elastic restore from 2x2 onto 2x1, from the JAX
 package's layout; (h) ``SelfTuningLoop`` over ``lm_knob_space(4)``: one
 plan sequence on every rank, and ``launch/train.py --self-tune`` in the
-same world.
+same world; (i) the serve steps on 2x2 (``build_prefill_step``, then
+``build_decode_step`` over the dense per-slot cache), fsdp and tp_only,
+for reduced dense, moe, ssm and hybrid models, against the port's
+single-process steps.
 
 The worker is this file run as a script; it imports the port only.
 """
@@ -366,10 +369,84 @@ def _case_launcher(inp, rank):
     return {"out": buf.getvalue()}
 
 
+SERVE_ARCHS = ("starcoder2-3b", "llama4-scout-17b-a16e", "falcon-mamba-7b",
+               "zamba2-1.2b")
+SERVE_B, SERVE_P, SERVE_MAX, SERVE_STEPS = 4, 8, 16, 3
+SEQ_LEAVES = ("k", "v", "shared_k", "shared_v")
+
+
+def _serve_run(cfg, params, tok, steps, ms=None, knobs=None):
+    """A prefill of ``tok`` (B, P), its rows placed into the dense cache
+    of SERVE_MAX, then a decode step of each of ``steps`` (n, B, 1) at
+    positions P, P + 1, ...: (logits of every step, the final cache),
+    under ``ms`` the rank's rows and shards."""
+    from repro_torch.models import lm
+    from repro_torch.ps.stepfn import (StepKnobs, _model_only,
+                                       build_decode_step, build_prefill_step,
+                                       cache_specs)
+    from repro_torch.distributed.sharding import gather, shard
+    knobs = knobs or StepKnobs()
+    logits, pc = build_prefill_step(cfg, ms, knobs)(params, {"tokens": tok})
+    out = [logits]
+    whole = lm.init_cache_shapes(cfg, SERVE_B, SERVE_MAX)
+    specs = None if ms is None else cache_specs(whole, ms)
+    # the prefill cache is the dense cache of its P positions
+    pspecs = None if ms is None else cache_specs(
+        lm.init_cache_shapes(cfg, SERVE_B, SERVE_P), ms)
+    cache = {}
+    for k, v in pc.items():
+        if ms is not None:                # this data shard's rows whole
+            v = gather(v, _model_only(pspecs[k], ms), ms)
+        if k in SEQ_LEAVES:
+            dense = torch.zeros(v.shape[:2] + (SERVE_MAX,) + v.shape[3:],
+                                dtype=torch.bfloat16)
+            dense[:, :, :SERVE_P] = v
+            v = dense
+        v = v.to(lm.cache_dtype(k))
+        if ms is not None:
+            v = shard(v, _model_only(specs[k], ms), ms)
+        cache[k] = v.contiguous()
+    dec = build_decode_step(cfg, ms, knobs, max_seq=SERVE_MAX)
+    for i, nt in enumerate(steps):
+        pos = torch.full((SERVE_B,), SERVE_P + i, dtype=torch.int32)
+        lg, c = dec(params, cache, nt, pos)
+        assert c is cache
+        out.append(lg)
+    return out, cache
+
+
+def _case_serve(inp, rank):
+    """(i) the serve steps on 2x2 under fsdp and tp_only: each rank's
+    logits rows of every step and its shards of the final cache."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.launch.mesh import make_meshspec
+    from repro_torch.models import lm
+    from repro_torch.ps.stepfn import StepKnobs, serve_param_specs
+    from repro_torch.core.tree import tree_map
+    ms = make_meshspec(2, 2)
+    tok = torch.from_numpy(inp["serve_tokens"])
+    steps = torch.from_numpy(inp["serve_steps"])
+    out = {"coord": ms.coord}
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch).reduced()
+        whole = lm.init_params(cfg, 0, device="cpu")
+        for mode in ("fsdp", "tp_only"):
+            knobs = StepKnobs(serve_params=mode)
+            specs = serve_param_specs(cfg, ms, knobs)
+            params = tree_map(lambda x, sp: shard(x, sp, ms).contiguous(),
+                              whole, specs)
+            logits, cache = _serve_run(cfg, params, tok, steps, ms, knobs)
+            out[(arch, mode)] = ([_np(x) for x in logits],
+                                 {k: _np(v) for k, v in cache.items()})
+    return out
+
+
 CASES = {"relocate": _case_relocate, "train_step": _case_train_step,
          "moe": _case_moe, "transition": _case_transition,
          "adapter": _case_adapter, "restore": _case_restore,
-         "selftune": _case_selftune, "launcher": _case_launcher}
+         "selftune": _case_selftune, "launcher": _case_launcher,
+         "serve": _case_serve}
 
 
 def _worker(rank: int, d: str):
@@ -533,6 +610,22 @@ def _moe_refs(inp):
     return out
 
 
+def _serve_refs(inp):
+    """(i)'s references: the port's single-process serve steps on the
+    same parameters and tokens."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch).reduced()
+        logits, cache = _serve_run(cfg, lm.init_params(cfg, 0, device="cpu"),
+                                   torch.from_numpy(inp["serve_tokens"]),
+                                   torch.from_numpy(inp["serve_steps"]))
+        out[arch] = ([_np(x) for x in logits],
+                     {k: _np(v) for k, v in cache.items()})
+    return out
+
+
 @pytest.fixture(scope="module")
 def mesh_run(tmp_path_factory):
     """The 4-rank job's results, and the references computed here while
@@ -552,7 +645,9 @@ def mesh_run(tmp_path_factory):
            "moe_x": {T: np.asarray(torch.randn(
                (T, D), generator=torch.Generator().manual_seed(T)).to(
                torch.bfloat16).float()) for T in MOE_T},
-           "moe_w": rng.standard_normal((MOE_T[1], D)).astype(np.float32)}
+           "moe_w": rng.standard_normal((MOE_T[1], D)).astype(np.float32),
+           "serve_tokens": rng.integers(0, 256, (SERVE_B, SERVE_P)),
+           "serve_steps": rng.integers(0, 256, (SERVE_STEPS, SERVE_B, 1))}
     with open(d / "inputs.pkl", "wb") as f:
         pickle.dump(inp, f)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -564,7 +659,8 @@ def mesh_run(tmp_path_factory):
         [sys.executable, __file__, "--worker", str(r), str(d)], env=env,
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(WORLD)]
     try:
-        refs = {"step": _step_refs(inp), "moe": _moe_refs(inp)}
+        refs = {"step": _step_refs(inp), "moe": _moe_refs(inp),
+                "serve": _serve_refs(inp)}
         for p in procs:
             p.wait(timeout=180)
     finally:
@@ -963,6 +1059,41 @@ def test_launcher_under_four_ranks(mesh_run):
         for i, p in enumerate(paths):
             if p.startswith("params/"):
                 assert z[f"a{i}"].shape == tuple(shapes[p[7:]]), p
+
+
+@pytest.mark.parametrize("mode", ["fsdp", "tp_only"])
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_steps_on_2x2_match_one_process(mesh_run, arch, mode):
+    """The 2x2 prefill and decode steps against the single-process steps:
+    each rank's logits rows (its data shard) of every step and its shards
+    of the final dense cache (batch over data, sequence or channels over
+    model).  The ranks compute their data shards' rows with the pulled
+    parameters, the rows a single process computes among all of them:
+    equal, or within one bf16 step of the logits (|logit| < 4) and of the
+    cache where a product's rounding depends on its row count."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.ps.stepfn import cache_specs
+    cfg = get_config(arch).reduced()
+    ref_logits, ref_cache = mesh_run["refs"]["serve"][arch]
+    specs = cache_specs(lm.init_cache_shapes(cfg, SERVE_B, SERVE_MAX),
+                        _meshspecs((2, 2))[1])
+    for r, res in enumerate(_ok(mesh_run, "serve")):
+        d, m = res["coord"]["data"], res["coord"]["model"]
+        logits, cache = res[(arch, mode)]
+        rows = slice(d * SERVE_B // 2, (d + 1) * SERVE_B // 2)
+        for i, (got, want) in enumerate(zip(logits, ref_logits)):
+            np.testing.assert_allclose(got, want[rows], atol=1 / 64, rtol=0,
+                                       err_msg=f"rank {r} step {i}")
+        for k, want in ref_cache.items():
+            part = want
+            for dim, e in enumerate(specs[k]):
+                n = {"data": 2, "model": 2}.get(e, 1)
+                i = {"data": d, "model": m}.get(e, 0)
+                step = part.shape[dim] // n
+                part = np.take(part, range(i * step, (i + 1) * step), dim)
+            np.testing.assert_allclose(cache[k], part, atol=1 / 64, rtol=0,
+                                       err_msg=f"rank {r} {k}")
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:

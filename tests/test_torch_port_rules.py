@@ -58,7 +58,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "kernels/flash_attention/kernel.py",
                 # the tuning store
                 "store/__init__.py", "store/signature.py", "store/store.py",
-                "store/golden.py"):
+                "store/golden.py",
+                # the serve steps and the dry run
+                "distributed/costmodel.py", "distributed/trace_analysis.py",
+                "launch/dryrun.py", "serving/drafter.py", "configs/base.py",
+                "models/lm.py"):
         assert port / rel in files, rel
     bad = []
     for f in files:
@@ -138,15 +142,19 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
 @pytest.mark.parametrize("case", ["family", "ssm_train", "mesh_plan",
                                   "remesh_restore"])
 def test_later_slices_raise_not_implemented(case, tmp_path):
-    """What is left unported raises NotImplementedError: the decode kind
-    of input_specs (the JAX package's dense per-slot cache, A7).  The
-    mesh (since its slice) runs at one device on the CPU, and a mesh
-    larger than the world raises a clear error: a moe block over the
-    one-device mesh is the single-device block, a Type I-b plan needs its
-    ranks, a re-mesh restore onto one device restores every leaf whole."""
+    """What the later slices ported no longer raises.  The decode kind of
+    input_specs (the JAX package's dense per-slot cache, since its slice)
+    builds the JAX package's batch bit for bit.  The mesh (since its
+    slice) runs at one device on the CPU, and a mesh larger than the
+    world raises a clear error: a moe block over the one-device mesh is
+    the single-device block, a Type I-b plan needs its ranks, a re-mesh
+    restore onto one device restores every leaf whole."""
     if case == "family":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            input_specs(CFG, ShapeConfig("d", 16, 2, "decode"))
+        from _torch_port import assert_decode_batch_matches_jax
+        specs = input_specs(CFG, ShapeConfig("d", 16, 2, "decode"))
+        assert specs["cache"]["k"][0] == (CFG.n_layers, 2, 16,
+                                          CFG.n_kv_heads, CFG.hd)
+        assert_decode_batch_matches_jax("starcoder2-3b")
         return
     from repro_torch.checkpoint import save_pytree
     from repro_torch.distributed.sharding import single_device_meshspec

@@ -47,7 +47,8 @@ from repro_torch.ps.stepfn import StepKnobs, build_train_step
 from repro_torch.serving import Request, ServingEngine, serve_loop
 from repro_torch.serving.pool import PagedKVPool, make_state_pool
 
-from _torch_port import LOGIT_TOL, _models, f32, tie_aware_check
+from _torch_port import (LOGIT_TOL, _models, assert_decode_batch_matches_jax,
+                         f32, tie_aware_check)
 
 ARCH = "phi-3-vision-4.2b"
 CONFIGS = {"gqa": {}, "hd96": {"head_dim": 96, "n_kv_heads": 4}}
@@ -403,6 +404,6 @@ def test_synthetic_batch_matches_jax(arch, kind):
 
 
 def test_synthetic_batch_decode_kind_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        synthetic_batch(get_config(ARCH).reduced(),
-                        ShapeConfig("d", 20, 2, "decode"), device="cpu")
+    """The decode kind (once refused, since ported): tokens, pos and the
+    dense per-slot cache of the vlm, bit for bit the JAX package's."""
+    assert_decode_batch_matches_jax(ARCH)
