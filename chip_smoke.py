@@ -288,10 +288,28 @@ Phases, in order; any failure exits non-zero before the result line:
              card) of phase 9's fixed run's peak and transient allocated
              bytes against what phase 9 measured (within 10%, else the
              miss is printed), and its collective bytes (0 at one rank).
+17. engine — on the same mesh, the serving engine under it
+             (``ServingEngine(ms=ms, param_specs=serve_param_specs(cfg,
+             ms))``) against ``ms=None``, both driven tick by tick
+             (``drive``, no wall clock) over the same requests: every
+             token, the final pool (blocks 1.. and the tables of a paged
+             pool, every leaf of an ssm pool) and each kernel's launches
+             equal.  Full-width starcoder2-3b (30 layers, 8 slots,
+             max_seq 1024, blocks of 16, prefix sharing) over
+             ``dense_trace``: bf16, int8 (quantize and dequantize),
+             spec_k = 3 n-gram (the S = 4 verify), then a stop-the-world
+             max_batch 8 -> 4 and a staged 4 -> 8 taken by both engines
+             at the same ticks (each relayout places its new tensors,
+             ``pool.placed``, keeping them; tokens also held to the
+             never-reconfigured arm, tie-aware), and one ``serve_loop``
+             under the mesh (tokens tie-aware).  Full-width, full-depth
+             zamba2-1.2b (the ssm pool and its KV slab: the scan, flash,
+             paged attention at G = 1) over ``hybrid_trace``, then its
+             short prompts with max_batch 8 -> 4 on both engines.
 
 Prints one JSON ``kernels`` line (launches: the serve arms', the training
-runs', the hybrid, moe, vlm, encoder, ssm training, mesh and serve-step
-paths'), the card's
+runs', the hybrid, moe, vlm, encoder, ssm training, mesh, serve-step and
+mesh-engine paths'), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -337,6 +355,8 @@ TRAIN_LOSS_TOL = 2e-2              # leaf's largest |value|) and the loss,
 TRAIN_STEPS = 30                   # the fixed run at full width and depth
 CKPT_DEPTH = 2                     # checkpoint resume: full width, 2 layers
 SELFTUNE_ITERS = 160               # the self-tuned run
+TOLS: dict = {}                    # phase 4's token tolerance by model, for
+                                   # phase 17's tie-aware checks
 SCAN_TOL = 1e-4                    # f32 rounding of the exponential (the
                                    # kernel's ex2.approx, the plain version's
                                    # exp), the state update and the <h, C>
@@ -1445,6 +1465,7 @@ def dense_path(torch, card):
     print(f"model: {cfg.name} full width, {n_params / 1e9:.3f} B params "
           f"bf16, init {time.perf_counter() - t0:.1f}s", flush=True)
     tol = decode_parity(torch, cfg, params)
+    TOLS[cfg.name] = tol
 
     share = dict(DEFAULT_SERVING_SETTING, max_batch=8, block_size=16,
                  cache_dtype="bf16", prefix_share=True)
@@ -5451,6 +5472,8 @@ def mesh_path(torch, card, rows, phase9):
                   flush=True)
             for k, n in serve_path(torch, ms, rows, phase9).items():
                 launches[k] = launches.get(k, 0) + n
+            for k, n in engine_mesh_path(torch, ms).items():
+                launches[k] = launches.get(k, 0) + n
         finally:
             dist.destroy_process_group()
     return launches
@@ -5639,6 +5662,236 @@ def serve_path(torch, ms, rows, phase9):
     time_dense_slab(torch, rows)
     dryrun_vs_card(torch, phase9)
     print(f"serve mesh: phase 16 in {time.perf_counter() - t0:.1f}s, "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+# ------------------------------------------------------------ phase 17
+ENGINE_KERNELS = ("paged_attention", "flash_attention", "quantize",
+                  "dequantize", "selective_scan")
+
+
+class SpanCount:
+    """A tracer for the engine that counts its spans by name."""
+
+    def __init__(self):
+        self.n: dict = {}
+
+    @contextlib.contextmanager
+    def span(self, name, **_):
+        self.n[name] = self.n.get(name, 0) + 1
+        yield
+
+
+def pool_differs(torch, a, b) -> list:
+    """The pool tensors of two engines that differ: a paged pool's block
+    tables and every block but the trash block 0 (where every idle slot
+    writes its row at position 0 and the last writer is arbitrary,
+    ``replay_check``), an ssm pool's every leaf, bit for bit."""
+    pa, pb = a.pool, b.pool
+    if pa.kind == "paged":
+        if not np.array_equal(pa.tables, pb.tables):
+            return ["tables"]
+        return [k for k, v in pa.kv.items()
+                if not _bits_equal(torch, v[:, 1:], pb.kv[k][:, 1:])]
+    return [k for k, v in pa.state.items()
+            if not _bits_equal(torch, v, pb.state[k])]
+
+
+def mesh_twins(torch, cfg, params, ms, setting, reqs, label, hooks=None):
+    """``reqs`` driven (``drive``: ticks without a wall clock, the hooks at
+    their ticks) through a no-mesh engine and an engine under ``ms``
+    (``param_specs=serve_param_specs(cfg, ms)``): every token, the final
+    pool and each kernel's launches must be equal.  Returns (mesh engine,
+    its finished requests, its launches)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.ps.stepfn import serve_param_specs
+    from repro_torch.serving import ServingEngine
+    dev = torch.device("cuda")
+    out = {}
+    for arm in ("single", "mesh"):
+        kw = ({} if arm == "single" else
+              {"ms": ms, "param_specs": serve_param_specs(cfg, ms)})
+        spans = SpanCount()
+        eng = ServingEngine(params, cfg, setting, max_seq=SERVE_MAX,
+                            device=dev, tracer=spans, **kw)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = drive(eng, reqs, dict(hooks or {}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = spans.n.get("serve.decode", 0) + spans.n.get(
+            "decode.verify", 0)
+        out[arm] = (eng, done, dict(LAUNCHES))
+        print(f"engine mesh[{label} {arm}]: {len(done)} requests, "
+              f"{sum(len(r.tokens_out) for r in done)} tokens in {wall:.3f}s "
+              f"(captures included), {steps} decode steps, decode "
+              f"{eng.decode_time_s * 1e3 / max(steps, 1):.3f} ms a step "
+              f"(host clock around each step and its synchronize), "
+              f"{len(eng._steps)} steps captured, launches {out[arm][2]}",
+              flush=True)
+        check_pool(eng, f"{label} {arm}")
+    (se, sdone, sl), (me, mdone, ml) = out["single"], out["mesh"]
+    want = {r.rid: r.tokens_out for r in sdone}
+    same = sum(r.tokens_out == want[r.rid] for r in mdone)
+    bad = pool_differs(torch, se, me)
+    print(f"engine mesh[{label}]: ServingEngine(ms=1x1 NCCL mesh) vs "
+          f"ms=None: {same}/{len(mdone)} requests the same tokens, final "
+          f"pool {'bit for bit' if not bad else f'DIFFERS in {bad}'}, "
+          f"launches {'equal' if ml == sl else 'DIFFER'} (tolerance: bit "
+          f"for bit; every collective is skipped at one rank)", flush=True)
+    if same != len(mdone) or len(mdone) != len(sdone) or bad or ml != sl:
+        fail(f"engine mesh[{label}]: the mesh engine is not the no-mesh "
+             f"engine (launches {ml} vs {sl})")
+    del se
+    return me, mdone, ml
+
+
+def engine_mesh_dense(torch, ms):
+    """Phase 17 on full-width starcoder2-3b (30 layers, 8 slots, max_seq
+    1024, blocks of 16, prefix sharing): ``dense_trace`` through
+    ``mesh_twins`` in bf16, int8 and spec_k = 3 (n-gram); then under the
+    mesh a stop-the-world max_batch 8 -> 4 and a staged 4 -> 8, each
+    relayout placing its new tensors (``pool.placed``, the tensors kept),
+    against a no-mesh twin taking the same switches at the same ticks; one
+    ``serve_loop`` under the mesh.  Returns the launches of the mesh
+    arms."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.ps.stepfn import serve_param_specs
+    from repro_torch.serving import (DEFAULT_SERVING_SETTING, ServingEngine,
+                                     serve_loop)
+    from repro_torch.serving import pool as pool_mod
+    cfg = get_config("starcoder2-3b")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    share = dict(DEFAULT_SERVING_SETTING, max_batch=8, block_size=16,
+                 cache_dtype="bf16", prefix_share=True)
+    reqs = dense_trace(cfg)
+    launches = dict.fromkeys(ENGINE_KERNELS, 0)
+
+    def add(n):
+        for k in ENGINE_KERNELS:
+            launches[k] += n[k]
+
+    _, ref, n = mesh_twins(torch, cfg, params, ms, share, reqs, "bf16")
+    add(n)
+    _, _, n = mesh_twins(torch, cfg, params, ms, dict(share, quant="int8"),
+                         reqs, "int8")
+    if not (n["quantize"] and n["dequantize"]):
+        fail(f"engine mesh[int8]: no quantize/dequantize launch: {n}")
+    add(n)
+    me, _, n = mesh_twins(torch, cfg, params, ms,
+                          dict(share, spec_k=3.0, drafter="ngram"), reqs,
+                          "spec_k=3 ngram")
+    if not (me.spec_ticks and me.spec_accepted):
+        fail(f"engine mesh[spec]: {me.spec_ticks} verify steps, "
+             f"{me.spec_accepted} drafts accepted")
+    add(n)
+    del me
+
+    # the relayouts: placed() on the mesh engine's pool keeps its tensors
+    seen = {"placed": 0}
+    real = pool_mod.placed
+
+    def spy(state, m):
+        ids = {k: id(t) for k, t in state.items()}
+        out = real(state, m)
+        if m is not None:
+            if {k: id(t) for k, t in out.items()} != ids:
+                fail("engine mesh[relayout]: placing the pool copied it")
+            seen["placed"] += 1
+        return out
+
+    def shrink(e):
+        e.apply_plan(reconfig_plan(e, max_batch=4))
+
+    def grow(e):                 # once the shrink has drained to 4
+        if e.n_slots == 4 and e._staged is None:
+            e.begin_reconfig(reconfig_plan(e, max_batch=8))
+
+    hooks = {t: grow for t in range(5, 400)}
+    hooks[4] = shrink
+    pool_mod.placed = spy
+    try:
+        me, rdone, n = mesh_twins(torch, cfg, params, ms, share, reqs,
+                                  "relayout 8->4, staged 4->8", hooks)
+    finally:
+        pool_mod.placed = real
+    events = me.take_reconfig_events()
+    if seen["placed"] < 3 or me.n_slots != 8 or not any(
+            ev["staged"] for ev in events):
+        fail(f"engine mesh[relayout]: {seen['placed']} placements, "
+             f"{me.n_slots} slots, events {events}")
+    print(f"engine mesh[relayout]: the mesh engine's pool placed "
+          f"{seen['placed']} times (stop-the-world 8 -> 4 held, then shrunk "
+          f"after the drain, a staged 4 -> 8 commit), every tensor kept; "
+          f"the staged commit {[ev['staged'] for ev in events]}", flush=True)
+    add(n)
+    same_tokens(torch, cfg, params, "engine mesh[relayout]", rdone, ref,
+                TOLS[cfg.name], "never-reconfigured")
+    del me
+
+    eng = ServingEngine(params, cfg, share, max_seq=SERVE_MAX,
+                        device=torch.device("cuda"), ms=ms,
+                        param_specs=serve_param_specs(cfg, ms))
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    stats = serve_loop(eng, dense_trace(cfg))
+    add(LAUNCHES)
+    if stats["completed"] != len(reqs):
+        fail(f"engine mesh[serve_loop]: {stats['completed']}/{len(reqs)}")
+    print(f"engine mesh[serve_loop]: {stats['completed']} requests, "
+          f"{stats['tokens_per_s']:.1f} tok/s, decode "
+          f"{stats['decode_tok_per_s']:.1f} tok/s under the 1x1 mesh",
+          flush=True)
+    same_tokens(torch, cfg, params, "engine mesh[serve_loop]",
+                eng.finished, ref, TOLS[cfg.name], "drive")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def engine_mesh_hybrid(torch, ms):
+    """Phase 17 on full-width, full-depth zamba2-1.2b (an SSMStatePool with
+    its KV slab: the selective scan, flash in prefill, paged attention
+    over the slab at G = 1): ``hybrid_trace`` through ``mesh_twins``, then
+    its short prompts with a max_batch 8 -> 4 relayout on both engines.
+    Returns the launches of the mesh arms."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import DEFAULT_SERVING_SETTING
+    cfg = get_config("zamba2-1.2b")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    setting = dict(DEFAULT_SERVING_SETTING, max_batch=8, cache_dtype="bf16")
+    trace = hybrid_trace(cfg)
+    _, _, la = mesh_twins(torch, cfg, params, ms, setting, trace, "zamba2")
+    short = [r for r in trace if len(r.prompt) <= 96]
+    me, _, lb = mesh_twins(
+        torch, cfg, params, ms, setting, short, "zamba2 relayout 8->4",
+        {2: lambda e: e.apply_plan(reconfig_plan(e, max_batch=4))})
+    if me.setting["max_batch"] != 4:
+        fail(f"engine mesh[zamba2 relayout]: setting {me.setting}")
+    kernels = ("selective_scan", "flash_attention", "paged_attention")
+    if not all(la[k] for k in kernels):
+        fail(f"engine mesh[zamba2]: a kernel never launched: {la}")
+    del me, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: la[k] + lb[k] for k in ENGINE_KERNELS}
+
+
+def engine_mesh_path(torch, ms):
+    """Phase 17 on phase 15's world-1 mesh.  Returns its launches."""
+    t0 = time.perf_counter()
+    launches = engine_mesh_dense(torch, ms)
+    for k, n in engine_mesh_hybrid(torch, ms).items():
+        launches[k] += n
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"the engine under the mesh never launched {missing}")
+    print(f"engine mesh: phase 17 in {time.perf_counter() - t0:.1f}s, "
           f"launches {launches}", flush=True)
     return launches
 

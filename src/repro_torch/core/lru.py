@@ -153,9 +153,15 @@ class GraphStep:
     their Python runs, which a replay does not: the capture records how
     much each count rose (and takes it back, since capture launched
     nothing), and every replay adds that much again.
+
+    ``capture_error_mode`` is ``torch.cuda.graph``'s: a step that runs
+    NCCL collectives captures under ``"thread_local"``, so that the process
+    group's watchdog thread may query its events while this thread
+    captures.
     """
 
-    def __init__(self, fn, *args, inputs=(), state=(), pool=None):
+    def __init__(self, fn, *args, inputs=(), state=(), pool=None,
+                 capture_error_mode: str = "global"):
         self.eager = fn
         self._inputs = tuple(inputs)
         dev = next(t for a in args for t in _tensors(a)).device
@@ -175,7 +181,8 @@ class GraphStep:
         self.graph = torch.cuda.CUDAGraph()
         before = dict(_build.LAUNCHES)
         try:
-            with torch.cuda.graph(self.graph, pool=pool, stream=side):
+            with torch.cuda.graph(self.graph, pool=pool, stream=side,
+                                  capture_error_mode=capture_error_mode):
                 self.out = fn(*static)
         finally:
             self.launches = {k: n - before[k]
@@ -198,12 +205,13 @@ class GraphStep:
         return self.out
 
 
-def aot_compile(fn, *example_args, device, inputs=(), state=(), pool=None):
+def aot_compile(fn, *example_args, device, inputs=(), state=(), pool=None,
+                capture_error_mode: str = "global"):
     """The step ``fn`` at the shapes of ``example_args``: a ``GraphStep``
     on a CUDA device (a failed capture raises; there is no eager
-    fallback), ``fn`` itself on the CPU.  ``inputs``, ``state`` and
-    ``pool`` as ``GraphStep`` takes them."""
+    fallback), ``fn`` itself on the CPU.  ``inputs``, ``state``, ``pool``
+    and ``capture_error_mode`` as ``GraphStep`` takes them."""
     if torch.device(device).type != "cuda":
         return fn
     return GraphStep(fn, *example_args, inputs=inputs, state=state,
-                     pool=pool)
+                     pool=pool, capture_error_mode=capture_error_mode)

@@ -244,6 +244,20 @@ def param_specs(shapes_tree, ms: MeshSpec):
                              for p, x in zip(paths, lv)])
 
 
+@dataclass(frozen=True)
+class Placement:
+    """Where a leaf lies: its spec on a mesh (JAX's ``NamedSharding``)."""
+    spec: tuple
+    ms: MeshSpec
+
+
+def param_shardings(shapes_tree, ms: MeshSpec):
+    """Tree of ``Placement``s matching a tree of tensors or shapes: each
+    leaf's ``param_specs`` entry on ``ms``."""
+    return tree_map(lambda spec: Placement(spec, ms),
+                    param_specs(shapes_tree, ms))
+
+
 # ---------------------------------------------------------------------------
 # Activation sharding helpers
 # ---------------------------------------------------------------------------

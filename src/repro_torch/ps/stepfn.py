@@ -41,6 +41,13 @@ the batch, and for the cache rows it holds over ``model`` gathers each
 layer's cache whole before the layer and keeps its own shard of what the
 layer wrote (``_GatheredLayers``).  It returns the rank's rows of the
 logits and its shards of the cache.
+
+The serving engine's decode step under a mesh (``build_pool_decode_step``)
+runs over a state pool (paged blocks, or per-slot recurrent state) that
+every rank holds whole: the slots split over the data axes, and after
+the step each rank's logits rows and the pool rows it wrote are
+all-gathered and copied into every replica, so every rank ends the step
+with the same pool and the same logits.
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ from repro_torch.distributed.sharding import (MeshSpec, fit_act_spec, gather,
                                               is_whole, param_specs, shape_of,
                                               shard)
 from repro_torch.models import lm
-from repro_torch.models.lm import ModelKnobs
+from repro_torch.models.lm import ModelKnobs, paged_rows, slab_rows
 from repro_torch.optim import make_optimizer, opt_state_shapes
 from repro_torch.ps.compression import compress_grads
 
@@ -178,12 +185,18 @@ def _grads(params, batch, cfg, mk, ms=None):
         unflatten(paths, grads)
 
 
-def _pull(params, pspecs, ms):
+def pull(params, pspecs, ms):
     """The PS pull: each parameter all-gathered whole over the axes its
-    spec names (the parameters themselves off a mesh)."""
-    if ms is None:
+    spec names (the parameters themselves off a mesh, or with no specs:
+    whole on every rank)."""
+    if ms is None or pspecs is None:
         return params
     return tree_map(lambda p, s: gather(p, s, ms), params, pspecs)
+
+
+def _entry_axes(e) -> tuple:
+    """The data axes a spec entry names (``()`` for None)."""
+    return () if e is None else ((e,) if isinstance(e, str) else tuple(e))
 
 
 def _local_batch(batch, ms):
@@ -196,9 +209,8 @@ def _local_batch(batch, ms):
     part = tree_map(lambda x, s: shard(x, s, ms), batch, specs)
     # every training batch has labels; a serving batch tokens or frames
     key = next(k for k in ("labels", "tokens", "frontend") if k in specs)
-    b = specs[key][0]
-    axes = () if b is None else ((b,) if isinstance(b, str) else tuple(b))
-    return part, dataclasses.replace(ms, batch_axes=axes)
+    return part, dataclasses.replace(ms,
+                                     batch_axes=_entry_axes(specs[key][0]))
 
 
 def build_train_step(cfg: ModelConfig, tc: TrainConfig,
@@ -288,7 +300,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
 
     @torch.no_grad()
     def train_step(state, batch):
-        params = _pull(state["params"], None if ms is None
+        params = pull(state["params"], None if ms is None
                        else specs["params"], ms)
         loss, aux, grads = compute_grads(params, batch)
         push(leaves(grads) + [loss, aux["ce"]])
@@ -397,7 +409,7 @@ def build_prefill_step(cfg: ModelConfig, ms: MeshSpec = None,
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        p = _pull(params, pspecs, ms)
+        p = pull(params, pspecs, ms)
         part, act = _local_batch(batch, ms)
         logits, cache = lm.prefill(p, part.get("tokens"), cfg, mk,
                                    frontend=part.get("frontend"), ms=act)
@@ -429,7 +441,7 @@ def build_decode_step(cfg: ModelConfig, ms: MeshSpec = None,
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        p = _pull(params, pspecs, ms)
+        p = pull(params, pspecs, ms)
         if ms is None:
             return lm.decode_step(p, cache, tokens, pos, cfg, mk)
         part, act = _local_batch({"tokens": tokens, "pos": pos}, ms)
@@ -467,3 +479,101 @@ def jit_serve_step(cfg: ModelConfig, shape: ShapeConfig, ms: MeshSpec,
     cshapes = lm.init_cache_shapes(cfg, shape.global_batch, shape.seq_len)
     return (build_decode_step(cfg, ms, knobs, max_seq=shape.seq_len),
             (pshapes, cshapes))
+
+
+# ---------------------------------------------------------------------------
+# The serving engine's decode step over a state pool, under a mesh
+# ---------------------------------------------------------------------------
+
+def slot_split(n: int, ms: MeshSpec) -> tuple:
+    """How a batch of ``n`` slots lies over the data axes, as
+    ``batch_specs`` splits a batch: (entry, offset, count) of this rank's
+    slots; the entry is None, and the rank holds all ``n``, where ``n``
+    does not divide (or every data axis has size 1)."""
+    e = fit_act_spec((n,), ("D",), ms)[0]
+    if e is None:
+        return None, 0, n
+    count = n // ms.size_of(e)
+    return e, ms.index_of(e) * count, count
+
+
+def whole_batch(ms: MeshSpec | None) -> MeshSpec | None:
+    """The MeshSpec a forward over a batch that every rank holds whole
+    sees (a batch-1 prefill, the truncated drafter)."""
+    return None if ms is None else dataclasses.replace(ms, batch_axes=())
+
+
+def _slots_of(cache: dict, o: int, n: int) -> dict:
+    """Slots ``o .. o+n`` of a pool's decode cache, sharing its memory: a
+    paged pool's table rows over the whole block pool; every leaf of an
+    ssm pool narrowed along its slot axis (1), the slab then read through
+    the local slots' identity tables, which ``lm.forward`` makes."""
+    if "block_tables" in cache:
+        return {"k": cache["k"], "v": cache["v"],
+                "block_tables": cache["block_tables"][o:o + n]}
+    return {k: v.narrow(1, o, n) for k, v in cache.items()
+            if k != "slab_tables"}
+
+
+def _share_rows(cache: dict, local: dict, pos, S: int, split, ms):
+    """Every rank's writes of a decode step in every replica of the pool:
+    the rows this rank's slots wrote are all-gathered over the data axes
+    and written at every slot's rows — paged: the (block, offset) of each
+    slot's S positions, then the trash block zeroed (idle slots all write
+    there, so its content would depend on the write order); ssm: each
+    slot's conv and h state whole, and the hybrid slab's rows at the S
+    positions."""
+    e, o, n = split
+    positions = pos.long()[:, None] + torch.arange(S, device=pos.device)
+    if "block_tables" in cache:
+        blk, off = paged_rows(positions, cache["block_tables"],
+                              cache["k"].shape[2])
+        for k in ("k", "v"):
+            t = cache[k]
+            mine = t[:, blk[o:o + n], off[o:o + n]]      # (L, n, S, K, hd)
+            t[:, blk, off] = gather(mine, (None, e, None, None, None), ms)
+            t[:, 0].zero_()                              # TRASH_BLOCK
+        return
+    for k, t in cache.items():
+        if k in ("conv", "h"):
+            spec = (None, e) + (None,) * (t.dim() - 2)
+            t.copy_(gather(local[k], spec, ms))
+        elif k in ("shared_k", "shared_v"):
+            b, p = slab_rows(positions, t.shape[2])
+            mine = local[k][:, b[:n], p[o:o + n]]        # (A, n, S, K, hd)
+            t[:, b, p] = gather(mine, (None, e, None, None, None), ms)
+
+
+def build_pool_decode_step(cfg: ModelConfig, knobs: ModelKnobs,
+                           ms: MeshSpec, pspecs=None):
+    """Returns ``step(params, cache, tok, pos) -> (logits, cache)``: the
+    serving engine's decode step (S = tok.shape[1] tokens a slot: decode,
+    the speculative verify, the ssm replay) over a state pool's decode
+    cache, written in place, under the mesh ``ms``.  Every rank holds the
+    whole pool and calls it with the whole tokens (n, S) and positions
+    (n,), and ``params``: its shards per ``pspecs`` (None: whole), pulled
+    whole first (``pull``).
+
+    The slots split over the data axes (``slot_split``): the rank decodes
+    its own against the pool, then the logits rows and the pool rows of
+    every rank are all-gathered and copied into every replica
+    (``_share_rows``), so the step returns the whole (n, S, vocab) logits
+    and leaves the same pool on every rank.  Where ``n`` does not divide,
+    every rank decodes every slot.  At one device nothing moves: the step
+    is ``lm.decode_step`` on the parameters given."""
+
+    def step(params, cache, tok, pos):
+        p = pull(params, pspecs, ms)
+        split = slot_split(tok.shape[0], ms)
+        e, o, n = split
+        if e is None:
+            return lm.decode_step(p, cache, tok, pos, cfg, knobs,
+                                  ms=whole_batch(ms))
+        act = dataclasses.replace(ms, batch_axes=_entry_axes(e))
+        local = _slots_of(cache, o, n)
+        logits, _ = lm.decode_step(p, local, tok[o:o + n], pos[o:o + n], cfg,
+                                   knobs, ms=act)
+        _share_rows(cache, local, pos, tok.shape[1], split, ms)
+        return gather(logits, (e, None, None), ms), cache
+
+    return step

@@ -21,7 +21,10 @@ speculation efficiency.
     ``mode="train"``; the port has no training mode yet and runs the same
     causal function as ``mode="prefill"`` with a device ``valid_len``
     (flash attention for the dense family, the scan from zeros for ssm).
-    Its shape is fixed, so on the card it is one captured graph.
+    Its shape is fixed, so on the card it is one captured graph.  Under a
+    mesh (``ms``) it pulls its truncated parameters whole once (from the
+    rank's shards, ``param_specs``) and proposes for every slot on every
+    rank, so every rank holds the same drafts.
 """
 from __future__ import annotations
 
@@ -33,7 +36,9 @@ import torch
 
 from repro_torch.core.lru import aot_compile
 from repro_torch.device import Staging
+from repro_torch.distributed.sharding import gather_tree
 from repro_torch.models import lm
+from repro_torch.ps.stepfn import whole_batch
 
 
 @runtime_checkable
@@ -155,13 +160,18 @@ class TruncatedDrafter(_SlotContexts):
     name = "truncated"
 
     def __init__(self, params, cfg, draft_layers: int | None = None,
-                 window: int = 16, device=None, graph_pool=None):
+                 window: int = 16, device=None, graph_pool=None, ms=None,
+                 param_specs=None):
         super().__init__()
         T = draft_layers or max(1, cfg.n_layers // 2)
         self.cfg = dataclasses.replace(cfg, n_layers=T)
         self.window = int(window)
         self.params = dict(params)
+        # the layer stack is never sharded along L: a rank's shards slice
         self.params["layers"] = _slice(params["layers"], T)
+        if param_specs is not None:
+            self.params = gather_tree(self.params, param_specs, ms)
+        act = whole_batch(ms)
         dev = torch.device(device or params["embed"]["tokens"].device)
         self._stage = Staging(dev).put
         dcfg = self.cfg
@@ -170,7 +180,7 @@ class TruncatedDrafter(_SlotContexts):
             # causal forward: right pads sit at future positions, so the
             # logits at valid - 1 never see them
             hidden, _ = lm.forward(p, toks, dcfg, mode="prefill",
-                                   valid_len=valid)
+                                   valid_len=valid, ms=act)
             row = hidden.index_select(1, valid - 1)
             return torch.argmax(lm.logits_fn(p, row, dcfg)[0, 0], dim=-1)
 
@@ -204,13 +214,17 @@ def _slice(tree: dict, n: int) -> dict:
 
 
 def make_drafter(name: str, params, cfg, vocab: int | None = None,
-                 seed: int = 0, device=None, graph_pool=None):
+                 seed: int = 0, device=None, graph_pool=None, ms=None,
+                 param_specs=None):
     """Resolve the ``drafter`` knob's categorical value.  ``device`` and
     ``graph_pool``: where the truncated drafter's step runs and the memory
-    pool its graph shares with the engine's steps."""
+    pool its graph shares with the engine's steps; ``ms`` and
+    ``param_specs``: the engine's mesh and the placement of the
+    parameter shards it is given (None: whole)."""
     if name == "ngram":
         return NgramDrafter(vocab or cfg.vocab_size, seed=seed)
     if name == "truncated":
         return TruncatedDrafter(params, cfg, device=device,
-                                graph_pool=graph_pool)
+                                graph_pool=graph_pool, ms=ms,
+                                param_specs=param_specs)
     raise ValueError(f"unknown drafter {name!r}")

@@ -57,6 +57,20 @@ global capture mode, the launch counters a capture takes back).
 ``serve_loop(tuner=...)`` is the self-tuning loop: per busy quantum it
 feeds (offered load, tick time) to a ``TuningManager`` and stages every
 plan the tuner emits.
+
+Under a mesh (``ServingEngine(ms=...)``) the engine is multi-controller:
+one process a device, each running this engine over the same requests.
+Every rank holds the whole pool (no partition rule names a pool leaf, as
+in the JAX package, whose pools ``param_specs`` leaves whole) and takes
+the same host decisions — admission, prefix cache, copy-on-write,
+relayouts, drafts — from the same state.  The steps pull the parameters
+from the rank's shards (``param_specs``; None: whole); decode and verify
+split the slots over the data axes and share the rows each rank wrote
+(``ps.stepfn.build_pool_decode_step``), and the batch-1 prefills run whole
+on every rank.  So after every tick every rank holds the same pool, bit
+for bit, and the same logits.  ``serve_loop`` keeps the ranks in lockstep:
+rank 0 decides each quantum's clock, the wall-clock stop and the tuner's
+plans, and broadcasts them.
 """
 from __future__ import annotations
 
@@ -80,6 +94,7 @@ from repro_torch.models.lm import ModelKnobs
 from repro_torch.obs.metrics import NULL_METRICS
 from repro_torch.obs.trace import NOP_TRACER
 from repro_torch.ps.odmr import timed_blocking
+from repro_torch.ps.stepfn import build_pool_decode_step, pull, whole_batch
 from repro_torch.serving.drafter import make_drafter
 from repro_torch.serving.knobs import (DEFAULT_SERVING_SETTING,
                                        SERVING_RELAYOUT_KNOBS)
@@ -120,13 +135,21 @@ class ServingEngine:
     def __init__(self, params, cfg, setting: dict | None = None, *,
                  max_seq: int = 96, step_cache_size: int = 24,
                  attn_impl: str = "paged", tracer=None, metrics=None,
-                 device=None):
+                 device=None, ms=None, param_specs=None):
         """``device`` defaults to the CUDA device and raises without one;
         pass ``device="cpu"`` to run the plain versions on the CPU.
-        ``params`` must already live on that device."""
+        ``params`` must already live on that device.
+
+        ``ms``: the ``MeshSpec`` to serve under (None: one device); every
+        rank of its live mesh builds this engine and drives it in lockstep.
+        ``param_specs``: the specs of the parameter shards this rank is
+        given (``ps.stepfn.serve_param_specs``, fsdp or tp_only), pulled
+        whole by every step; None: ``params`` are whole on every rank."""
         lm.check_decodes(cfg)
         self.device = resolve_device(device)
         self.params = params
+        self.ms = ms
+        self.param_specs = None if ms is None else param_specs
         self.cfg = cfg
         self.max_seq = max_seq
         self.attn_impl = attn_impl
@@ -143,7 +166,7 @@ class ServingEngine:
         self._stage = Staging(self.device).put
         self.queue: deque[Request] = deque()
         self._set_pool(make_state_pool(cfg, self.setting, max_seq,
-                                       self.device))
+                                       self.device, ms))
         self.clock = 0.0              # wall time supplied by serve_loop
         self._admit_acc = 0.0         # fractional admit_budget carry
         self.submitted: list[int] = []
@@ -247,10 +270,14 @@ class ServingEngine:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     def _compile(self, fn, *example_args, inputs=(), state=()):
-        """``aot_compile`` on this engine's device and graph memory pool."""
+        """``aot_compile`` on this engine's device and graph memory pool;
+        steps that may run collectives (a mesh of more than one device)
+        capture under the thread-local error mode."""
+        mode = ("thread_local" if self.ms is not None
+                and self.ms.n_devices > 1 else "global")
         return aot_compile(fn, *example_args, device=self.device,
                            inputs=inputs, state=state,
-                           pool=self._graph_pool)
+                           pool=self._graph_pool, capture_error_mode=mode)
 
     def _zeros(self, shape, dtype=torch.long):
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -305,6 +332,8 @@ class ServingEngine:
         def f(params, cache, tok, pos):
             return lm.decode_step(params, cache, tok, pos, cfg, kn)
 
+        if self.ms is not None:
+            f = build_pool_decode_step(cfg, kn, self.ms, self.param_specs)
         return self._compile(f, self.params, cache, self._zeros((n, s)),
                              self._zeros((n,), torch.int32), inputs=(2, 3),
                              state=(1,))
@@ -316,17 +345,20 @@ class ServingEngine:
         key = ("prefill", bucket, self.setting["k_chunk"])
 
         def build():
-            cfg = self.cfg
+            cfg, ms, pspecs = self.cfg, self.ms, self.param_specs
             kn = ModelKnobs(k_chunk=self.setting["k_chunk"])
 
             def f(params, tokens, last_idx):
                 # valid_len: the ssm family must not fold right-pad tokens
-                # into the recurrent state (attention ignores it)
-                hidden, cache = lm.forward(params, tokens, cfg, kn,
+                # into the recurrent state (attention ignores it).  Under a
+                # mesh every rank prefills the whole batch of 1
+                p = pull(params, pspecs, ms)
+                hidden, cache = lm.forward(p, tokens, cfg, kn,
                                            mode="prefill",
-                                           valid_len=last_idx + 1)
+                                           valid_len=last_idx + 1,
+                                           ms=whole_batch(ms))
                 last = hidden.index_select(1, last_idx)
-                return lm.logits_fn(params, last, cfg)[:, 0], cache
+                return lm.logits_fn(p, last, cfg)[:, 0], cache
 
             return self._compile(f, self.params, self._zeros((1, bucket)),
                                  self._zeros((1,)), inputs=(1, 2))
@@ -343,16 +375,18 @@ class ServingEngine:
         key = ("chunkpf", bucket, self.attn_impl) + self.pool.exec_key()
 
         def build():
-            cfg = self.cfg
+            cfg, ms, pspecs = self.cfg, self.ms, self.param_specs
             kn = ModelKnobs(attn_impl=self.attn_impl)
 
             def f(params, kv, tables, tokens, start, last_idx):
+                # batch 1: whole on every rank under a mesh
+                p = pull(params, pspecs, ms)
                 cache = {"k": kv["k"], "v": kv["v"], "block_tables": tables}
-                hidden, new_cache = lm.forward(params, tokens, cfg, kn,
+                hidden, new_cache = lm.forward(p, tokens, cfg, kn,
                                                mode="decode", cache=cache,
-                                               pos=start)
+                                               pos=start, ms=whole_batch(ms))
                 last = hidden.index_select(1, last_idx)
-                return (lm.logits_fn(params, last, cfg)[:, 0],
+                return (lm.logits_fn(p, last, cfg)[:, 0],
                         {"k": new_cache["k"], "v": new_cache["v"]})
 
             kv = {"k": self.pool.kv["k"], "v": self.pool.kv["v"]}
@@ -512,7 +546,8 @@ class ServingEngine:
             d = make_drafter(name, self.params, self.cfg,
                              vocab=self.cfg.vocab_size,
                              seed=self._drafter_seed, device=self.device,
-                             graph_pool=self._graph_pool)
+                             graph_pool=self._graph_pool, ms=self.ms,
+                             param_specs=self.param_specs)
             self._drafters[name] = d
         return d
 
@@ -1163,6 +1198,15 @@ class ServingEngine:
             self.metrics.counter("pool.relayouts").inc()
 
 
+def _lockstep_world(engine: ServingEngine) -> tuple[int, int]:
+    """(rank, world size) of an engine's lockstep: the process group's when
+    the engine serves under a live mesh, else (0, 1)."""
+    if engine.ms is None or not engine.ms.live:
+        return 0, 1
+    from repro_torch.launch.mesh import world
+    return world()
+
+
 def serve_loop(engine: ServingEngine, trace, tuner=None, *,
                max_wall_s: float | None = None, idle_sleep_s: float = 0.001,
                verbose: bool = False) -> dict:
@@ -1172,7 +1216,28 @@ def serve_loop(engine: ServingEngine, trace, tuner=None, *,
     tick time) into the tuner and stages any ReconfigPlan it emits
     (``begin_reconfig``); each commit is reported back with its observed
     cost.
+
+    An engine under a mesh of more than one rank runs in lockstep: every
+    rank calls this with the same trace; rank 0 decides each quantum —
+    its clock, the ``max_wall_s`` stop, the plan its tuner emitted after
+    the last tick — and broadcasts them in one object, and every rank
+    stages the plan before the quantum's arrivals.  The tuner runs and
+    records on rank 0 only (the others' ``tuner`` is not read), and every
+    rank returns rank 0's reconfiguration log.  Only rank 0 prints.
     """
+    rank, size = _lockstep_world(engine)
+    lead = rank == 0
+    tuner = tuner if lead else None
+    verbose = verbose and lead
+
+    def from_lead(obj):
+        if size == 1:
+            return obj
+        import torch.distributed as dist
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
     pending = deque(sorted(trace, key=lambda r: r.arrival_s))
     n_req = len(pending)
     tok0 = engine.total_tokens          # deltas: engines may be re-used
@@ -1223,9 +1288,17 @@ def serve_loop(engine: ServingEngine, trace, tuner=None, *,
                       f"commit {ev['cost_s']:.3f}s)",
                       flush=True)
 
+    unsent = None                 # lockstep: the lead's plan, staged by
+                                  # every rank at the next quantum
     while pending or engine.has_work():
         now = time.perf_counter() - t_start
-        if max_wall_s is not None and now > max_wall_s:
+        stop = max_wall_s is not None and now > max_wall_s
+        if size > 1:
+            now, stop, plan = from_lead((now, stop, unsent))
+            unsent = None
+            if plan is not None:
+                engine.begin_reconfig(plan)
+        if stop:
             break
         while pending and pending[0].arrival_s <= now:
             engine.submit(pending.popleft(), now=now)
@@ -1249,20 +1322,32 @@ def serve_loop(engine: ServingEngine, trace, tuner=None, *,
             tuner.record_iteration(float(tick["load"]),
                                    tick["dt"] - tick["reconfig_s"])
             plan = tuner.maybe_advance()
-            if plan is not None:
+            if plan is not None and size > 1:
+                unsent = plan
+            elif plan is not None:
                 # stage, don't stall: the engine keeps serving while the
                 # target's steps are captured and its pool migrates between
                 # ticks; the tuner holds the plan pending until the commit
                 engine.begin_reconfig(plan)
+        elif size > 1:
+            # commits land on every rank at the same tick; the lead
+            # reports its own
+            engine.take_reconfig_events()
     synchronize(engine.device)
     wall = time.perf_counter() - t_start
     # a plan still staged at run end never committed: tear it down and let
-    # the tuner reopen the window it froze for the proposal
+    # the tuner reopen the window it froze for the proposal (under
+    # lockstep, so is a plan the lead never got to broadcast)
     leftover = engine.cancel_staged()
+    if unsent is not None:
+        leftover = unsent
     if tuner is not None:
         _drain_reconfig_events()
         if leftover is not None:
             tuner.abandon_reconfig(leftover)
+    elif size > 1:
+        engine.take_reconfig_events()
+    reconfigs, reconfig_total_s = from_lead((reconfigs, reconfig_total_s))
     done = engine.finished[fin0:]
     tokens = engine.total_tokens - tok0
     lats = [r.latency_s for r in done]

@@ -44,14 +44,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.tree import tree_map
 from repro_torch.device import synchronize
+from repro_torch.distributed.sharding import param_shardings
 from repro_torch.models import lm
 from repro_torch.models.attention import identity_tables
-from repro_torch.ps.odmr import relocate_rows
+from repro_torch.ps.odmr import relocate_now, relocate_rows
 
 TRASH_BLOCK = 0     # physical block 0 is reserved: inactive/padded writes
                     # land there so a stale table row can never corrupt a
                     # live request's blocks
+
+
+def placed(state: dict, ms) -> dict:
+    """A pool's tensors placed per the mesh ``ms`` (None: as they are), the
+    JAX pools' ``_place``: ``relocate_now`` to each leaf's
+    ``param_shardings`` placement.  No partition rule names a pool leaf
+    (``k``/``v``, ``conv``/``h``, ``shared_k``/``shared_v``), so every leaf
+    is whole on every rank and the tensor itself is kept (the steps
+    captured on it stay bound); only the step's activations follow the
+    mesh."""
+    if ms is None:
+        return state
+    specs = tree_map(lambda p: p.spec, param_shardings(state, ms))
+    return relocate_now(state, specs, ms)
 
 
 def pool_dtype(setting: dict):
@@ -111,10 +127,11 @@ class PagedKVPool(StatePool):
 
     kind = "paged"
 
-    def __init__(self, cfg, setting: dict, max_seq: int, device):
+    def __init__(self, cfg, setting: dict, max_seq: int, device, ms=None):
         lm.check_decodes(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
+        self.ms = ms
         self.max_seq = max_seq
         self.setting = dict(setting)
         self.shared_blocks_hit = 0
@@ -603,6 +620,7 @@ class PagedKVPool(StatePool):
         # overcommit budget governs again
         self._budget_floor = 0
         self._rebalance_budget()
+        self._place()
         return mapping
 
     # ------------------------------------------- staged (overlapped) migration
@@ -783,6 +801,7 @@ class PagedKVPool(StatePool):
         self.last_relayout_blocks = len(keep)
         self._mig = None
         self._mig_remap, self._mig_copied = {}, set()
+        self._place()
         return mapping
 
     def abort_migration(self):
@@ -793,6 +812,11 @@ class PagedKVPool(StatePool):
 
     def mb_of(self, bs: int) -> int:
         return -(-self.max_seq // bs)
+
+    def _place(self):
+        """The new tensors placed per the mesh (a single transition, paper
+        §V), after a relayout or a staged commit, as the JAX pool's."""
+        self.kv = placed(self.kv, self.ms)
 
 
 class SSMStatePool(StatePool):
@@ -814,9 +838,10 @@ class SSMStatePool(StatePool):
     # rewritten in-step before any query reads them, so they need none
     SNAPSHOT = ("conv", "h")
 
-    def __init__(self, cfg, setting: dict, max_seq: int, device):
+    def __init__(self, cfg, setting: dict, max_seq: int, device, ms=None):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.ms = ms
         self.max_seq = max_seq          # the slab's rows (hybrid only)
         self.setting = dict(setting)
         self._alloc(int(setting["max_batch"]))
@@ -914,15 +939,18 @@ class SSMStatePool(StatePool):
         self.last_relayout_blocks = len(live)
         for s in live:
             self.slot_live[mapping[s]] = True
+        self.state = placed(self.state, self.ms)
         return mapping
 
 
-def make_state_pool(cfg, setting: dict, max_seq: int, device):
+def make_state_pool(cfg, setting: dict, max_seq: int, device, ms=None):
     """Family dispatch: paged KV for the dense, moe and vlm families,
     recurrent-state slots for the ssm and hybrid families; the encoder
     raises ``NotImplementedError``: it has no decode step (as in the JAX
-    package)."""
+    package).  ``ms``: the mesh the engine serves under, whose placement
+    the pool's relayouts keep (``placed``); every rank holds the whole
+    pool."""
     lm.check_decodes(cfg)
     if cfg.family in ("ssm", "hybrid"):
-        return SSMStatePool(cfg, setting, max_seq, device)
-    return PagedKVPool(cfg, setting, max_seq, device)
+        return SSMStatePool(cfg, setting, max_seq, device, ms)
+    return PagedKVPool(cfg, setting, max_seq, device, ms)
