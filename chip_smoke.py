@@ -307,9 +307,31 @@ Phases, in order; any failure exits non-zero before the result line:
              paged attention at G = 1) over ``hybrid_trace``, then its
              short prompts with max_batch 8 -> 4 on both engines.
 
+18. tp     — the tensor-parallel layer of the mesh's main path
+             (``lm._attn_layer`` under ``tp_plan``) on one card: every
+             rank's part of one full-width starcoder2-3b layer run in turn
+             (``models/virtual_tp.py``: f32 partial sums added and rounded
+             once, the sequence path's rows put together) against the
+             whole layer, each output and gradient within 1.5 x its
+             one-ulp noise (C12's rule): ``model`` 2 (12 query heads and
+             1 kv head a rank) and 4 (6 over 1 of the 2 kv heads, G = 6)
+             in a 320-token prefill (flash), a training forward and
+             backward of 2 x 512 tokens (flash and its backward at the
+             local shapes) and a decode step of 8 slots over a dense
+             cache of 1,024 rows (paged attention at the local G); and
+             ``model`` 16, where 24 heads do not divide: the sequence
+             path's prefill, flash with 20 query rows against all 320 keys
+             at the rows' own positions.  The launches of each virtual
+             run alone (the counts set to 0 just before it, read just
+             after; the whole layer's reference runs not counted) must be
+             one a rank: m flash forwards in prefill, m forwards and m
+             backwards in training, m paged launches in decode, 16 flash
+             forwards on the sequence path.  Each kernel at a rank's
+             shapes timed beside its plain version.
+
 Prints one JSON ``kernels`` line (launches: the serve arms', the training
-runs', the hybrid, moe, vlm, encoder, ssm training, mesh, serve-step and
-mesh-engine paths'), the card's
+runs', the hybrid, moe, vlm, encoder, ssm training, mesh, serve-step,
+mesh-engine and tensor-parallel paths'), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -5896,6 +5918,254 @@ def engine_mesh_path(torch, ms):
     return launches
 
 
+# ------------------------------------------------------------ phase 18
+TP_PREFILL, TP_TRAIN, TP_DECODE = (1, 320), (2, 512), (8, 1024)
+TP_DECODE_POS = (300, 317, 333, 351, 288, 299, 345, 372)
+# the kernels a virtual rank's part of a layer launches, once each
+TP_KERNELS = {"prefill": ("flash_attention",),
+              "train": ("flash_attention", "flash_attention_bwd"),
+              "decode": ("paged_attention",)}
+
+
+def tp_check(torch, label, whole, virtual, x):
+    """C12's rule for a tensor-parallel layer run as virtual ranks:
+    ``virtual(x)`` and ``whole(x)`` each return a tuple of tensors (the
+    layer's output, and in training its gradients); each gap (the largest
+    |virtual - whole|) within 1.5 x its noise, the largest move of the
+    whole layer's same tensor under four one-ulp moves of x (every element
+    away from zero, toward it, twice a seeded random way).  Returns the
+    rows (name, gap, noise) and the launches of ``virtual(x)`` alone (the
+    counts set to 0 just before it and read just after)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    yw = whole(x)
+    reset_launches()
+    yv = virtual(x)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in LAUNCHES.items() if n}
+    g = torch.Generator(device=x.device).manual_seed(7)
+    ways = [torch.randint(0, 2, x.shape, generator=g, device=x.device) * 2 - 1
+            for _ in range(2)]
+    noisy = [whole(bump_ulp(torch, x, s)) for s in [1, -1] + ways]
+    rows = []
+    for j, (name, a) in enumerate(yw):
+        b = yv[j][1]
+        if not (torch.isfinite(a.float()).all()
+                and torch.isfinite(b.float()).all()):
+            fail(f"tp[{label}] {name}: not finite")
+        gap = max_err(torch, b, a)
+        noise = max(max_err(torch, n[j][1], a) for n in noisy)
+        rows.append((name, gap, noise))
+        if gap > 1.5 * noise:
+            fail(f"tp[{label}] {name}: virtual ranks against the whole "
+                 f"layer {gap} beyond 1.5 x its one-ulp noise {noise}")
+    worst = max(r[1] / max(r[2], 1e-30) for r in rows)
+    print(f"tp[{label}]: {len(rows)} tensors each within 1.5 x its one-ulp "
+          f"noise (worst gap/noise {worst:.3f}; "
+          + ", ".join(f"{n} {a:.3g}/{b:.3g}" for n, a, b in rows[:4])
+          + (" ..." if len(rows) > 4 else "") + ")", flush=True)
+    return rows, counts
+
+
+def tp_layer_runs(torch, cfg, lp, m):
+    """(whole, virtual, x) of one full-width layer at ``model`` m: a
+    320-token prefill (flash), a training forward and backward of 2 x 512
+    tokens (flash and its backward: the output, the input's and every
+    weight's gradient of sum(y * w)), and a decode step of 8 slots over a
+    dense per-slot cache of 1,024 rows (paged attention over it as blocks,
+    each virtual rank its kv heads' slice)."""
+    from repro_torch.models import common, lm, virtual_tp
+    from repro_torch.models.attention import identity_tables
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(18 + m)
+    out = {}
+
+    def rope_of(positions):
+        return common.rope_tables(positions, cfg.hd, cfg.rope_theta)
+
+    B, S = TP_PREFILL
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+
+    @torch.no_grad()
+    def whole_pre(x):
+        return [("y", lm._attn_layer(x, lp, cfg, lm.ModelKnobs(), pos,
+                                     rope_of(pos))[0])]
+
+    @torch.no_grad()
+    def virt_pre(x):
+        return [("y", virtual_tp.layer(x, lp, cfg, m)[0])]
+
+    out["prefill"] = (whole_pre, virt_pre, x)
+
+    B, S = TP_TRAIN
+    tpos = torch.arange(S, device=dev)[None].expand(B, S)
+    xt = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+
+    def grads(fn):
+        def run(x):
+            leaves = {k: {n: t.detach().requires_grad_()
+                          for n, t in v.items()} for k, v in lp.items()}
+            xg = x.detach().requires_grad_()
+            y = fn(xg, leaves)
+            (y.float() * w).sum().backward()
+            return [("y", y.detach()), ("dx", xg.grad)] + [
+                (f"d{k}/{n}", t.grad) for k, v in leaves.items()
+                for n, t in v.items()]
+        return run
+
+    out["train"] = (
+        grads(lambda x, p: lm._attn_layer(x, p, cfg, lm.ModelKnobs(), tpos,
+                                          rope_of(tpos))[0]),
+        grads(lambda x, p: virtual_tp.layer(x, p, cfg, m)[0]), xt)
+
+    B, T = TP_DECODE
+    p0 = torch.tensor(TP_DECODE_POS, dtype=torch.int32, device=dev)
+    positions = p0.long()[:, None]
+    kv = [torch.randn((B, T, cfg.n_kv_heads, cfg.hd), generator=g,
+                      device=dev).to(torch.bfloat16) for _ in range(2)]
+    plan = virtual_tp.tp_plan(cfg, m, 1, decode=True)
+    kw = dict(pos=p0, block_tables=identity_tables(B, T, dev),
+              rows=lm.slab_rows(positions, T), slab=True)
+    xd = torch.randn((B, 1, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+
+    @torch.no_grad()
+    def whole_dec(x):
+        c = tuple(t.clone() for t in kv)
+        return [("y", lm._attn_layer(x, lp, cfg, lm.ModelKnobs(), positions,
+                                     rope_of(positions), c, **kw)[0])]
+
+    @torch.no_grad()
+    def virt_dec(x):
+        caches = []
+        for r in range(m):
+            lo, hi = plan.heads(cfg, r)[2:]
+            caches.append(tuple(t[:, :, lo:hi].clone() for t in kv))
+        return [("y", virtual_tp.layer(x, lp, cfg, m, positions=positions,
+                                       rope=rope_of(positions),
+                                       caches=caches, **kw)[0])]
+
+    if plan.attn == "heads":
+        out["decode"] = (whole_dec, virt_dec, xd)
+    return out
+
+
+def tp_kernel_times(torch, cfg, m, plan):
+    """Each kernel at the local shapes of a rank at ``model`` m, timed
+    beside its plain version: flash forward at the prefill's (1, 320)
+    and, on the head path, at the training shape with its backward; paged
+    attention at the decode step's local G over the dense cache."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models import attention
+    from repro_torch.models.attention import identity_tables
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(180 + m)
+    hd = cfg.hd
+    if plan.attn == "heads":
+        q_lo, q_hi, kv_lo, kv_hi = plan.heads(cfg, 0)
+        Hl, Kl = q_hi - q_lo, kv_hi - kv_lo
+    else:
+        Hl, Kl = cfg.n_heads, cfg.n_kv_heads
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    lines = []
+    B, S = TP_PREFILL
+    Sq = S // m if plan.attn == "seq" else S
+    q, k, v = rnd(B, Sq, Hl, hd), rnd(B, S, Kl, hd), rnd(B, S, Kl, hd)
+    kp = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S)
+    qp = kp[:, S - Sq:] if plan.attn == "seq" else kp
+    ker = timed_ms(torch, lambda: flash_attention(q, k, v, qp, kp,
+                                                  causal=True))
+    plain = timed_ms(torch, lambda: attention.blocked_attention(
+        q, k, v, causal=True, q_positions=qp.long(), kv_positions=kp.long()),
+        iters=5)
+    lines.append(f"flash fwd ({B}, {Sq}/{S}, {Hl}/{Kl}, {hd}) {ker:.4f} ms, "
+                 f"plain {plain:.4f}")
+    if plan.attn == "heads":
+        B, S = TP_TRAIN
+        q, k, v = rnd(B, S, Hl, hd), rnd(B, S, Kl, hd), rnd(B, S, Kl, hd)
+        pp = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B,
+                                                                         S)
+        o, lse = flash_attention(q, k, v, pp, pp, causal=True,
+                                 return_lse=True)
+        do = rnd(B, S, Hl, hd)
+        fwd = timed_ms(torch, lambda: flash_attention(q, k, v, pp, pp,
+                                                      causal=True))
+        bwd = timed_ms(torch, lambda: flash_attention_bwd(
+            q, k, v, o, do, lse, pp, pp, causal=True))
+
+        def plain_bwd():
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            attention.blocked_attention(
+                qq, kk, vv, causal=True, q_positions=pp.long(),
+                kv_positions=pp.long()).backward(do)
+
+        pb = timed_ms(torch, plain_bwd, iters=5)
+        lines.append(f"flash fwd+bwd ({B}, {S}, {Hl}/{Kl}, {hd}) "
+                     f"{fwd:.4f} + {bwd:.4f} ms, plain bwd {pb:.4f}")
+        B, T = TP_DECODE
+        qd = rnd(B, 1, Hl, hd)
+        kc, vc = rnd(B * T // 16, 16, Kl, hd), rnd(B * T // 16, 16, Kl, hd)
+        tables = identity_tables(B, T, dev)
+        pos = torch.tensor(TP_DECODE_POS, dtype=torch.int32, device=dev)
+        ker = timed_ms(torch, lambda: paged_attention(qd, kc, vc, tables,
+                                                      pos))
+        with plain_path(torch):
+            plain = timed_ms(torch, lambda: attention.paged_decode_attention(
+                qd, kc, vc, tables, pos=pos), iters=5)
+        lines.append(f"paged ({B}, 1, {Hl}/{Kl} G={Hl // Kl}, {hd}) over "
+                     f"({B}, {T}) {ker:.4f} ms, plain {plain:.4f}")
+    print(f"tp[m={m} {plan.attn}] kernels at a rank's shapes: "
+          + "; ".join(lines), flush=True)
+
+
+def tp_path(torch):
+    """Phase 18: the tensor-parallel layer of the mesh's main path on one
+    card, every rank's part run in turn (``models/virtual_tp.py``) against
+    the whole layer, full-width starcoder2-3b (one layer): ``model`` 2 and
+    4 on the head path (prefill, training forward and backward, decode
+    over the dense cache; G 12 and 6 a rank) and 16 on the sequence path
+    (prefill: flash with 20 query rows of 320 against every key), each
+    under C12's rule (``tp_check``); then each kernel at a rank's shapes
+    timed beside its plain version.  Returns the launches of the virtual
+    ranks' runs, each held to one launch a rank of its kernels
+    (``TP_KERNELS``)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm, virtual_tp
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), n_layers=1)
+    lp = lm._layer(lm.init_params(cfg, seed=18, device="cuda")["layers"], 0)
+    launches = {}
+    for m in (2, 4, 16):
+        runs = tp_layer_runs(torch, cfg, lp, m)
+        for kind, (whole, virtual, x) in runs.items():
+            if m == 16 and kind != "prefill":
+                continue
+            plan = virtual_tp.tp_plan(cfg, m, x.shape[1],
+                                      decode=kind == "decode")
+            label = f"m={m} {plan.attn} {kind}"
+            _, counts = tp_check(torch, label, whole, virtual, x)
+            want = dict.fromkeys(TP_KERNELS[kind], m)
+            if counts != want:
+                fail(f"tp[{label}]: the virtual ranks launched {counts}, "
+                     f"not one a rank {want}")
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+        tp_kernel_times(torch, cfg, m, virtual_tp.tp_plan(cfg, m, 320))
+    print(f"tp: phase 18 in {time.perf_counter() - t0:.1f}s, the virtual "
+          f"ranks' launches {launches}", flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -5983,6 +6253,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     for name, n in mesh_path(torch, card, rows, phase9).items():
+        launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in tp_path(torch).items():
         launches[name] += n
 
     line = {"kernels": [

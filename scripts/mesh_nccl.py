@@ -2,7 +2,7 @@
 """The mesh over NCCL on four cards: sharded training and Type I-b.
 
     torchrun --nproc-per-node 4 scripts/mesh_nccl.py [--layers 30] \\
-        [--only train|engine]
+        [--only train|engine|tp]
     # a rehearsal on the CPU (gloo, the reduced config):
     PYTHONPATH=src torchrun --nproc-per-node 4 scripts/mesh_nccl.py \\
         --device cpu --reduced
@@ -36,7 +36,8 @@ from seed 0, 4 x 512 tokens a step (the reduced config, 8 x 32, with
    same requests.  Each arm: every rank's tokens and the digest of its
    final pool and block tables gathered to rank 0, which requires them
    equal on the four ranks; the requests whose tokens equal the
-   single-device engine's; the decode-step time (the host clock around
+   single-device engine's, and every other request held to them
+   tie-aware (``tie_aware``); the decode-step time (the host clock around
    each step and its synchronize, rank 0's) beside the single-device
    engine's; the steps captured as graphs.  ``--probe`` then times one
    decode step's graph replay (8 slots at position 320) of the
@@ -44,6 +45,28 @@ from seed 0, 4 x 512 tokens a step (the reduced config, 8 x 32, with
    ranks' hosts aligned by a barrier before each replay (CUDA events,
    rank 0), and a bare all-gather of its logits rows over the data axis,
    eager and captured.
+4. Tensor parallelism (``--only tp``; also in the default run): the train
+   step of section 1 on 1x1 (each rank alone, the single-device step),
+   4x1 (the per-layer pull over data alone), 1x4 and 2x2, the last two
+   meshes' layers tensor-parallel over ``model`` with the per-layer pull
+   (``sharding.tp_plan``; starcoder2-3b's 24 query heads over 4 or 2
+   ranks); each mesh's losses against 1x1's (within 2e-3), its step ms
+   and the allocated GB of rank 0 after each step.  The same with the
+   int8 push on 1x1, 1x4 and 2x2 (the shards quantized with the whole
+   leaf's scale), against 1x1's int8 losses, with the sizes of the
+   blocks rank 0 quantized in one step.  Then the serve steps on 2x2
+   (``build_prefill_step``, ``build_decode_step`` over the dense cache),
+   fsdp and tp_only: 8 prompts of 320 tokens, 16 greedy steps; every
+   request's tokens against the single-device ``lm.prefill`` /
+   ``lm.decode_step``'s, tie-aware, and each step's ms.  ``--profile``
+   adds two steps of each train split under torch.profiler: rank 0's
+   wall ms a step, kernel ms a step (the busy share) and the NCCL, GEMM,
+   flash, quant and random-number kernels' ms; and each rank's host
+   (``host``): the ms a step inside operators on any thread, blocked in
+   synchronizations and scalar reads, in kernel launches and in the
+   collectives' host calls, and its top operators by host ms.
+   ``--quick`` runs only the train steps of 4x1, 2x2 and 1x4 (to time two
+   trees in one call: parent, change, change, parent).
 
 Rank 0 prints the card's name and power limit, one JSON line and OK.
 """
@@ -68,6 +91,34 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 SPLITS = ("4x1", "2x2", "1x4")
+TP_SPLITS = ("1x1", "4x1", "1x4", "2x2")
+TP_INT8_SPLITS = ("1x1", "1x4", "2x2")
+TP_LOSS_TOL = 2e-3                 # tests/test_torch_mesh.py's MESH_LOSS_TOL
+TP_P, TP_STEPS, TP_MAX = 320, 16, 1024
+
+
+def bf16_steps(x: float) -> float:
+    """One bf16 step at |x| (at least that of 1)."""
+    import math
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1.0))) - 7)
+
+
+def tie_aware(cfg, params, prompt, ref, got) -> bool:
+    """Equal greedy tokens, or at the first mismatch the one-card prefill
+    logits over the prompt and ``ref[:t]`` rank ``got[t]`` within four
+    bf16 steps of ``ref[t]`` (the continuations then legitimately
+    differ), as tests/test_torch_engine_mesh.py holds them."""
+    from repro_torch.models import lm
+    for t, (a, b) in enumerate(zip(ref, got)):
+        if a == b:
+            continue
+        seq = list(prompt) + list(ref[:t])
+        with torch.no_grad():
+            lg, _ = lm.prefill(params, torch.tensor(
+                [seq], device=params["final_norm"]["scale"].device), cfg)
+        lg = lg[0, -1].float()
+        return float(lg[a] - lg[b]) <= 4 * bf16_steps(float(lg[a]))
+    return len(ref) == len(got)
 
 
 def card_line() -> str:
@@ -128,33 +179,65 @@ def peak_gb(device) -> float:
     return float(t)
 
 
-def splits(args, cfg, device, say):
+@contextlib.contextmanager
+def quant_blocks():
+    """The sizes of the blocks ``ps.compression`` quantizes while active
+    ({numel: count}, this rank's)."""
+    from repro_torch.ps import compression
+    seen, real = {}, compression.quantize
+
+    def counted(x, u, *, block=256):
+        seen[block] = seen.get(block, 0) + 1
+        return real(x, u, block=block)
+
+    compression.quantize = counted
+    try:
+        yield seen
+    finally:
+        compression.quantize = real
+
+
+def splits(args, cfg, device, say, names=SPLITS, compression="none"):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.ps.lm_job import DEFAULT_LM_SETTING, LMJob
     out = {}
-    for split in SPLITS:
+    for split in names:
         job = LMJob(cfg, batch=args.batch, seq=args.seq, device=device)
-        setting = dict(DEFAULT_LM_SETTING, mesh_split=split)
+        setting = dict(DEFAULT_LM_SETTING, mesh_split=split,
+                       compression=compression)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         state = job.init_state(setting, seed=0)
         step = job.step_builder(setting)
         batches = job.batches(0)
         reset_launches()
-        losses, ms = [], []
-        for _ in range(args.steps):
+        losses, ms, alloc = [], [], []
+        for i in range(args.steps):
             batch = next(batches)
-            with Clock(device) as c:
+            with Clock(device) as c, quant_blocks() as blocks:
                 state, m = step(state, batch)
                 losses.append(float(m["loss"]))
             ms.append(round(c.s * 1e3, 2))
-        out[split] = {"losses": losses, "wall_ms": ms,
+            if device.type == "cuda":
+                alloc.append(round(torch.cuda.memory_allocated() / 1e9, 3))
+        out[split] = {"losses": losses, "wall_ms": ms, "alloc_gb": alloc,
                       "peak_gb": round(peak_gb(device), 2),
                       "launches": {k: v for k, v in LAUNCHES.items() if v}}
-        say(f"mesh[{split}]: {cfg.n_layers} layers, {args.batch} x "
-            f"{args.seq} tokens: losses {losses}, wall ms {ms}, peak "
-            f"{out[split]['peak_gb']} GB (fullest rank), launches a rank "
-            f"{out[split]['launches']}")
+        if blocks:
+            out[split]["quant_blocks"] = blocks
+        if getattr(args, "profile", False) and device.type == "cuda":
+            state, out[split]["profile"] = profiled(step, state, batches)
+            out[split]["alloc_gb"].append(
+                round(torch.cuda.memory_allocated() / 1e9, 3))
+            say(f"mesh[{split} {compression}] profile (ms a step): "
+                f"{out[split]['profile']}")
+        say(f"mesh[{split} {compression}]: {cfg.n_layers} layers, "
+            f"{args.batch} x {args.seq} tokens: losses {losses}, wall ms "
+            f"{ms}, allocated GB after each step {out[split]['alloc_gb']}, "
+            f"peak {out[split]['peak_gb']} GB (fullest rank), launches a "
+            f"rank {out[split]['launches']}"
+            + (f", quantized blocks a step (rank 0) {blocks}" if blocks
+               else ""))
         del state, step
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -329,6 +412,9 @@ def engines(args, cfg, device, say):
             len(t) == r.max_new for r, t in zip(trace, (toks[r.rid]
                                                         for r in trace))))
         res["same_as_single"] = sum(toks[rid] == t for rid, t in ref.items())
+        prompts = {r.rid: r.prompt for r in trace}
+        res["tie_aware"] = all(tie_aware(cfg, whole_p, prompts[rid], t,
+                                         toks[rid]) for rid, t in ref.items())
         out[name] = res
         say(f"engine[{name}]: {len(toks)} requests in {c.s:.3f}s (captures "
             f"included), {spans.steps} decode steps, decode "
@@ -338,16 +424,186 @@ def engines(args, cfg, device, say):
             f"and pool "
             f"{'the same' if res.get('ranks_same', True) else 'DIFFER'}; "
             f"{res['same_as_single']}/{len(ref)} requests the single-device "
-            f"engine's tokens")
+            f"engine's tokens, the rest "
+            f"{'tie-aware' if res['tie_aware'] else 'NOT tie-aware'}")
         del eng
         if device.type == "cuda":
             torch.cuda.empty_cache()
     if dist.get_rank() == 0 and not all(
-            r.get("ranks_same", True) and r["complete"] for r in out.values()):
-        raise SystemExit("the engine's ranks disagree or left a request")
+            r.get("ranks_same", True) and r["complete"] and r["tie_aware"]
+            for r in out.values()):
+        raise SystemExit("the engine's ranks disagree, left a request or "
+                         "served a token no tie explains")
     if args.probe:
         out["probe"] = probe(cfg, device, say, ms, whole_p, setting, max_seq)
     return out
+
+
+PROFILE_KINDS = (("nccl", r"nccl|ncclDevKernel"),
+                 ("gemm", r"nvjet|gemm|cutlass|sm90_xmma|Kernel2"),
+                 ("flash", r"flash"),
+                 ("quant", r"quantize|dequantize"),
+                 ("rng", r"philox|distribution_elementwise|uniform"))
+# the host's operators by kind: blocked waiting for the card (a
+# synchronization, a copy to the host, a scalar read), launching kernels,
+# and the collectives' host calls (NCCL's are asynchronous)
+HOST_KINDS = (("blocked", r"^cuda(Stream|Device|Event)Synchronize$|"
+                          r"^aten::_local_scalar_dense$|^cudaMemcpy$"),
+              ("launch", r"^cu(da)?LaunchKernel"),
+              ("collective", r"^c10d::|^nccl:|^record_param_comms$"))
+
+
+def host_profile(prof, steps: int, wall: float) -> dict:
+    """This rank's host time a step from ``prof``'s CPU events."""
+    import re
+    ev = [e for e in prof.key_averages() if "CUDA" not in str(e.device_type)]
+    res = {"wall": round(wall, 2),
+           "ops": round(sum(e.self_cpu_time_total for e in ev)
+                        / steps / 1e3, 2)}
+    for kind, pat in HOST_KINDS:
+        sel = [e for e in ev if re.search(pat, e.key)]
+        res[kind] = round(sum(e.self_cpu_time_total for e in sel)
+                          / steps / 1e3, 2)
+        res[f"n_{kind}"] = sum(e.count for e in sel) // steps
+    top = sorted(ev, key=lambda e: -e.self_cpu_time_total)[:6]
+    res["top"] = [(e.key, round(e.self_cpu_time_total / steps / 1e3, 2),
+                   e.count // steps) for e in top]
+    return res
+
+
+def profiled(step, state, batches, steps=2):
+    """Wall ms a step against kernel ms a step (all kernels, and the
+    NCCL, GEMM and flash kernels) under torch.profiler; every rank runs
+    the steps."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, next(batches))
+            float(m["loss"])
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    kernels = [e for e in prof.key_averages()
+               if "CUDA" in str(e.device_type)]
+    res = {"wall": round(wall, 2),
+           "kernels": round(sum(dev_us(e) for e in kernels)
+                            / steps / 1e3, 2),
+           "launches": sum(e.count for e in kernels) // steps}
+    for kind, pat in PROFILE_KINDS:
+        res[kind] = round(sum(dev_us(e) for e in kernels
+                              if re.search(pat, e.key)) / steps / 1e3, 2)
+    res["busy"] = round(res["kernels"] / wall, 3)
+    hosts = [None] * dist.get_world_size()
+    dist.all_gather_object(hosts, host_profile(prof, steps, wall))
+    res["host"] = hosts
+    return state, res
+
+
+def tp_arm(args, cfg, device, say):
+    """Section 4: the tensor-parallel train step against 1x1, then the
+    serve steps on 2x2 against one card."""
+    if args.quick:
+        return {"train": splits(args, cfg, device, say, SPLITS)}
+    out = {}
+    for comp, names in (("none", TP_SPLITS), ("int8", TP_INT8_SPLITS)):
+        key = "train" if comp == "none" else f"train_{comp}"
+        out[key] = res = splits(args, cfg, device, say, names, comp)
+        base = res["1x1"]["losses"]
+        for split in names[1:]:
+            got = res[split]["losses"]
+            gap = max(abs(a - b) for a, b in zip(got, base))
+            res[split]["loss_gap"] = gap
+            say(f"tp[{split} {comp}]: losses within {gap:.3g} of 1x1's; "
+                f"step ms {res[split]['wall_ms']} against 1x1's "
+                f"{res['1x1']['wall_ms']}")
+            if dist.get_rank() == 0 and gap > TP_LOSS_TOL:
+                raise SystemExit(f"tp[{split} {comp}]: losses {got} "
+                                 f"against 1x1's {base}")
+    out["serve"] = serve_steps(args, cfg, device, say)
+    return out
+
+
+def serve_steps(args, cfg, device, say):
+    """The serve steps on 2x2 (fsdp, tp_only) against one card's."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.distributed.sharding import gather, shard
+    from repro_torch.launch.mesh import make_meshspec
+    from repro_torch.models import lm
+    from repro_torch.ps.stepfn import (StepKnobs, _model_only,
+                                       build_decode_step, build_prefill_step,
+                                       cache_specs, serve_param_specs)
+    ms = make_meshspec(2, 2)
+    P, steps, max_seq = ((TP_P, TP_STEPS, TP_MAX) if not args.reduced
+                         else (16, 4, 32))
+    B = 8
+    whole_p = lm.init_params(cfg, seed=0, device=device)
+    g = torch.Generator(device=device).manual_seed(31)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                           device=device)
+
+    def run(prefill, decode, params, m=None, knobs=None):
+        """Greedy tokens (B, steps) and the decode steps' ms."""
+        logits, pc = prefill(params, {"tokens": tokens})
+        shapes = lm.init_cache_shapes(cfg, B, max_seq)
+        cache = {}
+        specs = None if m is None else cache_specs(shapes, m)
+        pspecs = None if m is None else cache_specs(
+            lm.init_cache_shapes(cfg, B, P), m)
+        for k, v in pc.items():
+            if m is not None:
+                v = gather(v, _model_only(pspecs[k], m), m)
+            dense = torch.zeros(v.shape[:2] + (max_seq,) + v.shape[3:],
+                                dtype=torch.bfloat16, device=device)
+            dense[:, :, :P] = v
+            if m is not None:
+                dense = shard(dense, _model_only(specs[k], m), m)
+            cache[k] = dense.contiguous()
+        del pc
+        out, walls = [], []
+        for i in range(steps):
+            nt = logits[:, -1].argmax(-1, keepdim=True)
+            if m is not None:             # every rank's rows, whole
+                nt = gather(nt, (m.data_axes[0], None), m)
+            out.append(nt)
+            pos = torch.full((B,), P + i, dtype=torch.int32, device=device)
+            with Clock(device) as c:
+                logits, _ = decode(params, cache, nt, pos)
+            walls.append(round(c.s * 1e3, 2))
+        return torch.cat(out, 1).tolist(), walls
+
+    ref, ref_ms = run(lambda p, b: lm.prefill(p, b["tokens"], cfg),
+                      lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg),
+                      whole_p)
+    res = {"single_ms": ref_ms}
+    for mode in ("fsdp", "tp_only"):
+        knobs = StepKnobs(serve_params=mode)
+        specs = serve_param_specs(cfg, ms, knobs)
+        params = tree_map(lambda x, sp: shard(x, sp, ms).clone(), whole_p,
+                          specs)
+        got, ms_list = run(build_prefill_step(cfg, ms, knobs),
+                           build_decode_step(cfg, ms, knobs,
+                                             max_seq=max_seq), params, ms)
+        same = sum(a == b for a, b in zip(ref, got))
+        ties = all(tie_aware(cfg, whole_p, tokens[i].tolist(), ref[i],
+                             got[i]) for i in range(B))
+        res[mode] = {"same": same, "tie_aware": ties, "step_ms": ms_list}
+        say(f"tp serve[2x2 {mode}]: {same}/{B} requests one card's tokens "
+            f"over {steps} greedy steps, the rest "
+            f"{'tie-aware' if ties else 'NOT tie-aware'}; decode ms "
+            f"{ms_list[1:]} against one card's {ref_ms[1:]}")
+        if dist.get_rank() == 0 and not ties:
+            raise SystemExit(f"tp serve[{mode}]: a token no tie explains")
+        del params
+    return res
 
 
 def _events_ms(device, fn, iters=20):
@@ -436,8 +692,14 @@ def main():
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--ckpt-layers", type=int, default=4)
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--only", choices=("train", "engine"), default=None)
+    ap.add_argument("--only", choices=("train", "engine", "tp"),
+                    default=None)
     ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--quick", action="store_true",
+                    help="--only tp: the train steps of 4x1, 2x2 and 1x4 "
+                         "alone (no 1x1, int8 or serve steps), to time "
+                         "two trees in one call")
     args = ap.parse_args()
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import init_distributed
@@ -475,11 +737,13 @@ def main():
             f"{cfg.n_layers} layers")
         t0 = time.perf_counter()
         line = {}
-        if args.only != "engine":
+        if args.only in (None, "train"):
             line["splits"] = splits(args, cfg, device, say)
             line["type_ib"] = relocations(args, cfg, device, say)
-        if args.only != "train":
+        if args.only in (None, "engine"):
             line["engine"] = engines(args, cfg, device, say)
+        if args.only in (None, "tp"):
+            line["tp"] = tp_arm(args, cfg, device, say)
         line["seconds"] = round(time.perf_counter() - t0, 1)
         say(json.dumps(line))
         say("OK")

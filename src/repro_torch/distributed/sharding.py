@@ -38,9 +38,12 @@ from repro_torch.core.tree import flatten, tree_map, unflatten
 
 @dataclass(frozen=True)
 class AbstractMesh:
-    """A mesh's axis sizes and names, with no devices or process groups."""
+    """A mesh's axis sizes and names, with no devices or process groups;
+    ``coord``, optionally, the index along each axis of the rank it
+    stands for (a virtual rank, ``models/virtual_tp.py``)."""
     axis_sizes: tuple[int, ...]
     axis_names: tuple[str, ...]
+    coord: tuple[int, ...] | None = None
 
     @property
     def shape(self) -> dict:
@@ -113,6 +116,8 @@ class MeshSpec:
         """This rank's index along each axis; None when the rank is not in
         the mesh.  A shape-only mesh of one device is its rank 0."""
         if not self.live:
+            if self.mesh.coord is not None:
+                return dict(zip(self.mesh.axis_names, self.mesh.coord))
             if self.n_devices == 1:
                 return dict.fromkeys(self.shape, 0)
             raise ValueError("a shape-only mesh has no rank coordinates")
@@ -322,3 +327,165 @@ def is_whole(spec: tuple, ms: MeshSpec) -> bool:
 
 def gather_tree(tree, specs, ms: MeshSpec):
     return tree_map(lambda x, s: gather(x, s, ms), tree, specs)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over ``model`` (the JAX model's activation constraints)
+# ---------------------------------------------------------------------------
+
+TP_FAMILIES = ("dense", "moe", "vlm", "encoder")    # attention layers
+
+
+@dataclass(frozen=True)
+class TPPlan:
+    """How a forward of S query rows splits its layers over the ``m``
+    ranks of ``model`` (``tp_plan``).  ``attn``: ``"heads"`` (the query
+    heads over model: column-parallel wq, wk, wv and row-parallel wo),
+    ``"seq"`` (the query rows over model against the whole keys) or
+    ``"none"`` (computed whole on every rank); ``kv_split``: the kv heads
+    over model too (else a rank of the head path computes the kv heads
+    its query heads read); ``mlp``: the MLP's columns over model; ``vocab``:
+    the logits' vocabulary over model."""
+    m: int
+    attn: str = "none"
+    kv_split: bool = False
+    mlp: bool = False
+    vocab: bool = False
+
+    def heads(self, cfg, index: int) -> tuple[int, int, int, int]:
+        """(q_lo, q_hi, kv_lo, kv_hi): the query and kv heads rank
+        ``index`` computes on the head path."""
+        H, K = cfg.n_heads, cfg.n_kv_heads
+        hl = H // self.m
+        q_lo = index * hl
+        if self.kv_split:
+            kl = K // self.m
+            return q_lo, q_lo + hl, index * kl, index * kl + kl
+        G = H // K
+        return q_lo, q_lo + hl, q_lo // G, (q_lo + hl - 1) // G + 1
+
+    def rows(self, S: int, index: int) -> tuple[int, int]:
+        """The query rows rank ``index`` computes on the sequence path."""
+        n = S // self.m
+        return index * n, index * n + n
+
+
+def tp_plan(cfg, m: int, S: int, decode: bool = False) -> TPPlan:
+    """The reference's decision (its model's ``constrain`` calls, written
+    out once) for ``m`` ranks on ``model`` and S query rows:
+
+    * the query heads over model when H % m == 0 (and a rank's heads read
+      whole kv heads: G % (H/m) == 0 or K % m == 0);
+    * else the query sequence when S % m == 0 and S > 1 (not in decode);
+    * else the queries replicated (computed whole on every rank);
+    * kv heads over model only when K % m == 0;
+    * the MLP's columns when d_ff % m == 0 (not the moe family, whose
+      experts run expert-parallel);
+    * the vocabulary when V % m == 0 (hubert's 504 does not divide 16).
+
+    The ssm and hybrid families compute whole on every rank (their
+    channel split is not ported)."""
+    if m == 1 or cfg.family not in TP_FAMILIES:
+        return TPPlan(m)
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    attn = "none"
+    if H % m == 0 and (K % m == 0 or (H // K) % (H // m) == 0):
+        attn = "heads"
+    elif S % m == 0 and S > 1 and not decode:
+        attn = "seq"
+    return TPPlan(m, attn=attn, kv_split=attn == "heads" and K % m == 0,
+                  mlp=not cfg.uses_moe and cfg.d_ff % m == 0,
+                  vocab=cfg.vocab_size % m == 0)
+
+
+# where each leaf keeps its model shard (per TPPlan), else the pull gathers
+# it over model: "sum" where the ranks compute partial gradients of the
+# whole leaf, "slice" where they compute it alike
+def _leaf_rule(path: str, plan: TPPlan, use: str) -> str:
+    name = path.rsplit("/", 2)
+    leaf, block = name[-1], (name[-2] if len(name) > 1 else "")
+    if block == "attn" and not path.startswith("shared/"):
+        if plan.attn == "heads":
+            kv = leaf in ("wk", "wv", "bk", "bv")
+            return "sum" if kv and not plan.kv_split else "keep"
+        return "sum" if plan.attn == "seq" else "slice"
+    if block == "mlp" and not path.startswith("shared/"):
+        return "keep" if plan.mlp else "slice"
+    if block == "moe":
+        return "keep"            # the expert slab (``moe_block``)
+    if path in ("lm_head/w", "embed/tokens"):
+        # "logits": the vocabulary-parallel product or lookup
+        return "keep" if plan.vocab and use == "logits" else "slice"
+    return "slice"
+
+
+class TPRank:
+    """A forward's place on ``model``: the explicit tensor-parallel
+    argument of ``lm.forward``, set only by steps that hand the model the
+    rank's shards.  ``index`` and ``size`` on ``model``; ``group`` its
+    process group (None: a virtual rank, whose collectives the caller
+    runs, as in a single process running every rank's part in turn);
+    ``ms`` and ``specs``, the parameters' placement: when given, the
+    forward pulls each layer's parameters at their use (``pull``); else
+    the parameters it is given are what the rank computes with."""
+
+    def __init__(self, index: int, size: int, group=None, ms=None,
+                 specs=None):
+        self.index, self.size, self.group, self.ms = index, size, group, ms
+        self.specs = None if specs is None else dict(zip(*flatten(specs)))
+
+    @classmethod
+    def of(cls, ms: MeshSpec, specs):
+        """This rank's place on the live mesh ``ms``, its parameters
+        placed by ``specs``."""
+        m = ms.model_size
+        return cls(ms.index_of(ms.model_axis), m,
+                   ms.model_group if m > 1 else None, ms, specs)
+
+    def plan(self, cfg, S: int, decode: bool = False) -> TPPlan:
+        return tp_plan(cfg, self.size, S, decode)
+
+    def pulled(self, path: str, plan: TPPlan, use: str = "") -> tuple:
+        """(dim, spec entry, summed) of each axis the pull gathers leaf
+        ``path`` over (a layer slice of a stacked leaf under ``layers/``):
+        every sharded axis of its spec but ``model`` where the plan keeps
+        the model shard; ``summed``, where the ranks' gradients are
+        partial ones (``collectives.gather_param``)."""
+        stacked = path.startswith("layers/")
+        spec = self.specs[path]
+        spec = spec[1:] if stacked else spec
+        rule = _leaf_rule(path, plan, use)
+        out = []
+        for dim, e in enumerate(spec):
+            if self.ms.size_of(e) == 1:
+                continue
+            model = e == self.ms.model_axis
+            if model and rule == "keep":
+                continue
+            out.append((dim, e, not model or rule == "sum"))
+        return tuple(out)
+
+    def steps(self, path: str, plan: TPPlan, use: str = "") -> tuple:
+        """``collectives.gather_param``'s steps for leaf ``path``: one for
+        each axis ``pulled`` names (none without ``specs``)."""
+        if self.specs is None:
+            return ()
+        ms = self.ms
+        return tuple((dim, ms.group(e), ms.size_of(e), ms.index_of(e),
+                      summed)
+                     for dim, e, summed in self.pulled(path, plan, use))
+
+    def pull(self, path: str, x, plan: TPPlan, use: str = ""):
+        """Leaf ``path`` as the rank computes with it: gathered over the
+        axes ``steps`` names (``x`` itself with none)."""
+        from repro_torch.distributed.collectives import gather_param
+        return gather_param(x, self.steps(path, plan, use))
+
+    def pull_tree(self, prefix: str, tree: dict, plan: TPPlan) -> dict:
+        """A layer's (or block's) leaves pulled together
+        (``collectives.gather_params``: one collective a step for the
+        leaves of one bucket)."""
+        from repro_torch.distributed.collectives import gather_params
+        paths, xs = flatten(tree)
+        return unflatten(paths, gather_params(
+            xs, [self.steps(f"{prefix}/{p}", plan) for p in paths]))

@@ -58,6 +58,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import TPPlan
 from repro_torch.models import common
 from repro_torch.models.attention import (chunked_attention, decode_attention,
                                           identity_tables,
@@ -235,7 +237,7 @@ def paged_rows(positions, block_tables, block_size: int):
 
 def _attn_apply(x, p, cfg: ModelConfig, knobs: ModelKnobs, positions, rope,
                 cache=None, pos=None, block_tables=None, rows=None,
-                slab=False):
+                slab=False, tp=None, plan: TPPlan = None):
     """Returns (out, new_kv): the (k, v) activations in prefill, the cache
     pair (written in place) in decode.
 
@@ -244,19 +246,45 @@ def _attn_apply(x, p, cfg: ModelConfig, knobs: ModelKnobs, positions, rope,
     chunked prefill against prior blocks).  The cache is the paged pool
     (NB, bs, K, hd) with the requests' ``block_tables``, or (``slab``) the
     hybrid's dense slab (B, max_seq, K, hd) with ``rows`` from
-    ``slab_rows`` and ``block_tables`` its identity tables."""
+    ``slab_rows`` and ``block_tables`` its identity tables.
+
+    Rank ``tp.index``'s part under a tensor-parallel ``plan`` (a pure
+    function of its shards and its index; the caller reduces): on the
+    head path ``p`` holds the column shards of wq (bq) and the row shard
+    of wo, and wk, wv (bk, bv) as shards of its kv heads or (not
+    ``plan.kv_split``) whole, sliced here to the kv heads its query heads
+    read; ``out`` is its partial sum of the output, and the kv and the
+    cache its kv heads.  On the sequence path ``p`` is whole and the rank
+    computes its query rows against every key, at the rows' own
+    positions: ``out`` is its rows.  (The head path's ``out`` is f32,
+    ``partial_product``.)"""
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    xq, q_pos, q_rope = x, positions, rope
+    if plan is not None and plan.attn == "heads":
+        q_lo, q_hi, kv_lo, kv_hi = plan.heads(cfg, tp.index)
+        if not plan.kv_split:
+            c = slice(kv_lo * hd, kv_hi * hd)
+            wk, wv = wk[:, c], wv[:, c]
+            if cfg.qkv_bias:
+                bk, bv = bk[c], bv[c]
+        H, K = q_hi - q_lo, kv_hi - kv_lo
+    elif plan is not None and plan.attn == "seq":
+        lo, hi = plan.rows(S, tp.index)
+        xq, q_pos = x[:, lo:hi], positions[:, lo:hi]
+        q_rope = tuple(t[:, lo:hi] for t in rope)
+    Sq = xq.shape[1]
+    q, k, v = xq @ p["wq"], x @ wk, x @ wv
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = common.apply_rope_tables(q.reshape(B, S, H, hd), *rope)
+        q, k, v = q + p["bq"], k + bk, v + bv
+    q = common.apply_rope_tables(q.reshape(B, Sq, H, hd), *q_rope)
     k = common.apply_rope_tables(k.reshape(B, S, K, hd), *rope)
     v = v.reshape(B, S, K, hd)
 
     if cache is None:                       # prefill
         out = chunked_attention(q, k, v, causal=cfg.causal,
-                                q_positions=positions,
+                                q_positions=q_pos,
                                 kv_positions=positions,
                                 k_chunk=knobs.k_chunk)
         new_kv = (k, v)
@@ -278,30 +306,88 @@ def _attn_apply(x, p, cfg: ModelConfig, knobs: ModelKnobs, positions, rope,
             out = paged_decode_attention(q, k_cache, v_cache, block_tables,
                                          pos=pos, ctx_cols=knobs.attn_ctx)
         new_kv = (k_cache, v_cache)
-    return out.reshape(B, S, H * hd) @ p["wo"], new_kv
+    out = out.reshape(B, Sq, H * hd)
+    if plan is not None and plan.attn == "heads":
+        return partial_product(out, p["wo"]), new_kv
+    return out @ p["wo"], new_kv
 
 
-def _mlp_apply(x, p):
-    return (common.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+def _mlp_apply(x, p, partial: bool = False):
+    """The SwiGLU MLP; ``partial``: ``p`` holds the rank's column shards
+    of wi and wg and row shard of wo, and the result is its f32 partial
+    sum (``partial_product``)."""
+    h = common.silu(x @ p["wg"]) * (x @ p["wi"])
+    return partial_product(h, p["wo"]) if partial else h @ p["wo"]
+
+
+class _PartialProduct(torch.autograd.Function):
+    """``a @ w`` of bf16 operands with an f32 result, not rounded: a
+    row-parallel product's partial sum, which ``from_model`` sums over
+    ``model`` in f32 and rounds once, as the whole product rounds once.
+    On the card (and the dry run's meta tensors) ``torch.mm``'s
+    ``out_dtype``; on the CPU the product of the operands widened to f32.
+    The backward takes the cotangent in the operands' dtype, as the whole
+    product's backward does."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        a2 = a.reshape(-1, a.shape[-1])
+        if a.device.type == "cpu":
+            y = a2.float() @ w.float()
+        else:
+            y = torch.mm(a2, w, out_dtype=torch.float32)
+        return y.view(*a.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        g2 = g.reshape(-1, g.shape[-1])
+        return g @ w.T, a.reshape(-1, a.shape[-1]).T @ g2
+
+
+def partial_product(a, w):
+    """The rank's f32 partial sum of a row-parallel product (``wo`` of the
+    attention and of the MLP under tensor parallelism)."""
+    return _PartialProduct.apply(a, w)
 
 
 def _attn_layer(x, lp, cfg: ModelConfig, knobs: ModelKnobs, positions,
                 rope, cache=None, pos=None, block_tables=None, rows=None,
-                want_aux: bool = False, ms=None, slab: bool = False):
+                want_aux: bool = False, ms=None, slab: bool = False,
+                tp=None, plan: TPPlan = None):
     """One layer of the dense and moe families: attention, then the SwiGLU
     MLP or (moe) the routed experts over the B*S tokens.  Returns (x, kv,
     aux): kv as ``_attn_apply``'s; aux the router's load-balancing loss
     with ``want_aux`` (training), else None (the serving paths, where the
     JAX package discards it).  ``ms``: the mesh of a mesh step, for the
     moe block's expert parallelism.  ``slab``: the cache is the dense
-    per-slot cache of one layer (B, max_seq, K, hd)."""
+    per-slot cache of one layer (B, max_seq, K, hd).  ``tp``/``plan``:
+    the rank's tensor-parallel part (``_attn_apply``, ``_mlp_apply`` on
+    its shards) with the collectives at their named points: ``to_model``
+    after each norm that feeds a partitioned block, ``from_model`` after
+    the row-parallel products, ``gather_rows`` after the sequence path."""
     B, S, D = x.shape
-    h, kv = _attn_apply(common.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps),
-                        lp["attn"], cfg, knobs, positions, rope, cache, pos,
-                        block_tables=block_tables, rows=rows, slab=slab)
+    xn = common.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
+    attn = "none" if plan is None else plan.attn
+    if attn != "none":
+        xn = col.to_model(xn, tp.group, tp.size)
+    h, kv = _attn_apply(xn, lp["attn"], cfg, knobs, positions, rope, cache,
+                        pos, block_tables=block_tables, rows=rows, slab=slab,
+                        tp=tp, plan=plan)
+    if attn == "heads":
+        h = col.from_model(h, tp.group, tp.size, x.dtype)
+    elif attn == "seq":
+        h = col.gather_rows(h, tp.group, tp.size, tp.index)
     x = x + h
     xn = common.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps)
     if not cfg.uses_moe:
+        if plan is not None and plan.mlp:
+            y = _mlp_apply(col.to_model(xn, tp.group, tp.size), lp["mlp"],
+                           partial=True)
+            return x + col.from_model(y, tp.group, tp.size, x.dtype), kv, \
+                None
         return x + _mlp_apply(xn, lp["mlp"]), kv, None
     y, aux = moe_block(xn.reshape(B * S, D), lp["moe"], cfg, ms=ms,
                        want_aux=want_aux)
@@ -356,7 +442,8 @@ def _save_products(ctx, op, *args, **kwargs):
     products, which have a batch axis; a remat setting changes memory and
     time, never the result.  On the CPU the plain attention's products
     are ``bmm`` too and are kept.)"""
-    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+              torch.ops.aten.mm.dtype):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -381,27 +468,60 @@ def _maybe_remat(fn, knobs: ModelKnobs):
 # Forward
 # ===========================================================================
 
-def _embed(params, cfg: ModelConfig, tokens, frontend=None):
+def _embed(params, cfg: ModelConfig, tokens, frontend=None, tp=None):
     """The layers' input in bf16: the token embeddings; the encoder's
     frames (B, S, F) projected by ``frontend/proj`` in bf16, no token read;
     or (the vlm's patch frontend, given ``frontend`` (B, P, F)) the patches
-    projected the same way and put before the tokens, (B, P + T, D)."""
+    projected the same way and put before the tokens, (B, P + T, D).
+    Under ``tp`` the projection is pulled whole at its use (``_lookup``
+    for the table)."""
+    def proj():
+        w = params["frontend"]["proj"]
+        if tp is not None:
+            w = tp.pull("frontend/proj", w, TPPlan(tp.size))
+        return frontend.to(torch.bfloat16) @ w.to(torch.bfloat16)
+
     if cfg.frontend == "frame":             # audio: the whole sequence
         if frontend is None:
             raise ValueError("the frame frontend needs frontend= frames")
-        return (frontend.to(torch.bfloat16)
-                @ params["frontend"]["proj"].to(torch.bfloat16))
-    x = params["embed"]["tokens"][tokens].to(torch.bfloat16)
+        return proj()
+    x = _lookup(params["embed"]["tokens"], tokens, cfg, tp)
     if cfg.frontend == "patch" and frontend is not None:
-        pat = (frontend.to(torch.bfloat16)
-               @ params["frontend"]["proj"].to(torch.bfloat16))
-        x = torch.cat([pat, x], dim=1)
+        x = torch.cat([proj(), x], dim=1)
     return x
+
+
+def _lookup(table, tokens, cfg: ModelConfig, tp=None):
+    """The token embeddings in bf16.  Under ``tp`` the table is pulled
+    whole at its use, unless the plan splits the vocabulary: then each
+    rank looks up the tokens of its rows of the table (zeros for the rest)
+    and the lookups are summed over ``model`` (``from_model``: exact, one
+    rank's row is nonzero), Megatron's vocabulary-parallel embedding."""
+    if tp is None:
+        return table[tokens].to(torch.bfloat16)
+    plan = tp.plan(cfg, 1)
+    if not plan.vocab:
+        return tp.pull("embed/tokens", table, plan)[tokens].to(
+            torch.bfloat16)
+    w = tp.pull("embed/tokens", table, plan, "logits")
+    n = w.shape[0]
+    local = tokens.long() - tp.index * n
+    inside = (local >= 0) & (local < n)
+    rows = w[local.clamp(0, n - 1)].to(torch.bfloat16)
+    return col.from_model(torch.where(inside[..., None], rows, 0),
+                          tp.group, tp.size)
+
+
+def _pulled(tp, prefix: str, tree: dict, plan) -> dict:
+    """A layer's (or the shared block's) parameters as the rank computes
+    with them: ``tree`` itself without ``tp``."""
+    return tree if tp is None else tp.pull_tree(prefix, tree, plan)
 
 
 def forward(params, tokens, cfg: ModelConfig,
             knobs: ModelKnobs = ModelKnobs(), mode: str = "prefill",
-            cache=None, pos=None, valid_len=None, frontend=None, ms=None):
+            cache=None, pos=None, valid_len=None, frontend=None, ms=None,
+            tp=None):
     """tokens: (B, S) int, or None for the encoder, whose B and S come
     from ``frontend``.  Returns (hidden (B, S, D), cache).
 
@@ -435,7 +555,14 @@ def forward(params, tokens, cfg: ModelConfig,
 
     ``ms``: the mesh of a mesh step (training or serving), handed to the
     moe block (expert parallelism); the rest of the forward is the rank's
-    own (its batch shard, the pulled parameters, its cache gathered)."""
+    own (its batch shard, its cache gathered).
+
+    ``tp`` (a ``sharding.TPRank``, set only by the steps that hand the
+    model the rank's shards): ``params`` are the rank's shards, pulled
+    layer by layer at their use (``TPRank.pull``), and the attention
+    families' layers compute tensor-parallel over ``model`` as
+    ``tp.plan`` says (``_attn_layer``); the ssm and hybrid families
+    compute whole on every rank.  Without it the parameters are whole."""
     check_family(cfg)
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode {mode!r}: prefill | decode | train")
@@ -444,16 +571,17 @@ def forward(params, tokens, cfg: ModelConfig,
     if frontend is not None and mode == "decode":
         raise ValueError("frontend: a decode step takes tokens only")
     if mode == "train" and cfg.family in ATTN_FAMILIES:
-        return _forward_train(params, tokens, cfg, knobs, frontend, ms)
-    x = _embed(params, cfg, tokens, frontend)
+        return _forward_train(params, tokens, cfg, knobs, frontend, ms, tp)
+    x = _embed(params, cfg, tokens, frontend, tp)
     if cfg.family in ("ssm", "hybrid"):
         if mode != "prefill" or valid_len is None:
             valid_len = None
         elif not isinstance(valid_len, torch.Tensor):
             valid_len = torch.tensor([valid_len], device=x.device)
         return _forward_ssm(params, x, cfg, knobs, mode, cache, pos,
-                            valid_len)
+                            valid_len, tp)
     B, S, D = x.shape
+    plan = None if tp is None else tp.plan(cfg, S, decode=mode == "decode")
     ar = torch.arange(S, device=x.device)
     slab = mode == "decode" and "block_tables" not in cache
     if mode == "decode":
@@ -471,9 +599,10 @@ def forward(params, tokens, cfg: ModelConfig,
     ks, vs = [], []
     for i in range(cfg.n_layers):
         c = (cache["k"][i], cache["v"][i]) if mode == "decode" else None
-        x, kv, _ = _attn_layer(x, _layer(params["layers"], i), cfg, knobs,
-                               positions, rope, c, pos, block_tables=bt,
-                               rows=rows, ms=ms, slab=slab)
+        lp = _pulled(tp, "layers", _layer(params["layers"], i), plan)
+        x, kv, _ = _attn_layer(x, lp, cfg, knobs, positions, rope, c, pos,
+                               block_tables=bt, rows=rows, ms=ms, slab=slab,
+                               tp=tp, plan=plan)
         if mode == "prefill":
             ks.append(kv[0])
             vs.append(kv[1])
@@ -484,19 +613,22 @@ def forward(params, tokens, cfg: ModelConfig,
 
 
 def _forward_train(params, tokens, cfg: ModelConfig, knobs: ModelKnobs,
-                   frontend=None, ms=None):
+                   frontend=None, ms=None, tp=None):
     """The training forward of the dense, moe, vlm and encoder families: no
     KV kept, nothing written in place; each layer goes through
-    ``_maybe_remat``.  Returns (hidden, aux): aux the mean of the layers'
+    ``_maybe_remat`` (with ``tp``, its pull too, so a recomputed layer
+    gathers again).  Returns (hidden, aux): aux the mean of the layers'
     router losses, as JAX's ``auxs.mean()`` (zeros without experts)."""
-    x = _embed(params, cfg, tokens, frontend)
+    x = _embed(params, cfg, tokens, frontend, tp)
     B, S, D = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
+    plan = None if tp is None else tp.plan(cfg, S)
 
     def body(x, lp):
-        x, _, aux = _attn_layer(x, lp, cfg, knobs, positions, rope,
-                                want_aux=True, ms=ms)
+        x, _, aux = _attn_layer(x, _pulled(tp, "layers", lp, plan), cfg,
+                                knobs, positions, rope, want_aux=True, ms=ms,
+                                tp=tp, plan=plan)
         return x, aux
 
     body = _maybe_remat(body, knobs)
@@ -511,18 +643,21 @@ def _forward_train(params, tokens, cfg: ModelConfig, knobs: ModelKnobs,
 
 
 def _forward_ssm(params, x, cfg: ModelConfig, knobs: ModelKnobs, mode: str,
-                 cache, pos=None, valid_len=None):
+                 cache, pos=None, valid_len=None, tp=None):
     """[mamba1] x L (ssm), or [mamba2] x L with the shared block after
     layers 0, k, 2k, ... (hybrid, k = ``shared_attn_every``).  Decode hands
     each layer views of ``cache["conv"]`` and ``cache["h"]``, which the
     block updates in place, and each application of the shared block its
     slab ``cache["shared_k"][a]`` / ``cache["shared_v"][a]``, read through
     ``cache["slab_tables"]`` (identity block tables; made here when the
-    cache has none)."""
+    cache has none).  ``tp``: each layer's and each application's
+    parameters pulled whole at their use."""
     block = mamba1_block if cfg.ssm_version == 1 else mamba2_block
     every = cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    plan = None if tp is None else TPPlan(tp.size)
     if mode == "train":
-        return _forward_ssm_train(params, x, cfg, knobs, block, every)
+        return _forward_ssm_train(params, x, cfg, knobs, block, every, tp,
+                                  plan)
     if every:
         B, S, _ = x.shape
         ar = torch.arange(S, device=x.device)
@@ -536,7 +671,7 @@ def _forward_ssm(params, x, cfg: ModelConfig, knobs: ModelKnobs, mode: str,
         rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
     convs, hs, sk, sv = [], [], [], []
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = _pulled(tp, "layers", _layer(params["layers"], i), plan)
         st = ({"conv": cache["conv"][i], "h": cache["h"][i]}
               if mode == "decode" else None)
         h, new_st = block(common.rms_norm(x, lp["ln1"]["scale"],
@@ -550,7 +685,8 @@ def _forward_ssm(params, x, cfg: ModelConfig, knobs: ModelKnobs, mode: str,
             a = i // every
             c = ((cache["shared_k"][a], cache["shared_v"][a])
                  if mode == "decode" else None)
-            x, kv = _shared_block(x, params["shared"], cfg, knobs, positions,
+            x, kv = _shared_block(x, _pulled(tp, "shared", params["shared"],
+                                             plan), cfg, knobs, positions,
                                   rope, c, pos, tables, rows)
             if mode == "prefill":
                 sk.append(kv[0])
@@ -567,7 +703,7 @@ def _forward_ssm(params, x, cfg: ModelConfig, knobs: ModelKnobs, mode: str,
 
 
 def _forward_ssm_train(params, x, cfg: ModelConfig, knobs: ModelKnobs,
-                       block, every: int):
+                       block, every: int, tp=None, plan=None):
     """``_forward_ssm``'s training branch (JAX's ``want_state = False``): no
     state kept, nothing written in place; each layer, with the hybrid's
     shared block after layers 0, k, 2k, ... (attention through
@@ -580,11 +716,13 @@ def _forward_ssm_train(params, x, cfg: ModelConfig, knobs: ModelKnobs,
         rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta)
 
     def body(x, lp, shared):
+        lp = _pulled(tp, "layers", lp, plan)
         h, _ = block(common.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps),
                      lp["ssm"], cfg)
         x = x + h
         if shared is not None:
-            x, _ = _shared_block(x, shared, cfg, knobs, positions, rope)
+            x, _ = _shared_block(x, _pulled(tp, "shared", shared, plan), cfg,
+                                 knobs, positions, rope)
         return x
 
     body = _maybe_remat(body, knobs)
@@ -595,14 +733,54 @@ def _forward_ssm_train(params, x, cfg: ModelConfig, knobs: ModelKnobs,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def logits_fn(params, hidden, cfg: ModelConfig):
-    w = (params["embed"]["tokens"].T if cfg.tie_embeddings
-         else params["lm_head"]["w"])
+def logits_fn(params, hidden, cfg: ModelConfig, tp=None, plan=None):
+    """``hidden @ w``: under ``tp`` the rank's columns of the vocabulary
+    where ``plan.vocab`` (its weight shard pulled over the data axes, the
+    hidden states behind ``to_model``), else every column."""
+    if cfg.tie_embeddings:
+        w = params["embed"]["tokens"]
+        w = (w if tp is None else tp.pull("embed/tokens", w, plan,
+                                          "logits")).T
+    else:
+        w = params["lm_head"]["w"]
+        if tp is not None:
+            w = tp.pull("lm_head/w", w, plan, "logits")
+    if plan is not None and plan.vocab:
+        hidden = col.to_model(hidden, tp.group, tp.size)
     return hidden @ w.to(hidden.dtype)
 
 
+def _whole_logits(params, hidden, cfg: ModelConfig, tp=None):
+    """The serve steps' logits: ``logits_fn``, the rank's vocabulary
+    columns all-gathered over ``model`` under a vocabulary-parallel plan."""
+    plan = None if tp is None else tp.plan(cfg, hidden.shape[1])
+    lg = logits_fn(params, hidden, cfg, tp, plan)
+    if plan is not None and plan.vocab:
+        lg = col._all_gather_dim(lg, tp.group, tp.size, lg.dim() - 1)
+    return lg
+
+
+def _vocab_parallel_ce(lg, y, tp):
+    """Summed cross entropy of f32 logits whose last axis is the rank's
+    columns of the vocabulary: the rows' max all-reduced (MAX, outside the
+    gradient: the log-sum-exp's gradient does not depend on it), the sum
+    of exponentials and the target's logit all-reduced (``from_model``)."""
+    import torch.distributed as dist
+    Vl = lg.shape[-1]
+    with torch.no_grad():
+        mx = lg.amax(-1)
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=tp.group)
+    se = col.from_model(torch.exp(lg - mx[..., None]).sum(-1), tp.group,
+                        tp.size)
+    local = y.long() - tp.index * Vl
+    inside = (local >= 0) & (local < Vl)
+    t = torch.gather(lg, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    tgt = col.from_model(torch.where(inside, t, 0.0), tp.group, tp.size)
+    return (mx + torch.log(se) - tgt).sum()
+
+
 def loss_fn(params, batch, cfg: ModelConfig,
-            knobs: ModelKnobs = ModelKnobs(), ms=None):
+            knobs: ModelKnobs = ModelKnobs(), ms=None, tp=None):
     """Mean cross entropy of ``batch["tokens"]`` against ``batch["labels"]``
     (pre-shifted by the data pipeline), with f32 logits, plus
     ``router_aux_weight`` x the mean router aux loss of the moe layers.
@@ -612,17 +790,23 @@ def loss_fn(params, batch, cfg: ModelConfig,
     positions, the text's; an encoder batch is ``{"frontend", "labels"}``,
     frames with a label each, and the loss covers every frame.  ``ms``:
     the mesh of a mesh step (``forward``); the loss is the rank's, over
-    its batch shard."""
+    its batch shard.  ``tp``: the rank's shards (``forward``), the logits
+    vocabulary-parallel where the plan says so (``_vocab_parallel_ce``:
+    every rank of ``model`` the same loss)."""
     hidden, aux = forward(params, batch.get("tokens"), cfg, knobs,
                           mode="train", frontend=batch.get("frontend"),
-                          ms=ms)
+                          ms=ms, tp=tp)
     labels = batch["labels"]
     B, S = labels.shape
     if hidden.shape[1] != S:                # vlm: text positions only
         hidden = hidden[:, hidden.shape[1] - S:]
 
+    plan = None if tp is None else tp.plan(cfg, S)
+
     def ce(h, y):
-        lg = logits_fn(params, h, cfg).float()
+        lg = logits_fn(params, h, cfg, tp, plan).float()
+        if plan is not None and plan.vocab:
+            return _vocab_parallel_ce(lg, y, tp)
         tgt = torch.gather(lg, -1, y[..., None].long())[..., 0]
         return (torch.logsumexp(lg, dim=-1) - tgt).sum()
 
@@ -706,25 +890,29 @@ def n_shared_apps(cfg: ModelConfig) -> int:
 
 
 def prefill(params, tokens, cfg: ModelConfig,
-            knobs: ModelKnobs = ModelKnobs(), frontend=None, ms=None):
+            knobs: ModelKnobs = ModelKnobs(), frontend=None, ms=None,
+            tp=None):
     """The last position's logits and the prefill cache, as the JAX
     package's ``prefill`` (the encoder: ``tokens=None`` and ``frontend``
     frames; the logits of every frame are ``logits_fn`` of ``forward``'s
     hidden states).  ``ms``: the mesh of a serve step (the moe block's
-    expert parallelism)."""
+    expert parallelism); ``tp``: the rank's shards (``forward``), the
+    logits whole and the cache's kv heads the rank's."""
     hidden, cache = forward(params, tokens, cfg, knobs, mode="prefill",
-                            frontend=frontend, ms=ms)
-    return logits_fn(params, hidden[:, -1:], cfg), cache
+                            frontend=frontend, ms=ms, tp=tp)
+    return _whole_logits(params, hidden[:, -1:], cfg, tp), cache
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
-                knobs: ModelKnobs = ModelKnobs(), ms=None):
+                knobs: ModelKnobs = ModelKnobs(), ms=None, tp=None):
     """tokens: (B, S); pos: (B,) write position of the first token (S > 1
     = chunked prefill against the cache).  ``cache``: the paged pool
     (``k``, ``v``, ``block_tables``), the dense per-slot cache (``k``,
     ``v``: ``init_cache``) or the ssm state (``conv``, ``h``), updated in
     place.  ``ms``: the mesh of a serve step (the moe block's expert
-    parallelism).  Returns (logits, cache)."""
+    parallelism); ``tp``: the rank's shards (``forward``; the attention
+    families' cache leaves then hold the rank's kv heads).  Returns
+    (logits, cache)."""
     hidden, cache = forward(params, tokens, cfg, knobs, mode="decode",
-                            cache=cache, pos=pos, ms=ms)
-    return logits_fn(params, hidden, cfg), cache
+                            cache=cache, pos=pos, ms=ms, tp=tp)
+    return _whole_logits(params, hidden, cfg, tp), cache

@@ -179,7 +179,27 @@ def moe_block(x, params, cfg, ms=None, want_aux: bool = True):
     if T % dp == 0 and T // dp >= cfg.moe_top_k:
         return moe_block_ep(x, params, cfg, ms)
     DISPATCH["tokens"] += 1
-    return _moe_block_global(x, params, cfg, ms)
+    return _moe_block_global(x, _whole_experts(params, cfg, ms), cfg, ms)
+
+
+def _is_slab(params, cfg) -> bool:
+    """The experts given are the rank's slab (its ``model`` shard of
+    ``moe/w[ig]``/``moe/wo``, as the mesh step's per-layer pull leaves
+    them), not all ``n_experts``."""
+    return params["wi"].shape[0] != cfg.n_experts
+
+
+def _whole_experts(params, cfg, ms):
+    """Every expert from the rank's slab: gathered over ``model`` (the
+    ranks then compute alike, so backward each keeps its slab's slice of
+    the gradient); ``params`` itself when it holds every expert."""
+    if not _is_slab(params, cfg):
+        return params
+    m = ms.model_size
+    steps = ((0, ms.model_group, m, ms.index_of(ms.model_axis), False),)
+    keys = ("wi", "wg", "wo")
+    return dict(params, **dict(zip(keys, col.gather_params(
+        [params[k] for k in keys], [steps] * len(keys)))))
 
 
 def _moe_block_gspmd(x, params, cfg, ms=None, want_aux: bool = True):
@@ -219,13 +239,15 @@ def _ep_group(xl, params, cfg, ms, m: int, e_loc: int):
     mg = ms.model_group if msz > 1 else None
     xe, aux, (se, pos, tok, keep, w_sorted, C) = _local_dispatch(
         xl, params["router"], cfg)
-    # xe, the gate weights and the expert weights are the same on every
-    # model rank and each rank uses its slab: their cotangents add up
-    # over the model axis
+    # xe, the gate weights and (given whole) the expert weights are the
+    # same on every model rank and each rank uses its slab: their
+    # cotangents add up over the model axis; a slab given is the rank's
+    # own, and so is its gradient
     lo, hi = m * e_loc, (m + 1) * e_loc
     xe = col.grad_sum_over(xe, mg, msz)[lo:hi]
     w_sorted = col.grad_sum_over(w_sorted, mg, msz)
-    slab = {k: col.grad_sum_over(params[k], mg, msz)[lo:hi]
+    slab = {k: (params[k] if _is_slab(params, cfg) else
+                col.grad_sum_over(params[k], mg, msz)[lo:hi])
             for k in ("wi", "wg", "wo")}
     y = _experts(xe, slab)                                    # (e_loc, C, D)
     own = (se >= lo) & (se < hi) & keep
@@ -238,11 +260,14 @@ def moe_block_ep(x, params, cfg, ms):
     """Expert parallelism (the JAX package's ``shard_map`` form).
 
     ``x``: this rank's part of the tokens (``ms.batch_axes``; by default
-    its data shard); ``params``: the layer's moe weights whole, as the mesh
-    step's pull leaves them (the all-gather of each rank's expert slab
-    over the data axes is that pull).  Every model rank routes its data
-    shard's tokens redundantly and takes its own slab of E / tp experts
-    (dispatch needs no collective); the partial outputs are summed over
+    its data shard); ``params``: the layer's moe weights, the experts
+    either the rank's slab (its ``model`` shard, as the mesh step's
+    per-layer pull leaves them: gathered over the data axes only) or whole
+    (the serving engine's pool step), of which the rank takes its slab.
+    Every model rank routes its data shard's tokens redundantly and
+    computes its slab of E / tp experts (dispatch needs no collective);
+    where the step cannot run expert-parallel the slab is gathered whole
+    (``_whole_experts``).  The partial outputs are summed over
     the model axis (``psum`` -> all-reduce) and aux is averaged over the
     data axes (``pmean`` -> all-reduce / dp).  A rank holding several data
     shards' tokens (the batch did not divide) routes each shard as its own
@@ -252,7 +277,8 @@ def moe_block_ep(x, params, cfg, ms):
     e_loc = E // msz if E % msz == 0 else 0
     if e_loc == 0:
         DISPATCH["experts"] += 1
-        return _moe_block_global(x, params, cfg, ms)
+        return _moe_block_global(x, _whole_experts(params, cfg, ms), cfg,
+                                 ms)
     DISPATCH["ep"] += 1
     m = ms.coord[ms.model_axis]
     n = _share(ms)[0]

@@ -15,17 +15,29 @@ as JAX's functional one does, would need the state twice.
 
 Under a mesh (``ms``) the step follows the PS mapping as explicit
 collectives, one process a device, each rank holding only its shards of
-the state (``state_specs``):
+the state (``state_specs``), and computes partitioned over ``model`` as
+the reference's GSPMD step does (``sharding.tp_plan``):
 
-1. **pull**: all-gather each parameter over the axes its spec names;
+1. **pull, layer by layer**: inside the layer loop each layer's shards
+   are all-gathered at their use (``collectives.gather_params``) and freed
+   after it: over the data axes only where the attention families' layer
+   computes on its ``model`` shard (column-parallel wq, wk, wv, wi, wg and
+   the vocabulary; row-parallel wo), over every axis where the compute is
+   whole on every rank (the ssm and hybrid layers, attention whose heads
+   do not divide).  Under ``keep_shards`` autograd keeps the shard, not
+   the gathered tensor, and the backward gathers again, so a rank never
+   holds more than its shards and one layer;
 2. **compute**: forward and backward on the rank's shard of the batch
    (``batch_specs``: the batch over the data axes; the step takes the
-   whole batch and keeps its part), the ranks along ``model`` on the same
-   shard;
-3. **push**: the gradients summed over the data axes and divided by their
-   size (each rank's loss is the mean over its shard), then compressed
-   whole, every rank drawing int8's uniforms from the same generator, and
-   each rank keeps the slice its shards own;
+   whole batch and keeps its part), the ranks along ``model`` each on
+   their part of every layer (Megatron's f and g, ``to_model`` and
+   ``from_model``, at named points of ``lm._attn_layer``);
+3. **push**: the pull's backward reduce-scatters each gradient over the
+   data axes its spec names (a leaf replicated over a data axis, a norm's
+   scale, is all-reduced over it), and every shard is divided by the data
+   size (each rank's loss is the mean over its shard); then compressed on
+   the shards with the whole leaf's numerics (``compress_grads``: one
+   int8 scale a leaf, the shard's slice of the whole leaf's uniforms);
 4. **update**: the optimizer in place on the local shards.
 
 At one device every collective is skipped and every shard is the whole
@@ -34,23 +46,27 @@ tensor, so the mesh step at 1x1 is the single-device step.
 The serve steps (prefill, and decode over the dense per-slot cache of
 ``lm.init_cache``) under a mesh: the parameters placed by ``param_specs``
 (``serve_params="fsdp"``) or over ``model`` only (``"tp_only"``: the pull
-then gathers over ``model`` alone), the cache by ``cache_specs`` (batch
-over the data axes, the sequence (attention) or the channels (ssm) over
-``model``).  A step pulls the parameters, computes on the rank's shard of
-the batch, and for the cache rows it holds over ``model`` gathers each
-layer's cache whole before the layer and keeps its own shard of what the
-layer wrote (``_GatheredLayers``).  It returns the rank's rows of the
-logits and its shards of the cache.
+then gathers over ``model`` alone, and only what the plan computes whole:
+nothing where the query and kv heads divide ``model``), the cache by
+``cache_specs`` (batch over the data axes, the sequence (attention) or
+the channels (ssm) over ``model``).  A step computes on the rank's shard
+of the batch, layer by layer as the train step does, and for the cache
+rows it holds over ``model`` gathers each layer's cache before the layer
+and keeps its own shard of what the layer wrote (``_GatheredLayers``; on
+the head path ``_HeadLayers``, the rank's kv heads, the new rows of every
+head all-gathered over ``model``).  It returns the rank's rows of the
+logits (whole over the vocabulary) and its shards of the cache.
 
 The serving engine's decode step under a mesh (``build_pool_decode_step``)
 runs over a state pool (paged blocks, or per-slot recurrent state) that
-every rank holds whole: the slots split over the data axes, and after
-the step each rank's logits rows and the pool rows it wrote are
-all-gathered and copied into every replica, so every rank ends the step
-with the same pool and the same logits.
+every rank holds whole, with the whole parameters (``pull``): the slots
+split over the data axes, and after the step each rank's logits rows and
+the pool rows it wrote are all-gathered and copied into every replica, so
+every rank ends the step with the same pool and the same logits.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 
@@ -58,9 +74,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core.tree import flatten, leaves, tree_map, unflatten
-from repro_torch.distributed.sharding import (MeshSpec, fit_act_spec, gather,
-                                              is_whole, param_specs, shape_of,
-                                              shard)
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import (MeshSpec, TPRank, fit_act_spec,
+                                              gather, is_whole, param_specs,
+                                              shape_of, shard)
 from repro_torch.models import lm
 from repro_torch.models.lm import ModelKnobs, paged_rows, slab_rows
 from repro_torch.optim import make_optimizer, opt_state_shapes
@@ -75,11 +92,15 @@ NOT_CARRIED = ("scan_unroll", "q_chunk", "ssm_chunk", "attn_skip_masked",
 @dataclass(frozen=True)
 class StepKnobs:
     """The system setting X of a step (paper §III): the Type II knobs the
-    port's steps read, and the serve steps' parameter placement.  The JAX
-    package's compiler and scan knobs (``scan_unroll``, ``q_chunk``,
-    ``ssm_chunk``, ``attn_skip_masked``, ``seq_shard``, ``donate``) have no
-    meaning in the port's eager steps and are not carried
-    (``NOT_CARRIED``)."""
+    port's steps read, and the serve steps' parameter placement
+    (``serve_params``: the shards a serve step is given, ``fsdp`` over
+    every axis or ``tp_only`` over ``model``; either way each layer is
+    pulled at its use).  The JAX package's compiler and scan knobs
+    (``scan_unroll``, ``q_chunk``, ``ssm_chunk``, ``attn_skip_masked``,
+    ``seq_shard``, ``donate``) have no meaning in the port's eager steps
+    and are not carried (``NOT_CARRIED``); the sequence path of the
+    attention families runs where the plan says (``tp_plan``), not by
+    ``seq_shard``."""
     microbatches: int = 1
     remat: str = "none"              # none | dots | full
     compression: str = "none"        # none | bf16 | int8
@@ -151,9 +172,13 @@ def cache_specs(cache_shapes, ms: MeshSpec):
                              for p, x in zip(paths, lv)])
 
 
-def _grads(params, batch, cfg, mk, ms=None):
+def _grads(params, batch, cfg, mk, ms=None, tp=None):
     """(loss, aux, grads) of ``lm.loss_fn`` at ``params``: autograd over
-    detached leaves that share the parameters' memory.
+    detached leaves that share the parameters' memory.  With ``tp``,
+    ``params`` are the rank's shards, pulled layer by layer in the forward
+    (``lm.forward``) and, under ``keep_shards``, again in the backward;
+    each gradient comes out of the pull's backward as the rank's shard,
+    summed over the data axes its spec names.
 
     A stacked layer weight (L, ...) enters as L leaves, one a layer (the
     forward indexes ``v[i]`` alike), and its gradient is stacked once at
@@ -165,11 +190,13 @@ def _grads(params, batch, cfg, mk, ms=None):
     ``jax.grad`` gives it."""
     paths, pl = flatten(params)
     stacked = [p.startswith("layers/") for p in paths]
-    with torch.enable_grad():
+    with torch.enable_grad(), (col.keep_shards() if tp is not None
+                               else contextlib.nullcontext()):
         ls = [[t.detach().requires_grad_() for t in p.unbind(0)] if st
               else p.detach().requires_grad_()
               for p, st in zip(pl, stacked)]
-        loss, aux = lm.loss_fn(unflatten(paths, ls), batch, cfg, mk, ms=ms)
+        loss, aux = lm.loss_fn(unflatten(paths, ls), batch, cfg, mk, ms=ms,
+                               tp=tp)
         flat = [t for x in ls for t in (x if isinstance(x, list) else [x])]
         gl = [torch.zeros_like(t) if g is None else g for t, g in zip(
             flat, torch.autograd.grad(loss, flat, allow_unused=True))]
@@ -186,12 +213,29 @@ def _grads(params, batch, cfg, mk, ms=None):
 
 
 def pull(params, pspecs, ms):
-    """The PS pull: each parameter all-gathered whole over the axes its
-    spec names (the parameters themselves off a mesh, or with no specs:
-    whole on every rank)."""
+    """The whole-parameter pull of the engine's pool step: each parameter
+    all-gathered whole over the axes its spec names (the parameters
+    themselves off a mesh, or with no specs: whole on every rank)."""
     if ms is None or pspecs is None:
         return params
     return tree_map(lambda p, s: gather(p, s, ms), params, pspecs)
+
+
+def tp_rank(ms: MeshSpec, pspecs) -> TPRank | None:
+    """The rank's ``TPRank`` on ``ms`` for parameters placed by ``pspecs``
+    (None off a mesh and at one device: the step is the single-device
+    step)."""
+    if ms is None or ms.n_devices == 1:
+        return None
+    return TPRank.of(ms, pspecs)
+
+
+def _unnamed_data_axes(spec: tuple, ms: MeshSpec) -> tuple:
+    """The data axes of size > 1 that ``spec`` names on no dimension: the
+    leaf is replicated over them."""
+    named = {a for e in spec if e is not None for a in _entry_axes(e)}
+    return tuple(a for a in ms.data_axes
+                 if a not in named and ms.shape[a] > 1)
 
 
 def _entry_axes(e) -> tuple:
@@ -224,9 +268,10 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
     takes the whole batch and every rank of the mesh calls it.  ``out_ms``
     / ``out_specs``: write p, m, v and the queue under another placement
     (ODMR's relocation inside a step, ``odmr.transition_step``; the
-    ``out_state_specs`` hook of ``jit_train_step``): the new shards are
-    cut from the pulled parameters and the whole gradient, updated there,
-    and the state returned is a new dict (the one given is spent)."""
+    ``out_state_specs`` hook of ``jit_train_step``): p, m, v, the queue
+    and the pushed gradient are moved to their new shards one leaf at a
+    time, updated there, and the state returned is a new dict (the one
+    given is spent)."""
     mk = knobs.model_knobs()
     _, opt_update = make_optimizer(tc)
     n = knobs.microbatches
@@ -238,21 +283,29 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
         ospecs = out_specs or (specs if out_ms is ms
                                else state_specs(shapes, out_ms))
     relocating = ms is not None and (out_ms is not ms or ospecs is not specs)
+    tp = None if ms is None else tp_rank(ms, specs["params"])
 
-    def push(tensors):
-        """Each tensor (whole gradients, the losses) averaged over the data
-        axes, in place."""
+    def push(grads, scalars):
+        """The gradient shards (each summed over the data axes its spec
+        names by the pull's backward) and the losses averaged over the
+        data axes, in place: a leaf replicated over a data axis (a norm's
+        scale) is all-reduced over it first."""
         if ms is None or ms.data_size == 1:
             return
         import torch.distributed as dist
-        for t in tensors:
+        for g, spec in zip(leaves(grads), leaves(specs["params"])):
+            axes = _unnamed_data_axes(spec, ms)
+            if axes:
+                dist.all_reduce(g, group=ms.group(axes))
+            g.div_(ms.data_size)
+        for t in scalars:
             dist.all_reduce(t, group=ms.data_group)
             t.div_(ms.data_size)
 
     def compute_grads(params, batch):
         if n <= 1:
             part, act = _local_batch(batch, ms)
-            return _grads(params, part, cfg, mk, act)
+            return _grads(params, part, cfg, mk, act, tp)
         adt = ACC_DTYPES[knobs.acc_dtype]
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
                                              device=p.device), params)
@@ -262,7 +315,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
         for i in range(n):
             part, act = _local_batch(
                 {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}, ms)
-            loss, _, g = _grads(params, part, cfg, mk, act)
+            loss, _, g = _grads(params, part, cfg, mk, act, tp)
             for a, gg in zip(leaves(acc), leaves(g)):
                 a.add_(gg.to(adt))
             del g
@@ -271,24 +324,17 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
             a.div_(n)
         return tot / n, {"ce": tot / n}, acc
 
-    def own(tree, key):
-        """The rank's shards of a whole tree under the output placement,
-        each its own contiguous tensor."""
-        if ms is None:
-            return tree
-        return tree_map(lambda x, s: shard(x, s, out_ms).contiguous(), tree,
-                        ospecs[key])
-
     def moved(tree, old, new):
         return tree_map(lambda x, s, s2: shard(gather(x, s, ms), s2,
                                                out_ms).contiguous(),
                         tree, old, new)
 
-    def relocate(state, params):
-        """p, m, v and the queue at their new home: p from the pulled
-        whole parameters, the rest gathered under the old placement, one
-        leaf at a time."""
-        new = {"params": own(params, "params"), "step": state["step"],
+    def relocate(state):
+        """p, m, v and the queue at their new home: each gathered under
+        the old placement and cut under the new, one leaf at a time."""
+        new = {"params": moved(state["params"], specs["params"],
+                               ospecs["params"]),
+               "step": state["step"],
                "opt": {k: (v if k == "count" else moved(
                    v, specs["params"], ospecs["params"]))
                    for k, v in state["opt"].items()}}
@@ -300,17 +346,15 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
 
     @torch.no_grad()
     def train_step(state, batch):
-        params = pull(state["params"], None if ms is None
-                       else specs["params"], ms)
-        loss, aux, grads = compute_grads(params, batch)
-        push(leaves(grads) + [loss, aux["ce"]])
+        loss, aux, grads = compute_grads(state["params"], batch)
+        push(grads, [loss, aux["ce"]])
+        placed = {} if ms is None else {"specs": specs["params"], "ms": ms}
         grads = compress_grads(
             grads, knobs.compression,
-            state["step"] if knobs.compression == "int8" else 0)
+            state["step"] if knobs.compression == "int8" else 0, **placed)
         if relocating:
-            state = relocate(state, params)
-        del params
-        grads = own(grads, "params")
+            state = relocate(state)
+            grads = moved(grads, specs["params"], ospecs["params"])
         if knobs.staleness > 0:
             # delayed-gradient ASP: apply the gradient of `staleness` steps
             # ago and push the fresh one (bf16) into the queue; before the
@@ -395,6 +439,76 @@ class _GatheredLayers:
             self.open = None
 
 
+def _kv_whole(x, cfg: ModelConfig, plan, tp: TPRank, dim: int):
+    """Every kv head from each rank's kv heads ``x`` (along ``dim``) on
+    the head path: all-gathered over ``model``, each head taken from the
+    first rank that computed it (ranks whose query heads read one kv head
+    computed it alike).  ``x`` itself off the head path."""
+    if plan is None or plan.attn != "heads":
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    import torch.distributed as dist
+    dist.all_gather(parts, x, group=tp.group)
+    if plan.kv_split:
+        return torch.cat(parts, dim)
+    heads, have = [], 0
+    for r, part in enumerate(parts):
+        _, _, lo, hi = plan.heads(cfg, r)
+        if hi > have:
+            heads.append(part.narrow(dim, have - lo, hi - have))
+            have = hi
+    return torch.cat(heads, dim)
+
+
+class _HeadLayers(_GatheredLayers):
+    """The layer views of a dense cache leaf (``k``/``v``, (L, B, Smax, K,
+    hd), the rank's shard over ``model`` along the sequence or whole) for
+    a decode step on the head path, which computes the rank's kv heads
+    [kv_lo, kv_hi) only: ``[i]`` gathers layer i over the sequence and
+    keeps those heads, (B, Smax, K_loc, hd) contiguous, into which the
+    step writes its new rows and which the attention reads (the ranks
+    along ``model`` hold different rows, so each gathers every head);
+    ``close()`` (also at the next ``[i]``) all-gathers the new rows of
+    every rank's heads over ``model`` (``_kv_whole``) and writes those
+    that fall into the rank's part of the sequence into its shard.
+    ``shape`` is the whole leaf's."""
+
+    def __init__(self, local, spec: tuple, ms: MeshSpec, cfg, plan, tp,
+                 pos, S: int):
+        super().__init__(local, spec, ms)
+        self.cfg, self.plan, self.tp = cfg, plan, tp
+        _, _, self.lo, self.hi = plan.heads(cfg, tp.index)
+        positions = pos.long()[:, None] + torch.arange(S, device=pos.device)
+        self.rows = slab_rows(positions, self.shape[2])
+
+    def __getitem__(self, i: int):
+        self.close()
+        whole = gather(self.local[i], self.spec, self.ms)
+        whole = whole[:, :, self.lo:self.hi].contiguous()
+        self.open = (i, whole)
+        return whole
+
+    def close(self):
+        if self.open is None:
+            return
+        i, whole = self.open
+        self.open = None
+        b, p = self.rows
+        new = _kv_whole(whole[b, p], self.cfg, self.plan, self.tp, 2)
+        local = self.local[i]
+        n = local.shape[1]
+        q = p - self.ms.index_of(self.spec[1]) * n
+        # a row outside the rank's part writes back what it read (no
+        # data-dependent shapes: the dry run traces this on meta tensors)
+        slots = b[:, 0]
+        for j in range(q.shape[1]):
+            qj = q[:, j].clamp(0, n - 1)
+            inside = ((q[:, j] >= 0) & (q[:, j] < n))[:, None, None]
+            local[slots, qj] = torch.where(inside, new[:, j],
+                                           local[slots, qj])
+
+
 def build_prefill_step(cfg: ModelConfig, ms: MeshSpec = None,
                        knobs: StepKnobs = StepKnobs()):
     """Returns ``prefill_step(params, batch) -> (logits, cache)``: the
@@ -402,17 +516,25 @@ def build_prefill_step(cfg: ModelConfig, ms: MeshSpec = None,
     ``batch["tokens"]`` (and ``batch["frontend"]``, the vlm's patches or
     the encoder's frames).  Under a mesh every rank calls it with its
     parameter shards (``serve_param_specs``) and the whole batch; it
-    computes on its data shard and returns its logits rows and its shards
-    of the cache (``cache_specs`` of the whole cache)."""
+    computes on its data shard, its layers tensor-parallel over ``model``
+    (``lm.forward``'s ``tp``; each layer's shards pulled at their use), and
+    returns its logits rows (whole over the vocabulary) and its shards of
+    the cache (``cache_specs`` of the whole cache; on the head path the
+    ranks' kv heads are all-gathered first, ``_kv_whole``)."""
     mk = knobs.model_knobs()
     pspecs = None if ms is None else serve_param_specs(cfg, ms, knobs)
+    tp = None if ms is None else tp_rank(ms, pspecs)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        p = pull(params, pspecs, ms)
         part, act = _local_batch(batch, ms)
-        logits, cache = lm.prefill(p, part.get("tokens"), cfg, mk,
-                                   frontend=part.get("frontend"), ms=act)
+        logits, cache = lm.prefill(params, part.get("tokens"), cfg, mk,
+                                   frontend=part.get("frontend"), ms=act,
+                                   tp=tp)
+        if tp is not None and "k" in cache:
+            plan = tp.plan(cfg, cache["k"].shape[2])
+            cache = {k: _kv_whole(v, cfg, plan, tp, 3)
+                     for k, v in cache.items()}
         if ms is not None:
             # the batch dims are the rank's already; keep its model shard
             lead = batch.get("tokens", batch.get("frontend"))
@@ -434,26 +556,36 @@ def build_decode_step(cfg: ModelConfig, ms: MeshSpec = None,
     its shards of the whole cache ``lm.init_cache_shapes(cfg, B,
     max_seq)`` under ``cache_specs`` (``max_seq``: where a cache leaf has a
     sequence axis), and the whole tokens (B, S) and pos (B,); it computes
-    on its data shard, gathering each layer's cache over ``model``
-    (``_GatheredLayers``), and returns its logits rows."""
+    on its data shard, its layers tensor-parallel over ``model`` as
+    ``TPRank.plan`` says (each layer's shards pulled at their use), and
+    returns its logits rows.  Each layer's cache is gathered over
+    ``model`` whole (``_GatheredLayers``) or, on the head path, as the
+    rank's kv heads (``_HeadLayers``)."""
     mk = knobs.model_knobs()
     pspecs = None if ms is None else serve_param_specs(cfg, ms, knobs)
+    tp = None if ms is None else tp_rank(ms, pspecs)
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        p = pull(params, pspecs, ms)
         if ms is None:
-            return lm.decode_step(p, cache, tokens, pos, cfg, mk)
+            return lm.decode_step(params, cache, tokens, pos, cfg, mk)
         part, act = _local_batch({"tokens": tokens, "pos": pos}, ms)
         specs = cache_specs(lm.init_cache_shapes(cfg, tokens.shape[0],
                                                  max_seq), ms)
+        plan = None if tp is None else tp.plan(cfg, tokens.shape[1],
+                                               decode=True)
         views = {}
         for k, v in cache.items():
             spec = _model_only(specs[k], ms)
-            views[k] = (_GatheredLayers(v, spec, ms)
-                        if not is_whole(spec, ms) else v)
-        logits, _ = lm.decode_step(p, views, part["tokens"], part["pos"],
-                                   cfg, mk, ms=act)
+            if k in ("k", "v") and plan is not None and plan.attn == "heads":
+                views[k] = _HeadLayers(v, spec, ms, cfg, plan, tp,
+                                       part["pos"], tokens.shape[1])
+            elif not is_whole(spec, ms):
+                views[k] = _GatheredLayers(v, spec, ms)
+            else:
+                views[k] = v
+        logits, _ = lm.decode_step(params, views, part["tokens"],
+                                   part["pos"], cfg, mk, ms=act, tp=tp)
         for v in views.values():
             if isinstance(v, _GatheredLayers):
                 v.close()
@@ -467,9 +599,10 @@ def jit_serve_step(cfg: ModelConfig, shape: ShapeConfig, ms: MeshSpec,
     """The serve step of a prefill or decode cell with its shapes, as the
     JAX package's: (prefill step, parameter shapes), or (decode step,
     (parameter shapes, cache shapes)).  ``knobs.serve_params ==
-    "tp_only"`` keeps the parameters sharded on ``model`` only, so decode
-    gathers over ``model`` alone instead of all-gathering the FSDP shards
-    every step.  (The port's steps are eager: nothing is compiled.)"""
+    "tp_only"`` keeps the parameters sharded on ``model`` only, so a step
+    gathers over ``model`` alone (what its plan computes whole) instead of
+    all-gathering each layer's FSDP shards.  (The port's steps are eager:
+    nothing is compiled.)"""
     pshapes = lm.param_shapes(cfg)
     if shape.kind == "prefill":
         return build_prefill_step(cfg, ms, knobs), pshapes

@@ -5,12 +5,13 @@ The counters on known operations: live bytes and their peak, collective
 bytes by kind (the JAX package's convention) and each group's link rate.
 Then whole cells, traced on meta tensors under a fake process group: a
 reduced cell on a fake 2x2 world (prefill, decode and training) whose
-collective bytes equal a reckoning from the placement, and one full cell,
-starcoder2-3b ``decode_32k`` at the production 16x16 world, whose
-collective bytes and FLOPs equal a reckoning from the config.  A trace
+collective bytes equal a reckoning from the placement and the tensor-
+parallel plan, and two full cells at the production 16x16 world,
+starcoder2-3b and qwen2-72b ``decode_32k``, whose collective bytes (and
+FLOPs) equal a reckoning from the config.  A trace
 launches no kernel, and the entry point writes one JSON a cell."""
+import dataclasses
 import json
-import math
 
 import pytest
 import torch
@@ -18,15 +19,11 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import SHAPES_BY_NAME, ShapeConfig
 from repro_torch.configs.registry import get_config
-from repro_torch.core.tree import flatten
 from repro_torch.distributed.trace_analysis import (NET_BW, NVLINK_BW,
                                                     CollectiveCounter,
                                                     LiveBytes, memory_stats)
 from repro_torch.kernels import LAUNCHES
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_meshspec
-from repro_torch.models import lm
-from repro_torch.ps.stepfn import StepKnobs, serve_param_specs
 
 SMALL = get_config("starcoder2-3b").reduced(head_dim=64)  # a kernel build's hd
 
@@ -69,34 +66,66 @@ def test_collectives_counted_by_kind_and_link():
     assert got["seconds"] == pytest.approx(6000 / NVLINK_BW + 2000 / NET_BW)
 
 
-def _gather_bytes(shape, spec, sizes) -> int:
-    """Result bytes of ``sharding.gather`` of a bf16 shard: one all-gather
-    per sharded dim in order, each result larger by its shard count."""
-    local = [n // sizes[e] if e else n for n, e in zip(shape, spec)]
-    total = 0
-    for dim, e in enumerate(spec):
-        if e and sizes[e] > 1:
-            local[dim] *= sizes[e]
-            total += 2 * math.prod(local)
-    return total
+def _tp_reckoning(cfg, kind: str, B: int, S: int) -> dict:
+    """Collective bytes of a rank of the fake 2x2 world (fsdp placement)
+    for reduced starcoder2-3b, whose plan on ``model`` 2 splits the query
+    and kv heads, the MLP's columns and the vocabulary: every weight
+    matrix keeps its model shard and is all-gathered over data at its
+    use (the embedding table and lm_head too: the lookup and the logits
+    are vocabulary-parallel), a layer's two row-parallel products are
+    all-reduced in f32 (``from_model``), and
 
-
-def _param_gathers(cfg, ms, knobs) -> int:
-    sizes = dict(ms.shape)
-    specs = serve_param_specs(cfg, ms, knobs)
-    shapes = lm.param_shapes(cfg)
-    return sum(_gather_bytes(s, specs_leaf, sizes) for s, specs_leaf in
-               zip(flatten(shapes)[1], flatten(specs)[1]))
+    - prefill: the lookup's all-reduce, the logits' last row all-gathered
+      over the vocabulary, the cache's kv heads all-gathered over model;
+    - decode: the same, and a layer's k and v gathered whole over the
+      sequence (each rank then keeps its kv head) with the new rows of
+      every head all-gathered over model;
+    - train (remat full, one microbatch): each layer's pull twice (the
+      forward and its recompute) and its from_model three times (the
+      recompute stops at the last tensor the backward needs, before the
+      MLP's all-reduce: checkpoint's early stop), lm_head's pull
+      again in the backward (``keep_shards``), each pulled weight's
+      gradient reduce-scattered over data (result bytes x 2), to_model's
+      backward all-reduce (f32) of the cotangent after each norm that
+      feeds a split block, the loss's three (B, S) f32 all-reduces (the rows'
+      max, the sum of exponentials, the target's logit), and the push:
+      the norms' scales (spec None: replicated over data) all-reduced
+      with the two f32 losses."""
+    L, D, V, F = cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.d_ff
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Bl, bf, f4 = B // 2, 2, 4
+    # a layer's weights with the model shard kept, gathered over data
+    layer = bf * (D * H * hd + 2 * D * K * hd + H * hd * D + 3 * D * F) // 2
+    table = bf * V * D // 2                  # embed and lm_head alike
+    out = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0}
+    act = Bl * S * D
+    if kind in ("prefill", "decode"):
+        q = S if kind == "prefill" else 1
+        out["all-gather"] = (table + L * layer + table
+                             + Bl * 1 * V * bf)          # logits' row
+        out["all-reduce"] = f4 * Bl * q * D * (1 + 2 * L)
+        if kind == "prefill":
+            out["all-gather"] += 2 * L * Bl * S * K * hd * bf
+        else:
+            out["all-gather"] += 2 * L * (Bl * S * K * hd * bf
+                                          + Bl * 1 * K * hd * bf)
+            out["all-reduce"] = f4 * Bl * D * (1 + 2 * L)
+        return out
+    out["all-gather"] = table + 2 * L * layer + 2 * table
+    out["reduce-scatter"] = table + L * layer + table
+    out["all-reduce"] = (f4 * act * (1 + 3 * L) + 3 * f4 * Bl * S
+                         + f4 * act * (1 + 2 * L)
+                         + bf * D * (2 * L + 1) + 2 * f4)
+    return out
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
 def test_reduced_cell_on_a_fake_2x2_world(kind):
     """Reduced starcoder2-3b (hd 64), 8 sequences of 32 positions, on a
-    fake 2x2 world: the step's collective bytes equal the reckoning —
-    the parameters' pull (the default fsdp placement: over data and
-    model), decode's per-layer cache gathers over model, and training's
-    push (every whole bf16 gradient and the two f32 losses all-reduced
-    over data)."""
+    fake 2x2 world: the step's collective bytes equal the reckoning of
+    the tensor-parallel step with the layer-by-layer pull
+    (``_tp_reckoning``): no parameter all-gathered over ``model``, the
+    push a reduce-scatter of each pulled gradient."""
     B, S = 8, 32
     shape = ShapeConfig("c", S, B, kind)
     before = dict(LAUNCHES)
@@ -106,19 +135,11 @@ def test_reduced_cell_on_a_fake_2x2_world(kind):
     assert r["status"] == "ok" and r["n_devices"] == 4
     knobs = dryrun.default_knobs(SMALL, shape)[0]
     assert knobs.serve_params == "fsdp"
-    with dryrun.fake_world(4):
-        ms = make_meshspec(2, 2)
-        want_gather = _param_gathers(SMALL, ms, knobs)
-    want_reduce = 0
-    if kind == "decode":     # k and v of each layer: (B/2, S, K, hd) bf16
-        want_gather += (2 * SMALL.n_layers * (B // 2) * S * SMALL.n_kv_heads
-                        * SMALL.hd * 2)
-    if kind == "train":
-        want_reduce = 2 * SMALL.n_params() + 2 * 4
+    want = _tp_reckoning(SMALL, kind, B, S)
     coll = r["collectives"]
-    assert coll["all-gather"] == want_gather
-    assert coll["all-reduce"] == want_reduce
-    assert coll["reduce-scatter"] == coll["all-to-all"] == 0
+    for k, v in want.items():
+        assert coll[k] == v, (k, coll[k], v)
+    assert coll["all-to-all"] == 0
     assert coll["seconds"] == pytest.approx(coll["total"] / NVLINK_BW)
     assert r["flops_counted_dev"] > 0 and r["memory"]["peak_estimate_bytes"] \
         >= r["memory"]["argument_bytes"] > 0
@@ -128,26 +149,29 @@ def test_full_decode_cell_at_the_production_mesh():
     """starcoder2-3b decode_32k at 16x16, the optimized knobs' tp_only
     placement (its 8.6 GB of weights shard to 0.54 GB over model): 128
     sequences over 16 data ranks, the 32,768-row cache over 16 model
-    ranks.  Collective bytes: the parameters gathered over model, and
-    each layer's k and v gathered whole ((8, 32768, 2, 128) bf16); FLOPs:
-    every matrix product of 8 tokens (the parameters but the embedding)
-    and the paged attention over 32,768 keys; it fits one card."""
+    ranks.  Its 24 query heads do not divide 16 and a decode step has one
+    row, so attention runs whole on every rank: only the attention's
+    weights are gathered over model; the MLP and the vocabulary split.
+    Collective bytes: those weights, each layer's k and v gathered whole
+    ((8, 32768, 2, 128) bf16), the logits' row gathered over the
+    vocabulary, the lookup's and each MLP's f32 all-reduce; FLOPs: the
+    attention's products whole, the MLP's and the logits' 1/16, and the
+    paged attention over 32,768 keys; it fits one card."""
     cfg = get_config("starcoder2-3b")
     r = dryrun.run_cell("starcoder2-3b", "decode_32k", save=False,
                         optimized=True)
     assert r["status"] == "ok" and r["memory"]["fits"]
     assert r["mesh"] == {"data": 16, "model": 16} and r["n_devices"] == 256
-    knobs = StepKnobs(remat="none", serve_params="tp_only")
     assert r["knobs"]["serve_params"] == "tp_only"
-    with dryrun.fake_world(256):
-        from repro_torch.launch.mesh import production_meshspec
-        params = _param_gathers(cfg, production_meshspec(live=True), knobs)
-    cache = 2 * cfg.n_layers * 8 * 32768 * cfg.n_kv_heads * cfg.hd * 2
-    assert r["collectives"]["all-gather"] == params + cache
-    assert r["collectives"]["all-reduce"] == 0
-    D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
-    matmul = cfg.n_params() - V * D - D * (2 * L + 1)     # embed and norms
-    attn = 4 * 8 * cfg.n_heads * 32768 * cfg.hd * L
+    D, V, L, F = cfg.d_model, cfg.vocab_size, cfg.n_layers, cfg.d_ff
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    attn_w = 2 * D * H * hd + 2 * D * K * hd
+    cache = 2 * L * 8 * 32768 * K * hd * 2
+    assert r["collectives"]["all-gather"] == (L * attn_w * 2 + cache
+                                              + 8 * V * 2)
+    assert r["collectives"]["all-reduce"] == 4 * 8 * D * (1 + L)
+    matmul = L * (attn_w + 3 * D * F // 16) + D * V // 16
+    attn = 4 * 8 * H * 32768 * hd * L
     assert r["flops_counted_dev"] == 2 * 8 * matmul + attn
     assert r["analytic"] == dryrun.cell_costs(
         cfg, SHAPES_BY_NAME["decode_32k"], dryrun.MeshDims(256, 16, 16),
@@ -155,6 +179,27 @@ def test_full_decode_cell_at_the_production_mesh():
     assert set(r["knobs_not_applied"]) == {"scan_unroll", "q_chunk",
                                            "ssm_chunk", "attn_skip_masked",
                                            "seq_shard", "donate"}
+
+
+def test_qwen2_decode_fits_and_gathers_only_its_kv_weights():
+    """qwen2-72b decode_32k at 16x16 under tp_only: 64 query heads split
+    over model (4 a rank), its 8 kv heads do not, so each rank computes
+    the one kv head its queries read: the only parameters gathered over
+    model are wk, wv, bk and bv (whole, each layer); the MLP (d_ff 29,568
+    = 16 x 1,848) and the vocabulary (152,064) split.  It fits a card."""
+    cfg = get_config("qwen2-72b")
+    knobs = dataclasses.replace(dryrun.default_knobs(
+        cfg, SHAPES_BY_NAME["decode_32k"])[0], serve_params="tp_only")
+    r = dryrun.run_cell("qwen2-72b", "decode_32k", save=False, knobs=knobs)
+    assert r["status"] == "ok" and r["memory"]["fits"]
+    D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    K, hd = cfg.n_kv_heads, cfg.hd
+    kv_w = 2 * (D * K * hd + K * hd) * 2                   # wk wv bk bv
+    cache = 2 * L * 8 * 32768 * K * hd * 2         # each layer whole
+    rows = 2 * L * 8 * K * hd * 2 // 8 * 16        # new rows, 16 ranks
+    assert r["collectives"]["all-gather"] == (L * kv_w + cache + rows
+                                              + 8 * V * 2)
+    assert r["collectives"]["reduce-scatter"] == 0
 
 
 def test_entry_point_writes_one_json_a_cell(tmp_path, capsys):

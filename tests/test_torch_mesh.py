@@ -16,8 +16,20 @@ package's layout; (h) ``SelfTuningLoop`` over ``lm_knob_space(4)``: one
 plan sequence on every rank, and ``launch/train.py --self-tune`` in the
 same world; (i) the serve steps on 2x2 (``build_prefill_step``, then
 ``build_decode_step`` over the dense per-slot cache), fsdp and tp_only,
-for reduced dense, moe, ssm and hybrid models, against the port's
-single-process steps.
+for reduced dense, moe, ssm and hybrid models and qwen2-72b (its qkv
+biases), against the port's single-process steps; (j) the tensor-parallel
+train step on 1x4, on the head path (4 query heads, each rank computing
+the kv head its query reads) and on the sequence path (6 query heads over
+4 ranks), against the port's single-device step and the JAX step; (k)
+reduced qwen2-72b's loss and bias gradients on 2x2 against both; (l) the
+partition itself at 1x4: a rank's FLOPs against the 1x1 step's, and no
+whole stacked parameter ever made.  Without a process group: (m) every
+rank's part of one layer run in one process (``models/virtual_tp.py``)
+against the whole layer.
+
+The (c), (i), (j) and (k) steps compute over ``model`` as the reference's
+mesh does: each layer's parameters pulled at their use, the attention
+families' layers tensor-parallel (``sharding.tp_plan``).
 
 The worker is this file run as a script; it imports the port only.
 """
@@ -41,6 +53,8 @@ import torch
 WORLD = 4
 ROOT = Path(__file__).resolve().parents[1]
 B, S = 4, 16                      # the train step's batch (global)
+SEQ_KW = {"n_heads": 6}           # 6 query heads over 4 ranks: the
+                                  # sequence path
 MOE_T = (8, 64)                   # decode- and training-sized token counts
 # the JAX step's bounds (test_torch_train_step.py): the loss, a gradient-
 # like leaf relative to its largest |value|, Adam's 2 * lr a step
@@ -114,27 +128,129 @@ def _case_relocate(inp, rank):
 def _case_train_step(inp, rank):
     """(c) two 2x2 steps from the JAX parameters, none and int8 (the JAX
     uniforms injected); the whole state and the losses."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_meshspec
+    return _train_steps(get_config("starcoder2-3b").reduced(),
+                        make_meshspec(2, 2), inp["dense_params"],
+                        inp["dense_uniforms"])
+
+
+def _case_tp_train(inp, rank):
+    """(j) two 1x4 steps, none and int8: the head path (4 query heads, 2
+    kv heads: each rank computes the one its query reads) and the
+    sequence path (6 query heads)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_meshspec
+    ms = make_meshspec(1, 4)
+    cfg = get_config("starcoder2-3b").reduced()
+    return {"heads": _train_steps(cfg, ms, inp["dense_params"],
+                                  inp["dense_uniforms"]),
+            "seq": _train_steps(dataclasses.replace(cfg, **SEQ_KW), ms,
+                                inp["seq_params"], inp["seq_uniforms"])}
+
+
+def _mesh_grads(cfg, ms, params_np, seed):
+    """(loss, whole gradients) of the mesh step's forward and backward on
+    the batch of ``seed``, the push's average over data applied as the
+    step applies it (a leaf replicated over data all-reduced first)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.models.convert import params_to_mesh
+    from repro_torch.ps import stepfn
+    from repro_torch.core.tree import flatten
+    specs = stepfn.state_specs(stepfn.train_state_shapes(cfg, TrainConfig()),
+                               ms)["params"]
+    params = params_to_mesh(params_np, ms, device="cpu")
+    batch = next(lm_batch_iterator(cfg, B, S, seed=seed, device="cpu"))
+    part, act = stepfn._local_batch(batch, ms)
+    loss, _, g = stepfn._grads(params, part, cfg,
+                               stepfn.StepKnobs().model_knobs(), act,
+                               stepfn.tp_rank(ms, specs))
+    for gg, spec in zip(flatten(g)[1], flatten(specs)[1]):
+        axes = stepfn._unnamed_data_axes(spec, ms)
+        if axes:
+            dist.all_reduce(gg, group=ms.group(axes))
+        gg.div_(ms.data_size)
+    dist.all_reduce(loss, group=ms.data_group)
+    return float(loss) / ms.data_size, _tree_np(gather_tree(g, specs, ms))
+
+
+def _case_qwen2(inp, rank):
+    """(k) reduced qwen2-72b (qkv biases) on 2x2: the loss and the
+    gradients."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_meshspec
+    loss, g = _mesh_grads(get_config("qwen2-72b").reduced(),
+                          make_meshspec(2, 2), inp["qwen2_params"], 7)
+    return {"loss": loss, "grads": g}
+
+
+def _case_partition(inp, rank):
+    """(l) one forward and backward of the 1x4 step: its matrix products'
+    FLOPs, the shapes of every tensor it made, and its peak of live bytes
+    (the parameters' shards, made before, not counted)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import lm_batch_iterator
-    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.distributed.trace_analysis import LiveBytes
     from repro_torch.launch.mesh import make_meshspec
+    from repro_torch.models.convert import params_to_mesh
+    from repro_torch.ps import stepfn
+
+    class Shapes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.seen.update(tuple(t.shape) for t in tree_flatten(out)[0]
+                             if isinstance(t, torch.Tensor))
+            return out
+
+    cfg, ms = get_config("starcoder2-3b").reduced(), make_meshspec(1, 4)
+    specs = stepfn.state_specs(stepfn.train_state_shapes(cfg, TrainConfig()),
+                               ms)["params"]
+    params = params_to_mesh(inp["dense_params"], ms, device="cpu")
+    batch = next(lm_batch_iterator(cfg, B, S, seed=5, device="cpu"))
+    part, act = stepfn._local_batch(batch, ms)
+    shapes, live = Shapes(), LiveBytes()
+    with FlopCounterMode(display=False) as flops, shapes, live:
+        stepfn._grads(params, part, cfg, stepfn.StepKnobs().model_knobs(),
+                      act, stepfn.tp_rank(ms, specs))
+    return {"flops": flops.get_total_flops(), "shapes": shapes.seen,
+            "peak": live.peak}
+
+
+def _train_steps(cfg, ms, params_np, draws):
+    """Two steps of the mesh step on ``ms`` from the JAX parameters, none
+    and int8 (the JAX uniforms injected): the losses and the whole
+    state."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.distributed.sharding import gather_tree
     from repro_torch.models.convert import (params_to_mesh,
                                             train_state_from_numpy)
     from repro_torch.optim import make_optimizer
     from repro_torch.ps import stepfn
-    cfg, tc = get_config("starcoder2-3b").reduced(), TrainConfig()
-    ms = make_meshspec(2, 2)
+    tc = TrainConfig()
     real = stepfn.compress_grads
     out = {}
     for mode in ("none", "int8"):
-        params = params_to_mesh(inp["dense_params"], ms, device="cpu")
+        params = params_to_mesh(params_np, ms, device="cpu")
         state = {"params": params, "opt": make_optimizer(tc)[0](params),
                  "step": torch.zeros((), dtype=torch.int32)}
 
-        def injected(grads, mode_, step, uniforms=None):
-            u = train_state_from_numpy(inp["uniforms"][int(step)], "cpu")
-            return real(grads, mode_, step, uniforms=u)
+        def injected(grads, mode_, step, uniforms=None, **placed):
+            u = train_state_from_numpy(draws[int(step)], "cpu")
+            return real(grads, mode_, step, uniforms=u, **placed)
 
         stepfn.compress_grads = injected if mode == "int8" else real
         try:
@@ -370,7 +486,7 @@ def _case_launcher(inp, rank):
 
 
 SERVE_ARCHS = ("starcoder2-3b", "llama4-scout-17b-a16e", "falcon-mamba-7b",
-               "zamba2-1.2b")
+               "zamba2-1.2b", "qwen2-72b")
 SERVE_B, SERVE_P, SERVE_MAX, SERVE_STEPS = 4, 8, 16, 3
 SEQ_LEAVES = ("k", "v", "shared_k", "shared_v")
 
@@ -446,7 +562,8 @@ CASES = {"relocate": _case_relocate, "train_step": _case_train_step,
          "moe": _case_moe, "transition": _case_transition,
          "adapter": _case_adapter, "restore": _case_restore,
          "selftune": _case_selftune, "launcher": _case_launcher,
-         "serve": _case_serve}
+         "serve": _case_serve, "tp_train": _case_tp_train,
+         "qwen2": _case_qwen2, "partition": _case_partition}
 
 
 def _worker(rank: int, d: str):
@@ -518,9 +635,10 @@ def _jax_uniforms(tree, steps):
         treedef, [np.asarray(u) for u in draw(s)]) for s in steps}
 
 
-def _step_refs(inp):
-    """(c)'s references: two steps of the port's single-device step and of
-    the JAX step on the same parameters, batches and int8 uniforms."""
+def _step_refs(inp, key="dense", **kw):
+    """(c)'s (and (j)'s) references: two steps of the port's single-device
+    step and of the JAX step on the same parameters, batches and int8
+    uniforms (reduced starcoder2-3b with ``kw``)."""
     import jax
     import jax.numpy as jnp
 
@@ -537,19 +655,20 @@ def _step_refs(inp):
                                             train_state_from_numpy)
     from repro_torch.optim import make_optimizer
     from repro_torch.ps import stepfn
-    cfg = get_config("starcoder2-3b").reduced()
-    jcfg = jget_config("starcoder2-3b").reduced()
+    cfg = get_config("starcoder2-3b").reduced(**kw)
+    jcfg = jget_config("starcoder2-3b").reduced(**kw)
     tc, jtc = TrainConfig(), JTrainConfig()
     out = {}
     real = stepfn.compress_grads
     for mode in ("none", "int8"):
-        params = params_from_numpy(inp["dense_params"], device="cpu")
+        params = params_from_numpy(inp[key + "_params"], device="cpu")
         state = {"params": params, "opt": make_optimizer(tc)[0](params),
                  "step": torch.zeros((), dtype=torch.int32)}
 
-        def injected(grads, mode_, step, uniforms=None):
-            u = train_state_from_numpy(inp["uniforms"][int(step)], "cpu")
-            return real(grads, mode_, step, uniforms=u)
+        def injected(grads, mode_, step, uniforms=None, **placed):
+            u = train_state_from_numpy(inp[key + "_uniforms"][int(step)],
+                                       "cpu")
+            return real(grads, mode_, step, uniforms=u, **placed)
 
         stepfn.compress_grads = injected if mode == "int8" else real
         try:
@@ -562,7 +681,7 @@ def _step_refs(inp):
                 losses.append(float(m["loss"]))
         finally:
             stepfn.compress_grads = real
-        jp = jax.tree_util.tree_map(jnp.asarray, inp["dense_params"])
+        jp = jax.tree_util.tree_map(jnp.asarray, inp[key + "_params"])
         js = {"params": jp, "opt": j_make_optimizer(jtc)[0](jp),
               "step": jnp.zeros((), jnp.int32)}
         jstep = jax.jit(j_build_train_step(jcfg, jtc, None,
@@ -575,6 +694,52 @@ def _step_refs(inp):
         out[mode] = {"port": (losses, _tree_np(state)),
                      "jax": (jl, jax.tree_util.tree_map(np.asarray, js))}
     return out
+
+
+def _qwen2_refs(inp):
+    """(k)'s references: the loss and gradients of the port's
+    single-device step and of ``jax.value_and_grad(lm.loss_fn)`` on the
+    same parameters and batch."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import get_config as jget_config
+    from repro.data.synthetic import lm_batch_iterator as j_batches
+    from repro.models import lm as jlm
+    from repro.models.lm import ModelKnobs as JModelKnobs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.ps import stepfn
+    cfg, jcfg = (get_config("qwen2-72b").reduced(),
+                 jget_config("qwen2-72b").reduced())
+    batch = next(lm_batch_iterator(cfg, B, S, seed=7, device="cpu"))
+    loss, _, g = stepfn._grads(params_from_numpy(inp["qwen2_params"],
+                                                 device="cpu"), batch, cfg,
+                               stepfn.StepKnobs().model_knobs())
+    jp = jax.tree_util.tree_map(jnp.asarray, inp["qwen2_params"])
+    (jl, _), jg = jax.value_and_grad(jlm.loss_fn, has_aux=True)(
+        jp, next(j_batches(jcfg, B, S, seed=7)), jcfg, None, JModelKnobs())
+    return {"port": (float(loss), _tree_np(g)),
+            "jax": (float(jl), jax.tree_util.tree_map(np.asarray, jg))}
+
+
+def _partition_refs(inp):
+    """(l)'s reference: the 1x1 step's FLOPs and peak of live bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import lm_batch_iterator
+    from repro_torch.distributed.trace_analysis import LiveBytes
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.ps import stepfn
+    cfg = get_config("starcoder2-3b").reduced()
+    params = params_from_numpy(inp["dense_params"], device="cpu")
+    batch = next(lm_batch_iterator(cfg, B, S, seed=5, device="cpu"))
+    live = LiveBytes()
+    with FlopCounterMode(display=False) as flops, live:
+        stepfn._grads(params, batch, cfg, stepfn.StepKnobs().model_knobs())
+    return {"flops": flops.get_total_flops(), "peak": live.peak}
 
 
 def _moe_refs(inp):
@@ -637,8 +802,11 @@ def mesh_run(tmp_path_factory):
                         n_experts=3)["layers"]["moe"]
     rng = np.random.default_rng(11)
     D = moe["router"].shape[1]
+    seq = _port_params("starcoder2-3b", **SEQ_KW)
     inp = {"dir": str(d), "dense_params": dense,
-           "uniforms": _jax_uniforms(dense, (0, 1)),
+           "dense_uniforms": _jax_uniforms(dense, (0, 1)),
+           "seq_params": seq, "seq_uniforms": _jax_uniforms(seq, (0, 1)),
+           "qwen2_params": _port_params("qwen2-72b"),
            "moe_params": {k: v[0] for k, v in moe.items()},
            "moe3_params": {k: v[0] for k, v in moe3.items()},
            # bf16-exact tokens: both packages round them to bf16 alike
@@ -660,7 +828,9 @@ def mesh_run(tmp_path_factory):
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(WORLD)]
     try:
         refs = {"step": _step_refs(inp), "moe": _moe_refs(inp),
-                "serve": _serve_refs(inp)}
+                "serve": _serve_refs(inp),
+                "seq_step": _step_refs(inp, "seq", **SEQ_KW),
+                "qwen2": _qwen2_refs(inp), "partition": _partition_refs(inp)}
         for p in procs:
             p.wait(timeout=180)
     finally:
@@ -1094,6 +1264,156 @@ def test_serve_steps_on_2x2_match_one_process(mesh_run, arch, mode):
                 part = np.take(part, range(i * step, (i + 1) * step), dim)
             np.testing.assert_allclose(cache[k], part, atol=1 / 64, rtol=0,
                                        err_msg=f"rank {r} {k}")
+
+
+@pytest.mark.parametrize("mode", ["none", "int8"])
+@pytest.mark.parametrize("path", ["heads", "seq"])
+def test_tp_train_step_on_1x4_matches_single_device_and_jax(mesh_run, path,
+                                                            mode):
+    """(j) two 1x4 steps, all four ranks on ``model``: the head path (4
+    query heads, 1 a rank; 2 kv heads, each rank computing the one its
+    query reads) and the sequence path (6 query heads: 4 rows of the 16 a
+    rank against every key), each within 2e-3 of the port's single-device
+    loss (every rank the same) and the state within the JAX bounds of
+    both the port's single-device state and the JAX state."""
+    res = _ok(mesh_run, "tp_train")
+    ref = mesh_run["refs"]["step" if path == "heads" else "seq_step"][mode]
+    losses, want = ref["port"]
+    jlosses, jstate = ref["jax"]
+    got = res[0][path][mode]
+    for r in res:
+        assert r[path][mode]["losses"] == got["losses"]
+    for a, b, c in zip(got["losses"], losses, jlosses):
+        assert abs(a - b) <= MESH_LOSS_TOL and abs(a - c) <= LOSS_TOL
+    _hold_state(want, got["state"], "port")
+    _hold_state(jstate, got["state"], "jax")
+    for r in res[1:]:
+        assert_same(got["state"], r[path][mode]["state"], "ranks")
+
+
+def test_qwen2_loss_and_bias_gradients_on_2x2(mesh_run):
+    """(k) reduced qwen2-72b (qkv biases: bq split over model with the
+    query heads, bk and bv with the kv heads) on 2x2: the loss within
+    2e-3 of the port's single-device loss and within the JAX bound, every
+    rank the same; every gradient, the biases' among them, within the JAX
+    bound of both the port's single-device gradients and JAX's."""
+    res = _ok(mesh_run, "qwen2")
+    (pl, pg), (jl, jg) = (mesh_run["refs"]["qwen2"][k]
+                          for k in ("port", "jax"))
+    got = res[0]
+    for r in res:
+        assert r["loss"] == got["loss"]
+        assert_same(got["grads"], r["grads"], "ranks")
+    assert abs(got["loss"] - pl) <= MESH_LOSS_TOL
+    assert abs(got["loss"] - jl) <= LOSS_TOL
+    assert set(got["grads"]["layers"]["attn"]) >= {"bq", "bk", "bv"}
+    assert_leaves_close(pg, got["grads"], GRAD_RTOL, "port grads")
+    assert_leaves_close(jg, got["grads"], GRAD_RTOL, "jax grads")
+
+
+def test_compute_is_partitioned_at_1x4(mesh_run):
+    """(l) At 1x4 a rank's forward and backward counts at most 0.3 of the
+    1x1 step's matrix-product FLOPs (its query head, its kv head, a
+    quarter of the MLP and of the vocabulary), peaks below the 1x1 step's
+    live bytes, and never makes a tensor of a sharded stacked parameter's
+    whole shape (L, ...): it pulls one layer at a time."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import flatten
+    from repro_torch.distributed.sharding import is_whole
+    from repro_torch.ps import stepfn
+    cfg = get_config("starcoder2-3b").reduced()
+    ms = _meshspecs((1, 4))[1]
+    shapes = stepfn.train_state_shapes(cfg, TrainConfig())["params"]
+    specs = stepfn.state_specs({"params": shapes, "opt": {}}, ms)["params"]
+    leaves = list(zip(*flatten(shapes), flatten(specs)[1]))
+    whole = {s[0] for p, s, spec in leaves
+             if p.startswith("layers/") and not is_whole(spec, ms)}
+    # (a whole shape that is also some leaf's shard shape is no witness)
+    whole -= {tuple(n // ms.size_of(e) for n, e in zip(s[0], spec))
+              for _, s, spec in leaves}
+    assert (2, 64, 128) in whole and len(whole) >= 3
+    ref = mesh_run["refs"]["partition"]
+    for r, got in enumerate(_ok(mesh_run, "partition")):
+        assert got["flops"] <= 0.3 * ref["flops"], (r, got["flops"])
+        assert got["peak"] < ref["peak"], r
+        assert not whole & got["shapes"], (r, whole & got["shapes"])
+
+
+@pytest.mark.parametrize("case", ["heads-2", "heads-4", "seq-4"])
+def test_virtual_ranks_of_one_layer_match_the_whole_layer(case):
+    """(m) Every rank's part of one layer of reduced starcoder2-3b run in
+    one process (``virtual_tp.layer``: the partial sums added in f32, the
+    sequence path's rows put together) against the whole layer: a
+    16-token prefill, the gradients of a loss through it (each rank's
+    shards views of the whole leaves, so their gradients add into the
+    whole's), and a decode step over a dense per-slot cache (each rank
+    its kv heads' slice of it).  ``model`` 2 (2 query heads and 1 kv head
+    a rank), 4 (1 query head over one of the 2 kv heads), and 6 query
+    heads over 4 (the sequence path: prefill and training only).  The
+    outputs within one bf16 step, the gradients (the input's too: the
+    ranks' bf16 cotangents are added) within the JAX bound, GRAD_RTOL of
+    each leaf's largest."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import common, lm, virtual_tp
+    from repro_torch.models.attention import identity_tables
+    path, m = case.split("-")
+    m = int(m)
+    cfg = get_config("starcoder2-3b").reduced(**(SEQ_KW if path == "seq"
+                                                 else {}))
+    lp = lm._layer(lm.init_params(cfg, 0, device="cpu")["layers"], 0)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 16, cfg.d_model), generator=g).to(torch.bfloat16)
+    w = torch.randn((2, 16, cfg.d_model), generator=g)
+    pos = torch.arange(16)[None].expand(2, 16)
+    rope = common.rope_tables(pos, cfg.hd, cfg.rope_theta)
+    runs = []
+    for virtual in (False, True):
+        leaves = {k: {n: t.detach().clone().requires_grad_()
+                      for n, t in v.items()} for k, v in lp.items()}
+        xg = x.clone().requires_grad_()
+        if virtual:
+            y, plan = virtual_tp.layer(xg, leaves, cfg, m)
+            assert plan.attn == path
+        else:
+            y, _, _ = lm._attn_layer(xg, leaves, cfg, lm.ModelKnobs(), pos,
+                                     rope)
+        (y.float() * w).sum().backward()
+        runs.append((y.detach(), xg.grad, {
+            f"{k}/{n}": t.grad for k, v in leaves.items()
+            for n, t in v.items()}))
+    (y0, gx0, g0), (y1, gx1, g1) = runs
+    assert np.all(np.abs(_np(y1) - _np(y0)) <= _bf16_steps(_np(y0)))
+    g0["x"], g1["x"] = gx0, gx1   # the ranks' bf16 cotangents added
+    for k in g0:
+        a, b = _np(g0[k]), _np(g1[k])
+        assert np.abs(a - b).max() <= GRAD_RTOL * np.abs(a).max(), k
+    if path == "seq":
+        return
+    # decode: 2 slots at positions 9 and 12 of a 16-row dense cache
+    with torch.no_grad():
+        cache = [torch.randn((2, 16, cfg.n_kv_heads, cfg.hd),
+                             generator=g).to(torch.bfloat16)
+                 for _ in range(2)]
+        p0 = torch.tensor([9, 12], dtype=torch.int32)
+        positions = p0.long()[:, None]
+        kw = dict(positions=positions,
+                  rope=common.rope_tables(positions, cfg.hd, cfg.rope_theta),
+                  pos=p0, block_tables=identity_tables(2, 16, "cpu"),
+                  rows=lm.slab_rows(positions, 16), slab=True)
+        x1 = x[:, :1]
+        plan = virtual_tp.tp_plan(cfg, m, 1, decode=True)
+        caches = []
+        for r in range(m):
+            lo, hi = plan.heads(cfg, r)[2:]
+            caches.append(tuple(c[:, :, lo:hi].clone() for c in cache))
+        yv, _ = virtual_tp.layer(x1, lp, cfg, m, caches=caches, **kw)
+        yw, _, _ = lm._attn_layer(x1, lp, cfg, lm.ModelKnobs(),
+                                  kw["positions"], kw["rope"],
+                                  tuple(c.clone() for c in cache), p0,
+                                  block_tables=kw["block_tables"],
+                                  rows=kw["rows"], slab=True)
+    assert np.all(np.abs(_np(yv) - _np(yw)) <= _bf16_steps(_np(yw)))
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:

@@ -37,7 +37,8 @@ from _torch_port import (LOGIT_TOL, _models, assert_decode_batch_matches_jax,
 
 DECODING = {"dense": "starcoder2-3b", "moe": "llama4-scout-17b-a16e",
             "vlm": "phi-3-vision-4.2b", "ssm": "falcon-mamba-7b",
-            "hybrid": "zamba2-1.2b"}
+            "hybrid": "zamba2-1.2b",
+            "qkv_bias": "qwen2-72b"}     # the dense family with biases
 FAMILIES = dict(DECODING, encoder="hubert-xlarge")
 B, P, MAX_SEQ, STEPS = 2, 12, 24, 4
 # The bounds of the family tests (test_torch_lm.py, test_torch_moe.py,
